@@ -1,0 +1,63 @@
+"""Affine image warping with bilinear sampling (the exact gather).
+
+Port of ``drone_image_stitch_cpp_tpu/ops/warp.py::warp_affine``
+(cv::warpAffine INTER_LINEAR + BORDER_CONSTANT(0), stitch_global.cpp:
+369-376). Transforms are src->dst like OpenCV and are inverted here;
+out-of-bounds taps read the constant border. This is the function the
+hand-written warp kernel (ops/warp_kernel.py) is held to.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .transform import invert_affine
+
+
+def bilinear_sample(img: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
+                    border_value: float = 0.0) -> torch.Tensor:
+    """Sample (H, W) or (H, W, C) ``img`` at float coords (Ho, Wo)."""
+    h, w = img.shape[0], img.shape[1]
+    x0 = torch.floor(sx)
+    y0 = torch.floor(sy)
+    fx = sx - x0
+    fy = sy - y0
+    x0i = x0.to(torch.long)
+    y0i = y0.to(torch.long)
+    border = torch.tensor(border_value, dtype=img.dtype, device=img.device)
+
+    def fetch(yi, xi):
+        inb = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        v = img[yi.clamp(0, h - 1), xi.clamp(0, w - 1)]
+        return torch.where(inb[..., None] if img.ndim == 3 else inb, v,
+                           border)
+
+    v00 = fetch(y0i, x0i)
+    v01 = fetch(y0i, x0i + 1)
+    v10 = fetch(y0i + 1, x0i)
+    v11 = fetch(y0i + 1, x0i + 1)
+    if img.ndim == 3:
+        fx = fx[..., None]
+        fy = fy[..., None]
+    top = v00 * (1.0 - fx) + v01 * fx
+    bot = v10 * (1.0 - fx) + v11 * fx
+    return top * (1.0 - fy) + bot * fy
+
+
+def dst_to_src_coords(inv23: torch.Tensor, out_h: int, out_w: int):
+    """Source coordinates (sx, sy) of every output pixel for a dst->src
+    (2, 3) affine, evaluated as ((a*x) + (b*y)) + c in float32."""
+    dev = inv23.device
+    dx = torch.arange(out_w, dtype=torch.float32, device=dev)[None, :]
+    dy = torch.arange(out_h, dtype=torch.float32, device=dev)[:, None]
+    sx = inv23[0, 0] * dx + inv23[0, 1] * dy + inv23[0, 2]
+    sy = inv23[1, 0] * dx + inv23[1, 1] * dy + inv23[1, 2]
+    return sx, sy
+
+
+def warp_affine(img: torch.Tensor, a23: torch.Tensor, out_h: int,
+                out_w: int, border_value: float = 0.0) -> torch.Tensor:
+    """Warp with a src->dst (2, 3) affine, bilinear, constant border."""
+    inv = invert_affine(a23.to(torch.float32))
+    sx, sy = dst_to_src_coords(inv, out_h, out_w)
+    return bilinear_sample(img.to(torch.float32), sx, sy, border_value)

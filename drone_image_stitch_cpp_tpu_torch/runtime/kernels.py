@@ -1,0 +1,98 @@
+"""Build-at-first-use of the CUDA kernels under ``csrc/``.
+
+Each kernel source is compiled by ``nvcc`` into a shared library with a
+plain C interface and loaded with ``ctypes`` (no PyTorch headers: a build
+takes seconds, not minutes). Libraries land in ``build/kernels/`` at the
+repository root, keyed by a hash of the source and the flags, so an edited
+source rebuilds and an unchanged one is reused.
+
+Nothing here runs at import time: the first launch of a kernel builds it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from dataclasses import dataclass
+from typing import Dict
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused a kernel source."""
+
+
+@dataclass
+class BuiltKernel:
+    lib: ctypes.CDLL
+    path: str
+    seconds: float      # 0.0 when the library was already built
+    ptxas: str          # nvcc's -Xptxas -v report (registers, smem, spills)
+
+
+_LOCK = threading.Lock()
+_BUILT: Dict[str, BuiltKernel] = {}
+
+
+def _nvcc() -> str:
+    cands = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                          "bin", "nvcc"), shutil.which("nvcc")]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise KernelBuildError(
+        "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
+        "PATH): the CUDA kernels build only where the CUDA toolkit is "
+        "installed")
+
+
+def load_kernel(source: str) -> BuiltKernel:
+    """Build (once per source hash) and load ``csrc/<source>``."""
+    with _LOCK:
+        if source in _BUILT:
+            return _BUILT[source]
+        src_path = os.path.join(CSRC_DIR, source)
+        with open(src_path, "rb") as f:
+            digest = hashlib.sha256(
+                f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        stem = os.path.splitext(source)[0]
+        lib_path = os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
+        log_path = lib_path + ".ptxas.txt"
+        seconds = 0.0
+        if not os.path.exists(lib_path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, src_path],
+                capture_output=True, text=True)
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise KernelBuildError(
+                    f"nvcc failed on {source} (rc={proc.returncode}):\n"
+                    f"{proc.stderr[-4000:]}")
+            with open(log_path, "w") as f:
+                f.write(proc.stderr)
+            os.replace(tmp, lib_path)
+        ptxas = ""
+        if os.path.exists(log_path):
+            with open(log_path) as f:
+                ptxas = f.read()
+        built = BuiltKernel(lib=ctypes.CDLL(lib_path), path=lib_path,
+                            seconds=seconds, ptxas=ptxas)
+        _BUILT[source] = built
+        return built
