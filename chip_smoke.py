@@ -4,24 +4,41 @@
 
 Phases (one line each; any failure exits nonzero and prints no result):
   1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
-  2. build both CUDA kernels from csrc/ (build/kernels/, keyed by source);
+  2. build both CUDA kernels from csrc/ (build/kernels/, keyed by source;
+     one nvcc per source), with ptxas's registers and spills;
   3. each kernel's wrapper against its plain PyTorch version on the card
-     at the shapes the main path gives it (K1 at both detect
-     resolutions), with timings (median of 10);
+     at the shapes the main path gives it: K1 at both detect resolutions
+     (two launches bit-identical; the padded-stack build that feeds it
+     timed beside it), K2 at the compose-feed window and, batched, at the
+     seam scale (bit-equal to the plain warps). Times: the wrapper per
+     call (ms: CUDA events around one call on an idle card, median of 10,
+     so its host set-up counts; wrapper_b2b_ms: 20 calls back to back / 20,
+     where host and device overlap), the bare launch (device_ms: events
+     around 20 back-to-back launches / 20, median of 5) and, for K2, one
+     F.grid_sample call on the same input (library_ms, a yardstick the
+     port never calls);
   4. the single-flight-line main path (app.stitch_frames) on a rendered
      12-frame 2160x3840 corridor sortie, once to warm up and once measured:
      one group, frame offsets within 1 px, panorama size, GT-RMSE, and the
      kernels' launch counts in the measured pass;
   5. optional: the port's CLI on a 4-frame JPEG folder, when this machine
      can encode JPEGs (run in child processes; reported, not required).
-The line before the last is a JSON object with each kernel's numbers; the
-last line is {"ok": true, "device": {...}}.
+The line before the last is a JSON object with each kernel's numbers:
+bound_ms is the larger of the bytes the call must move (each input byte
+it needs read once: for K1 the stack pixels that its keypoints' needed
+gradients tap, for K2 the source pixels its taps touch; each output
+written once) over 3.35 TB/s and its float32 operations (for K1 counted
+from its plain version over the gradients, orientation-box and descriptor
+terms this run needs, transcendental functions as one) over 67 TFLOP/s;
+share = bound_ms / device_ms. The last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -39,6 +56,8 @@ K2_WIN = (2176, 3904)               # ROI window of a 4K frame at 5 bands
 GT_RMSE_MAX = 8.0                   # blurred RMSE bound vs the ortho crop
 OFFSET_TOL_PX = 1.0
 SIZE_TOL_PX = 4
+HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
+FP32_OPS_PER_S = 67e12              # float32 outside the tensor cores
 
 
 def _fail(phase: str, msg: str) -> None:
@@ -61,6 +80,32 @@ def _median_ms(fn, torch, reps: int = 10) -> float:
     return float(np.median(times))
 
 
+def _device_ms(fn, torch, launches: int = 20, reps: int = 5) -> float:
+    """Device time of one call: CUDA events around ``launches`` back-to-
+    back calls, divided by ``launches`` (median of ``reps``)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(launches):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return float(np.median(times))
+
+
+def _bound(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by) of a call that moves n_bytes and does n_ops."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
 def phase_environment(torch) -> str:
     from drone_image_stitch_cpp_tpu_torch.runtime.device import (
         card_name_and_power_limit)
@@ -75,16 +120,29 @@ def phase_environment(torch) -> str:
     return card
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Build both kernels, one nvcc each; returns each source's
+    (registers, spill bytes) as ptxas reports them."""
+    from drone_image_stitch_cpp_tpu_torch.ops import sift_kernel as SK
+    from drone_image_stitch_cpp_tpu_torch.ops import warp_kernel as WK
     from drone_image_stitch_cpp_tpu_torch.runtime.kernels import load_kernel
-    for src in ("sift_orient_desc.cu", "warp_affine.cu"):
-        t0 = time.perf_counter()
-        k = load_kernel(src)
-        regs = [ln.strip() for ln in k.ptxas.splitlines()
-                if "registers" in ln or "spill" in ln]
-        print(f"[smoke] build {src}: nvcc {k.seconds:.2f} s, load "
-              f"{time.perf_counter() - t0:.2f} s; ptxas: "
-              f"{' | '.join(regs)}", flush=True)
+
+    t0 = time.perf_counter()
+    out = {}
+    for m in (SK, WK):
+        k = load_kernel(m.KERNEL_SOURCE, m.KERNEL_SIGNATURES)
+        lines = [ln.strip() for ln in k.ptxas.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers",
+                                           k.ptxas)]
+        spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill",
+                                               k.ptxas))
+        out[m.KERNEL_SOURCE] = (max(regs, default=-1), spill)
+        print(f"[smoke] build {m.KERNEL_SOURCE}: nvcc {k.seconds:.2f} s; "
+              f"ptxas: {' | '.join(lines)}", flush=True)
+    print(f"[smoke] build: both kernels in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    return out
 
 
 def render_sortie(torch, dev):
@@ -99,11 +157,95 @@ def render_sortie(torch, dev):
     return ortho, imgs, ids, pos
 
 
+def _k1_work(torch, gauss, layer, yf, xf, sigma, true_h, true_w, angle):
+    """What one K1 call needs on these keypoints, by the plain version's
+    geometry and this run's angles: (stack pixels read, gradients,
+    orientation-box terms, descriptor terms). A gradient is needed where it
+    is valid in its octave and lies in the orientation box (|dy|, |dx| <=
+    round(4.5 sigma) around the rounded centre) or in the descriptor square
+    (rbin, cbin in (-1, 4) in the frame rotated by the keypoint's angle); a
+    stack pixel is read when it is one of a needed gradient's four
+    central-difference taps, once however many keypoints share it."""
+    from drone_image_stitch_cpp_tpu_torch.ops.sift_kernel import (
+        support_radius)
+    l_, h_, w_ = gauss.shape
+    dev = gauss.device
+    used = torch.zeros((l_, h_, w_), dtype=torch.bool, device=dev)
+    g = support_radius(float(sigma.max())) - 1
+    off = torch.arange(-g, g + 1, device=dev)
+    n_grad = n_ori = n_desc = 0
+    for c0 in range(0, layer.numel(), 1024):
+        sl = slice(c0, c0 + 1024)
+        li = layer[sl].long().clamp(0, l_ - 1)
+        y, x, s = yf[sl], xf[sl], sigma[sl]
+        rows = torch.round(y).long()[:, None] + off              # (n, 2g+1)
+        cols = torch.round(x).long()[:, None] + off
+        rf, cf = rows.float(), cols.float()
+        valid = (((rf >= 1) & (rf <= true_h[sl, None] - 2))[:, :, None]
+                 & ((cf >= 1) & (cf <= true_w[sl, None] - 2))[:, None, :])
+        ro = torch.round(4.5 * s)[:, None]
+        near = off.abs()[None, :] <= ro
+        obox = near[:, :, None] & near[:, None, :] & valid
+        a = angle[sl][:, None, None]
+        ca, sa = torch.cos(a), torch.sin(a)
+        hw = 3.0 * s[:, None, None]
+        dx = cf[:, None, :] - x[:, None, None]
+        dy = rf[:, :, None] - y[:, None, None]
+        cbin = (ca * dx - sa * dy) / hw + 1.5
+        rbin = (sa * dx + ca * dy) / hw + 1.5
+        square = ((rbin > -1) & (rbin < 4) & (cbin > -1) & (cbin < 4)
+                  & valid)
+        need = obox | square
+        n_grad += int(need.sum())
+        n_ori += int(obox.sum())
+        n_desc += int(square.sum())
+        flat = ((li[:, None, None] * h_ + rows[:, :, None]) * w_
+                + cols[:, None, :])
+        used.view(-1)[flat[need]] = True
+    reads = torch.zeros_like(used)
+    reads[:, :-1] |= used[:, 1:]
+    reads[:, 1:] |= used[:, :-1]
+    reads[:, :, :-1] |= used[:, :, 1:]
+    reads[:, :, 1:] |= used[:, :, :-1]
+    return int(reads.sum()), n_grad, n_ori, n_desc
+
+
+# K1's float32 operations, counted from its plain version
+# (ops/sift_kernel._plain_chunk) on what the function needs; a
+# transcendental function (sqrt, atan2, exp, sin, cos) counts as one,
+# index arithmetic and comparisons as none
+K1_GRAD_OPS = 9    # gx, gy (sub, x0.5 each), gx^2 + gy^2 (3), sqrt, atan2
+K1_ORI_OPS = 10    # dy^2 + dx^2 (3), / 2 sig^2, exp, x mag, theta / 2pi x 36
+#                    (2), round, the histogram add
+K1_DESC_OPS = 62   # dx, dy (2); u, v (8); rbin, cbin (2); orientation bin
+#                    (4); Gaussian weight (5); x mag; the 2 row, 2 column
+#                    and 2 orientation hats that reach bins (3 each);
+#                    14 products; 8 histogram adds
+K1_KP_OPS = 36 * 7 + 36 + 10 + 128 * 9 + 2   # smoothing, argmax, peak,
+#                    angle, sin, cos; two normalisations with clip, x512
+
+
+def _k1_bound(torch, gauss, layer, yf, xf, sigma, true_h, true_w, angle):
+    """(bound_ms, bound_by, MB, GFLOP) of one K1 call on these keypoints:
+    bytes are the stack pixels it must read (_k1_work), the six keypoint
+    fields (layer int64) and the outputs; operations as counted above."""
+    pixels, n_grad, n_ori, n_desc = _k1_work(torch, gauss, layer, yf, xf,
+                                             sigma, true_h, true_w, angle)
+    n = layer.numel()
+    n_bytes = 4.0 * pixels + (8 + 5 * 4.0) * n + 129 * 4.0 * n
+    n_ops = float(K1_GRAD_OPS * n_grad + K1_ORI_OPS * n_ori
+                  + K1_DESC_OPS * n_desc + K1_KP_OPS * n)
+    b_ms, b_by = _bound(n_bytes, n_ops)
+    return b_ms, b_by, n_bytes / 1e6, n_ops / 1e9
+
+
 def _k1_check(torch, dev, imgs, label, mpx, n_kp):
     """K1's wrapper (as the main path calls it) against its plain version
-    on the Gaussian stack of one 8-frame detect batch at ``mpx``."""
+    on the Gaussian stack of one 8-frame detect batch at ``mpx``; two
+    launches must agree bit for bit."""
     from drone_image_stitch_cpp_tpu_torch.ops.color import bgr_to_gray
-    from drone_image_stitch_cpp_tpu_torch.ops.features import select_keypoints
+    from drone_image_stitch_cpp_tpu_torch.ops.features import (
+        build_scale_space, flat_gauss_stack, num_octaves, select_keypoints)
     from drone_image_stitch_cpp_tpu_torch.ops.resize import (
         resize_area, scale_for_megapixels)
     from drone_image_stitch_cpp_tpu_torch.ops import sift_kernel as SK
@@ -116,13 +258,17 @@ def _k1_check(torch, dev, imgs, label, mpx, n_kp):
     sel = select_keypoints(gray, n_kp)
     kp = (sel.gauss_flat, sel.flat_layer, sel.yf, sel.xf, sel.sigma,
           sel.true_h, sel.true_w)
-    flat = (sel.gauss_flat, sel.flat_layer.reshape(-1).int().contiguous(),
+    flat = (sel.gauss_flat, sel.flat_layer.reshape(-1).contiguous(),
             *(a.reshape(-1).float().contiguous() for a in
               (sel.yf, sel.xf, sel.sigma, sel.true_h, sel.true_w)))
     ang_k, desc_k = SK.orientation_descriptor_flat(*kp)
     ang_k, desc_k = ang_k.reshape(-1), desc_k.reshape(-1, 128)
+    ang_k2, desc_k2 = SK.orientation_descriptor_flat(*kp)
     ang_p, desc_p = SK.orientation_descriptor_plain(*flat)
     torch.cuda.synchronize()
+    if not (torch.equal(ang_k, ang_k2.reshape(-1))
+            and torch.equal(desc_k, desc_k2.reshape(-1, 128))):
+        _fail("k1", f"{label}: two launches on the same input differ")
     v = sel.valid.reshape(-1)
     nv = int(v.sum())
     if not (torch.isfinite(ang_k).all() and torch.isfinite(desc_k).all()):
@@ -141,14 +287,32 @@ def _k1_check(torch, dev, imgs, label, mpx, n_kp):
                     f"max L2 {worst:.3f} (need < 25), angle flips {flips} "
                     f"of {nv} (need <= 1%)")
     ms = _median_ms(lambda: SK.orientation_descriptor_flat(*kp), torch)
+    b2b_ms = _device_ms(lambda: SK.orientation_descriptor_flat(*kp), torch)
+    radius = SK.support_radius(flat[4])
+    device_ms = _device_ms(lambda: SK._launch(flat[0], radius, *flat[1:]),
+                           torch)
     plain_ms = _median_ms(lambda: SK.orientation_descriptor_plain(*flat),
                           torch)
+    octs = build_scale_space(gray, 3, num_octaves(wh, ww, False), False)
+    stack_ms = _median_ms(lambda: flat_gauss_stack(octs), torch)
+    stack_mb = sel.gauss_flat.numel() * 4 / 1e6
+    del octs
+    bound_ms, bound_by, mb, gflop = _k1_bound(torch, *flat, ang_k)
     print(f"[smoke] k1 sift_orient_desc {label}: {nv} valid keypoints of "
           f"{v.numel()} on a {tuple(sel.gauss_flat.shape)} stack; "
           f"close (angle<0.02 rad, L2<2) {frac:.5f}; angle flips {flips}; "
-          f"max L2 {worst:.4f}; max |d desc| {max_err:.4f}; "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
-    return max_err, ms, plain_ms
+          f"max L2 {worst:.4f}; max |d desc| {max_err:.4f}; two launches "
+          f"bit-identical; wrapper {ms:.4f} ms ({b2b_ms:.4f} ms back to "
+          f"back), device {device_ms:.4f} ms, "
+          f"plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+          f"({mb:.1f} MB, {gflop:.3f} GFLOP), share "
+          f"{bound_ms / device_ms:.3f}; padded-stack build {stack_ms:.4f} "
+          f"ms ({stack_mb:.0f} MB)", flush=True)
+    return {"max_abs_err": max_err, "ms": ms, "wrapper_b2b_ms": b2b_ms,
+            "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "share": bound_ms / device_ms, "stack_build_ms": stack_ms,
+            "keypoints": v.numel()}
 
 
 def phase_k1(torch, dev, imgs, tuning):
@@ -157,18 +321,62 @@ def phase_k1(torch, dev, imgs, tuning):
     feature budget, grouping/flight_grouper.estimate_relations)."""
     from drone_image_stitch_cpp_tpu_torch.grouping.flight_grouper import (
         _MAX_DIM)
-    err_r, ms, plain_ms = _k1_check(torch, dev, imgs, "registration",
-                                    tuning.registration_resol_mpx, K1_KP)
+    reg = _k1_check(torch, dev, imgs, "registration",
+                    tuning.registration_resol_mpx, K1_KP)
     group_mpx = FRAME_H * FRAME_W * min(
         1.0, (_MAX_DIM / max(FRAME_H, FRAME_W)) ** 2) / 1e6
     group_kp = int(np.clip(tuning.strip_sift_features, 600, 1800))
-    err_g, _, _ = _k1_check(torch, dev, imgs, "grouping", group_mpx,
-                            group_kp)
+    grp = _k1_check(torch, dev, imgs, "grouping", group_mpx, group_kp)
     return {"name": "sift_orient_desc", "route": "cuda",
             "source": "drone_image_stitch_cpp_tpu_torch/csrc/"
                       "sift_orient_desc.cu",
             "replaces": "drone_image_stitch_cpp_tpu/ops/pallas_sift.py:308",
-            "max_abs_err": max(err_r, err_g), "ms": ms, "plain_ms": plain_ms}
+            **{k: reg[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "device_ms", "share", "wrapper_b2b_ms",
+                                   "stack_build_ms")},
+            "max_abs_err": max(reg["max_abs_err"], grp["max_abs_err"]),
+            "library_ms": None, "grouping": grp}
+
+
+def _k2_source_pixels(torch, dev, inv, h, w, oh, ow):
+    """Source pixels that the bilinear taps of an (oh, ow) warp touch."""
+    from drone_image_stitch_cpp_tpu_torch.ops.warp import dst_to_src_coords
+    inv23 = torch.tensor(inv, dtype=torch.float32, device=dev).reshape(2, 3)
+    sx, sy = dst_to_src_coords(inv23, oh, ow)
+    x0, y0 = torch.floor(sx).long(), torch.floor(sy).long()
+    touched = torch.zeros((h, w), dtype=torch.bool, device=dev)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            yy, xx = y0 + dy, x0 + dx
+            ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+            touched[yy[ok], xx[ok]] = True
+    return int(touched.sum())
+
+
+def _k2_library(torch, dev, frames_u8, invs, oh, ow):
+    """F.grid_sample (bilinear, zeros, align_corners=True) on (N, 4, H, W)
+    float32 (BGR + ones) with K2's sample grid; input and grid are built
+    here, outside the timed call. Returns (ms, its (N, 4, oh, ow) output)."""
+    import torch.nn.functional as F
+    from drone_image_stitch_cpp_tpu_torch.ops.warp import dst_to_src_coords
+    n, h, w = frames_u8.shape[:3]
+    src = torch.cat([frames_u8.permute(0, 3, 1, 2).float(),
+                     torch.ones((n, 1, h, w), device=dev)], dim=1)
+    grids = []
+    for inv in invs:
+        inv23 = torch.tensor(inv, dtype=torch.float32,
+                             device=dev).reshape(2, 3)
+        sx, sy = dst_to_src_coords(inv23, oh, ow)
+        grids.append(torch.stack([sx / (w - 1) * 2 - 1,
+                                  sy / (h - 1) * 2 - 1], dim=-1))
+    grid = torch.stack(grids)
+
+    def call():
+        return F.grid_sample(src, grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+
+    out = call()
+    return _median_ms(call, torch), out
 
 
 def phase_k2(torch, dev, img):
@@ -185,8 +393,9 @@ def phase_k2(torch, dev, img):
     a23 = a23.astype(np.float32)
     frame = torch.from_numpy(img).to(dev)
     oh, ow = K2_WIN
+    inv = WK.inverse_coeffs(a23)
     wk, mk = WK.warp_frame(frame, a23, oh, ow)
-    wp, mp = WK.warp_frame_plain(frame, WK.inverse_coeffs(a23), oh, ow)
+    wp, mp = WK.warp_frame_plain(frame, inv, oh, ow)
     torch.cuda.synchronize()
     d = torch.cat([(wk - wp).abs().reshape(-1), (mk - mp).abs().reshape(-1)])
     max_err, mean_err = float(d.max()), float(d.mean())
@@ -194,24 +403,95 @@ def phase_k2(torch, dev, img):
     if max_err > 0.5 or mean_err > 1e-3 or covered < 0.5:
         _fail("k2", f"max |d| {max_err} (<= 0.5), mean {mean_err} "
                     f"(<= 1e-3), covered {covered:.3f}")
+    if not (torch.equal(wk, wp) and torch.equal(mk, mp)):
+        _fail("k2", f"not bit-identical to the plain version (max |d| "
+                    f"{max_err})")
     ms = _median_ms(lambda: WK.warp_frame(frame, a23, oh, ow), torch)
-    plain_ms = _median_ms(lambda: WK.warp_frame_plain(
-        frame, WK.inverse_coeffs(a23), oh, ow), torch)
+    b2b_ms = _device_ms(lambda: WK.warp_frame(frame, a23, oh, ow), torch)
+    device_ms = _device_ms(lambda: WK._launch(frame, 1, inv, oh, ow), torch)
+    plain_ms = _median_ms(lambda: WK.warp_frame_plain(frame, inv, oh, ow),
+                          torch)
+    library_ms, lib = _k2_library(torch, dev, frame[None], [inv], oh, ow)
+    lib_err = float(torch.maximum(
+        (lib[0, :3].permute(1, 2, 0) - wk).abs().max(),
+        (lib[0, 3] - mk).abs().max()))
+    del lib
+    src_px = _k2_source_pixels(torch, dev, inv, FRAME_H, FRAME_W, oh, ow)
+    bound_ms, bound_by = _bound(3.0 * src_px + 16.0 * oh * ow,
+                                30.0 * oh * ow)
     print(f"[smoke] k2 warp_affine: {FRAME_H}x{FRAME_W} u8 -> {oh}x{ow}x3 "
-          f"+ mask, window coverage {covered:.3f}; max |d| {max_err:.3g}, "
-          f"mean |d| {mean_err:.3g}; kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms", flush=True)
+          f"+ mask, window coverage {covered:.3f}; bit-identical to plain; "
+          f"wrapper {ms:.4f} ms ({b2b_ms:.4f} ms back to back), device "
+          f"{device_ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, grid_sample {library_ms:.4f} ms (max |d| "
+          f"{lib_err:.3g}); bound {bound_ms:.4f} ms by {bound_by} "
+          f"({(3.0 * src_px + 16.0 * oh * ow) / 1e6:.1f} MB), share "
+          f"{bound_ms / device_ms:.3f}", flush=True)
     return {"name": "warp_affine", "route": "cuda",
             "source": "drone_image_stitch_cpp_tpu_torch/csrc/warp_affine.cu",
             "replaces": "drone_image_stitch_cpp_tpu/ops/pallas_warp.py:234",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "device_ms": device_ms,
+            "share": bound_ms / device_ms, "wrapper_b2b_ms": b2b_ms}
+
+
+def phase_k2_batch(torch, dev, imgs, pos, tuning):
+    """The batched K2 as the strip compose calls it: every frame of the
+    line into the seam-scale canvas in one launch, each frame bit-equal to
+    its plain warp."""
+    from drone_image_stitch_cpp_tpu_torch.ops import warp_kernel as WK
+    from drone_image_stitch_cpp_tpu_torch.ops.blend import align_up
+    from drone_image_stitch_cpp_tpu_torch.ops.resize import (
+        scale_for_megapixels)
+    ys = [p[0] for p in pos]
+    xs = [p[1] for p in pos]
+    canvas_h = max(ys) - min(ys) + FRAME_H
+    canvas_w = max(xs) - min(xs) + FRAME_W
+    ss = scale_for_megapixels(FRAME_H, FRAME_W,
+                              tuning.seam_estimation_resol_mpx)
+    sh = align_up(int(round(canvas_h * ss)), 64)
+    sw = align_up(int(round(canvas_w * ss)), 64)
+    a23s = np.stack([np.asarray([[ss, 0, ss * (x - min(xs))],
+                                 [0, ss, ss * (y - min(ys))]], np.float32)
+                     for y, x in pos])
+    frames = torch.from_numpy(np.stack(imgs)).to(dev)
+    invs = [WK.inverse_coeffs(a) for a in a23s]
+    wk, mk = WK.warp_frames(frames, a23s, sh, sw)
+    for k in range(len(imgs)):
+        wp, mp = WK.warp_frame_plain(frames[k], invs[k], sh, sw)
+        if not (torch.equal(wk[k], wp) and torch.equal(mk[k], mp)):
+            _fail("k2", f"seam batch: frame {k} differs from its plain warp")
+    table = torch.tensor(invs, dtype=torch.float32, device=dev)
+    ms = _median_ms(lambda: WK.warp_frames(frames, a23s, sh, sw), torch)
+    device_ms = _device_ms(lambda: WK._launch(frames, len(imgs), table, sh,
+                                              sw), torch)
+    plain_ms = _median_ms(lambda: WK.warp_frames_plain(frames, invs, sh, sw),
+                          torch)
+    library_ms, lib = _k2_library(torch, dev, frames, invs, sh, sw)
+    del lib
+    src_px = sum(_k2_source_pixels(torch, dev, inv, FRAME_H, FRAME_W, sh,
+                                   sw) for inv in invs)
+    n_out = len(imgs) * sh * sw
+    bound_ms, bound_by = _bound(3.0 * src_px + 16.0 * n_out, 30.0 * n_out)
+    print(f"[smoke] k2 warp_affine seam batch: {len(imgs)} x {FRAME_H}x"
+          f"{FRAME_W} u8 -> {sh}x{sw} (seam scale {ss:.4f}) in one launch, "
+          f"every frame bit-identical to plain; wrapper {ms:.4f} ms, device "
+          f"{device_ms:.4f} ms, plain {plain_ms:.3f} ms, grid_sample "
+          f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}, "
+          f"share {bound_ms / device_ms:.3f}", flush=True)
+    return {"shape": [len(imgs), sh, sw], "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share": bound_ms / device_ms}
 
 
 def phase_slice(torch, dev, ortho, imgs, ids, pos, tuning):
     from drone_image_stitch_cpp_tpu_torch.app import stitch_frames
     from drone_image_stitch_cpp_tpu_torch.ops.sift_kernel import (
         orientation_descriptor_flat)
-    from drone_image_stitch_cpp_tpu_torch.ops.warp_kernel import warp_frame
+    from drone_image_stitch_cpp_tpu_torch.ops.warp_kernel import (
+        warp_frame, warp_frames)
     from drone_image_stitch_cpp_tpu_torch.runtime.logging import get_logger
     from drone_image_stitch_cpp_tpu_torch.utils.synthetic import gt_rmse
 
@@ -226,12 +506,14 @@ def phase_slice(torch, dev, ortho, imgs, ids, pos, tuning):
     torch.cuda.reset_peak_memory_stats(dev)
     orientation_descriptor_flat.launches = 0
     warp_frame.launches = 0
+    warp_frames.launches = 0
     t0 = time.perf_counter()
     res = stitch_frames(imgs, ids, tuning, dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"sift_orient_desc": orientation_descriptor_flat.launches,
-                "warp_affine": warp_frame.launches}
+                "warp_affine": warp_frame.launches + warp_frames.launches}
+    k2_split = (warp_frame.launches, warp_frames.launches)
     peak = torch.cuda.max_memory_allocated(dev)
     tm = log.timings()
     stages = {k: tm.get(v) for k, v in (
@@ -274,10 +556,15 @@ def phase_slice(torch, dev, ortho, imgs, ids, pos, tuning):
     print(f"[smoke] slice stages (s): " + ", ".join(
         f"{k}={v}" for k, v in stages.items()), flush=True)
     print(f"[smoke] slice peak memory {peak / 2**30:.3f} GiB "
-          f"(max_memory_allocated), launches {launches}", flush=True)
+          f"(max_memory_allocated), launches {launches} (K2: "
+          f"{k2_split[0]} compose feeds + {k2_split[1]} seam batch)",
+          flush=True)
     for name, n in launches.items():
         if n <= 0:
             _fail("slice", f"kernel {name} never launched on the main path")
+    if k2_split[1] != 1:
+        _fail("slice", f"seam warps took {k2_split[1]} batched launches, "
+                       f"expected 1")
     return launches
 
 
@@ -343,22 +630,29 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     card = phase_environment(torch)
-    phase_build()
+    ptxas = phase_build()
     tuning = load_stitch_tuning("visible")
     ortho, imgs, ids, pos = render_sortie(torch, dev)
     k1 = phase_k1(torch, dev, imgs, tuning)
     k2 = phase_k2(torch, dev, imgs[len(imgs) // 2])
+    k2["seam_batch"] = phase_k2_batch(torch, dev, imgs, pos, tuning)
     torch.cuda.empty_cache()
     launches = phase_slice(torch, dev, ortho, imgs, ids, pos, tuning)
     torch.cuda.empty_cache()
     phase_cli(imgs)
     k1["launches"] = launches["sift_orient_desc"]
     k2["launches"] = launches["warp_affine"]
+    for d in (k1, k2):
+        d["registers"], d["spill_bytes"] = ptxas[d["source"].split("/")[-1]]
+        d["card"] = card
     order = ("name", "route", "source", "replaces", "launches",
-             "max_abs_err", "ms", "plain_ms")
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "share", "device_ms")
     print(card)
-    print(json.dumps({"kernels": [{k: d[k] for k in order}
-                                  for d in (k1, k2)]}))
+    print(json.dumps({"kernels": [
+        {**{k: d[k] for k in order},
+         **{k: v for k, v in d.items() if k not in order}}
+        for d in (k1, k2)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

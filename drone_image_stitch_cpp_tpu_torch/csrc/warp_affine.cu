@@ -1,28 +1,30 @@
-// K2: exact bilinear affine warp of a uint8 BGR frame + its content mask.
+// K2: exact bilinear affine warp of uint8 BGR frames + their content masks.
 //
 // Replaces the Pallas TPU kernel drone_image_stitch_cpp_tpu/ops/
-// pallas_warp.py::_kernel (launched through _run, four launches per compose
-// feed: three channels and the content mask, compose_feed.py:92,97). The
-// TPU kernel avoided gathers with a two-pass shift-select that is only
-// valid for near-identity transforms (|linear - I| <= 0.05). On the H100 a
-// gather is cheap, so this kernel is the direct per-pixel bilinear gather
-// of ops/warp.warp_affine for any affine, with no envelope and no tile
-// plan, and ONE launch reads the uint8 frame and writes all three float32
-// channels plus the warped all-ones content mask.
+// pallas_warp.py::_kernel (launched through _run; entries warp_affine and
+// warp_affine_many; four launches per compose feed on the TPU: three
+// channels and the content mask, compose_feed.py:92,97). The TPU kernel
+// avoided gathers with a two-pass shift-select that is only valid for
+// near-identity transforms (|linear - I| <= 0.05). On the H100 a gather is
+// cheap, so this kernel is the direct per-pixel bilinear gather of
+// ops/warp.warp_affine for any affine, and ONE launch reads N uint8 frames
+// and writes all three float32 channels plus the warped all-ones content
+// mask of each (grid: pixel blocks x frames).
 //
-// What bounds it on the H100: memory traffic. Per output pixel it writes
-// 16 bytes (3 channels + mask, float32) and reads 4 taps x 3 bytes of
-// uint8 source; a 2176x3904 window is ~136 MB written and ~25 MB of
-// source read (taps of neighbouring threads share cache lines, so the
-// source is read about once through L2). One thread per output pixel keeps
-// the design simple; coalescing of the 12-byte pixel stores is left to a
-// later pass.
+// What bounds it on the H100: memory traffic, almost all of it stores. Per
+// output pixel it writes 16 bytes (3 channels + mask, float32) and reads
+// 4 taps x 3 bytes of uint8 source; a 2176x3904 window is ~136 MB written
+// and ~25 MB of source read. So each thread produces 4 consecutive output
+// pixels and writes them as three 16-byte stores of BGR (48 B) and one
+// 16-byte store of the mask; a tap pixel is read as the aligned 32-bit
+// word(s) holding its 3 bytes, not byte by byte.
 //
-// Rounding: source coordinates are ((i00*x) + (i01*y)) + i02 and the blend
-// is ((v00*(1-fx)) + (v01*fx))*(1-fy) + ..., each step rounded to nearest
-// with __fmul_rn/__fadd_rn so nvcc cannot contract them into FMAs. That is
-// the operation order of the plain PyTorch version, so both agree even at
-// canvas coordinates of ~1.6e4 px where an FMA would move fx visibly.
+// Rounding: each pixel's source coordinates are ((i00*x) + (i01*y)) + i02
+// from its own (x, y), and the blend is ((v00*(1-fx)) + (v01*fx))*(1-fy)
+// + ..., each step rounded to nearest with __fmul_rn/__fadd_rn so nvcc
+// cannot contract them into FMAs. That is the operation order of the plain
+// PyTorch version, so both agree bit for bit even at canvas coordinates of
+// ~1.6e4 px where an FMA would move fx visibly.
 //
 // Plain C interface for ctypes; returns the cudaGetLastError() code.
 
@@ -32,11 +34,23 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kPix = 4;              // output pixels per thread
 
-__device__ __forceinline__ float tap(const uint8_t* __restrict__ src, int h,
-                                     int w, int y, int x, int c, bool* inb) {
-  *inb = (y >= 0) & (y < h) & (x >= 0) & (x < w);
-  return *inb ? (float)src[((size_t)y * w + x) * 3 + c] : 0.f;
+struct Coeffs {
+  float i00, i01, i02, i10, i11, i12;
+};
+
+// The 3 bytes of the pixel at src + off (B in the low byte), read as the
+// aligned word that holds the first byte and, when the pixel straddles a
+// word boundary, the next one. Both words hold a byte of this pixel, so
+// neither read leaves the frame's pages.
+__device__ __forceinline__ uint32_t load_bgr(const uint8_t* src, size_t off) {
+  const uintptr_t addr = (uintptr_t)(src + off);
+  const uint32_t* word = (const uint32_t*)(addr & ~(uintptr_t)3);
+  const uint32_t sh = (uint32_t)(addr & 3);
+  const uint32_t lo = __ldg(word);
+  const uint32_t hi = sh > 1 ? __ldg(word + 1) : 0u;
+  return __funnelshift_r(lo, hi, 8 * sh);
 }
 
 __device__ __forceinline__ float lerp2(float v00, float v01, float v10,
@@ -48,48 +62,127 @@ __device__ __forceinline__ float lerp2(float v00, float v01, float v10,
   return __fadd_rn(__fmul_rn(top, gy), __fmul_rn(bot, fy));
 }
 
-__global__ void __launch_bounds__(kThreads)
-warp_affine_u8_kernel(const uint8_t* __restrict__ src, int h, int w,
-                      float i00, float i01, float i02, float i10, float i11,
-                      float i12, float* __restrict__ out,
-                      float* __restrict__ mask, int out_h, int out_w) {
-  const size_t p = (size_t)blockIdx.x * kThreads + threadIdx.x;
-  if (p >= (size_t)out_h * out_w) return;
-  const float x = (float)(int)(p % out_w);
-  const float y = (float)(int)(p / out_w);
-  const float sx = __fadd_rn(__fadd_rn(__fmul_rn(i00, x), __fmul_rn(i01, y)),
-                             i02);
-  const float sy = __fadd_rn(__fadd_rn(__fmul_rn(i10, x), __fmul_rn(i11, y)),
-                             i12);
+__device__ __forceinline__ float channel(uint32_t v, int c) {
+  return (float)((v >> (8 * c)) & 0xffu);
+}
+
+// One output pixel (x, y): BGR into v[0..2], footprint into *m.
+__device__ __forceinline__ void warp_pixel(const uint8_t* __restrict__ src,
+                                           int h, int w, const Coeffs& k,
+                                           int x, int y, float* v,
+                                           float* m) {
+  const float xf = (float)x;
+  const float yf = (float)y;
+  const float sx = __fadd_rn(__fadd_rn(__fmul_rn(k.i00, xf),
+                                       __fmul_rn(k.i01, yf)), k.i02);
+  const float sy = __fadd_rn(__fadd_rn(__fmul_rn(k.i10, xf),
+                                       __fmul_rn(k.i11, yf)), k.i12);
   const float x0 = floorf(sx);
   const float y0 = floorf(sy);
   const float fx = __fsub_rn(sx, x0);
   const float fy = __fsub_rn(sy, y0);
-  // saturating conversion; out-of-range taps fail the bounds test below
+  // saturating conversion; out-of-range taps fail the bounds tests below
   const int xi = (int)fmaxf(fminf(x0, 2.0e9f), -2.0e9f);
   const int yi = (int)fmaxf(fminf(y0, 2.0e9f), -2.0e9f);
-  bool b00, b01, b10, b11;
-  for (int c = 0; c < 3; ++c) {
-    const float v00 = tap(src, h, w, yi, xi, c, &b00);
-    const float v01 = tap(src, h, w, yi, xi + 1, c, &b01);
-    const float v10 = tap(src, h, w, yi + 1, xi, c, &b10);
-    const float v11 = tap(src, h, w, yi + 1, xi + 1, c, &b11);
-    out[p * 3 + c] = lerp2(v00, v01, v10, v11, fx, fy);
+  const bool cx0 = (xi >= 0) & (xi < w);
+  const bool cx1 = (xi >= -1) & (xi < w - 1);
+  const bool ry0 = (yi >= 0) & (yi < h);
+  const bool ry1 = (yi >= -1) & (yi < h - 1);
+  const size_t o00 = ((size_t)yi * w + xi) * 3;
+  const size_t row = (size_t)w * 3;
+  const uint32_t t00 = (ry0 & cx0) ? load_bgr(src, o00) : 0u;
+  const uint32_t t01 = (ry0 & cx1) ? load_bgr(src, o00 + 3) : 0u;
+  const uint32_t t10 = (ry1 & cx0) ? load_bgr(src, o00 + row) : 0u;
+  const uint32_t t11 = (ry1 & cx1) ? load_bgr(src, o00 + row + 3) : 0u;
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    v[c] = lerp2(channel(t00, c), channel(t01, c), channel(t10, c),
+                 channel(t11, c), fx, fy);
+  *m = lerp2((ry0 & cx0) ? 1.f : 0.f, (ry0 & cx1) ? 1.f : 0.f,
+             (ry1 & cx0) ? 1.f : 0.f, (ry1 & cx1) ? 1.f : 0.f, fx, fy);
+}
+
+// grid.x: blocks of kThreads * kPix output pixels; grid.y: frames. Frame n
+// reads src + n * src_stride bytes and its coefficients from table[6n..]
+// (or `one` when table is null), and writes out/mask at n * out_h * out_w.
+__global__ void __launch_bounds__(kThreads)
+warp_affine_u8_kernel(const uint8_t* __restrict__ src, size_t src_stride,
+                      int h, int w, const float* __restrict__ table,
+                      Coeffs one, float* __restrict__ out,
+                      float* __restrict__ mask, int out_h, int out_w) {
+  const size_t total = (size_t)out_h * out_w;
+  const size_t p0 = ((size_t)blockIdx.x * kThreads + threadIdx.x) * kPix;
+  if (p0 >= total) return;
+  const int n = blockIdx.y;
+  Coeffs k = one;
+  if (table != nullptr) {
+    const float* t = table + 6 * n;
+    k = Coeffs{t[0], t[1], t[2], t[3], t[4], t[5]};
   }
-  mask[p] = lerp2(b00 ? 1.f : 0.f, b01 ? 1.f : 0.f, b10 ? 1.f : 0.f,
-                  b11 ? 1.f : 0.f, fx, fy);
+  const uint8_t* frame = src + (size_t)n * src_stride;
+  float* fout = out + (size_t)n * total * 3 + p0 * 3;
+  float* fmask = mask + (size_t)n * total + p0;
+
+  float v[kPix][3];
+  float m[kPix];
+  int x = (int)(p0 % out_w);
+  int y = (int)(p0 / out_w);
+#pragma unroll
+  for (int j = 0; j < kPix; ++j) {
+    if (p0 + j < total) {
+      warp_pixel(frame, h, w, k, x, y, v[j], &m[j]);
+    } else {
+      v[j][0] = v[j][1] = v[j][2] = m[j] = 0.f;
+    }
+    if (++x == out_w) {           // the next pixel starts a new row
+      x = 0;
+      ++y;
+    }
+  }
+  // A frame's planes start 16-byte aligned only when out_h*out_w is a
+  // multiple of 4; ragged frames and the tail take scalar stores.
+  const bool whole = p0 + kPix <= total;
+  if (whole && ((uintptr_t)fout & 15) == 0) {
+    float4* o4 = reinterpret_cast<float4*>(fout);
+    o4[0] = make_float4(v[0][0], v[0][1], v[0][2], v[1][0]);
+    o4[1] = make_float4(v[1][1], v[1][2], v[2][0], v[2][1]);
+    o4[2] = make_float4(v[2][2], v[3][0], v[3][1], v[3][2]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kPix; ++j)
+      if (p0 + j < total) {
+        fout[3 * j] = v[j][0];
+        fout[3 * j + 1] = v[j][1];
+        fout[3 * j + 2] = v[j][2];
+      }
+  }
+  if (whole && ((uintptr_t)fmask & 15) == 0) {
+    *reinterpret_cast<float4*>(fmask) = make_float4(m[0], m[1], m[2], m[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kPix; ++j)
+      if (p0 + j < total) fmask[j] = m[j];
+  }
 }
 
 }  // namespace
 
-extern "C" int warp_affine_u8(const uint8_t* src, int h, int w, float i00,
+// n frames of h x w x 3 bytes, src_stride bytes apart; table: device
+// (n, 6) float32 dst->src coefficients, or null for n == 1 with the
+// coefficients passed by value.
+extern "C" int warp_affine_u8(const uint8_t* src, long long src_stride,
+                              int h, int w, const float* table, float i00,
                               float i01, float i02, float i10, float i11,
                               float i12, float* out, float* mask, int out_h,
-                              int out_w, void* stream) {
-  const size_t n = (size_t)out_h * out_w;
-  if (n == 0) return 0;
-  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  warp_affine_u8_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      src, h, w, i00, i01, i02, i10, i11, i12, out, mask, out_h, out_w);
+                              int out_w, int n, void* stream) {
+  const size_t total = (size_t)out_h * out_w;
+  if (total == 0 || n <= 0) return 0;
+  if (table == nullptr && n != 1) return (int)cudaErrorInvalidValue;
+  const size_t threads = (total + kPix - 1) / kPix;
+  const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads),
+                  (unsigned)n);
+  warp_affine_u8_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      src, (size_t)src_stride, h, w, table,
+      Coeffs{i00, i01, i02, i10, i11, i12}, out, mask, out_h, out_w);
   return (int)cudaGetLastError();
 }

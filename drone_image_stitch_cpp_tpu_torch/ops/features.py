@@ -218,6 +218,21 @@ class KeypointSelection(NamedTuple):
     scale0: float              # octave-0 pixel size in input pixels
 
 
+def flat_gauss_stack(octs) -> torch.Tensor:
+    """One flat (B*NO*S, H0, W0) stack of the Gaussian layers of
+    ``build_scale_space``'s octaves: every octave pads (edge mode) to
+    octave 0's dims so one stack serves all keypoints; flat index =
+    (b*NO + octave)*S + layer. A keypoint's true size is its own octave's,
+    so pad taps never count."""
+    b, s_tot, h0, w0 = octs[0][0].shape
+    gps = []
+    for g, _ in octs:
+        ho, wo = g.shape[2], g.shape[3]
+        gps.append(g if (ho, wo) == (h0, w0) else
+                   F.pad(g, (0, w0 - wo, 0, h0 - ho), mode="replicate"))
+    return torch.stack(gps, dim=1).reshape(b * len(octs) * s_tot, h0, w0)
+
+
 def select_keypoints(grays: torch.Tensor, max_kp: int,
                      contrast_thresh: float = 0.04,
                      edge_thresh: float = 10.0, n_layers: int = 3,
@@ -256,23 +271,12 @@ def select_keypoints(grays: torch.Tensor, max_kp: int,
         return a.gather(1, idx)
 
     oct_s = take(oct_id)
-    # every octave pads (edge mode) to octave 0's dims so one flat
-    # (B*NO*S, H0, W0) stack serves all keypoints; flat index =
-    # (b*NO + octave)*S + layer. The per-keypoint true size is its own
-    # octave's, so pad taps never count.
     s_tot = n_layers + 3
-    h0, w0 = octs[0][0].shape[2], octs[0][0].shape[3]
-    gps = []
-    for g, _ in octs:
-        ho, wo = g.shape[2], g.shape[3]
-        gps.append(g if (ho, wo) == (h0, w0) else
-                   F.pad(g, (0, w0 - wo, 0, h0 - ho), mode="replicate"))
     frame = torch.arange(b, device=dev)[:, None]
     own_h = torch.tensor([float(g.shape[2]) for g, _ in octs], device=dev)
     own_w = torch.tensor([float(g.shape[3]) for g, _ in octs], device=dev)
     return KeypointSelection(
-        gauss_flat=torch.stack(gps, dim=1).reshape(b * n_oct * s_tot,
-                                                   h0, w0),
+        gauss_flat=flat_gauss_stack(octs),
         flat_layer=(frame * n_oct + oct_s) * s_tot + take(li),
         yf=take(yf), xf=take(xf), sigma=take(sig), true_h=own_h[oct_s],
         true_w=own_w[oct_s], octave=oct_s, response=take(resp),

@@ -22,7 +22,10 @@ window covers the whole descriptor support for sigma < 3.68 (radius
 ``orientation_descriptor_flat`` launches the CUDA kernel
 ``csrc/sift_orient_desc.cu`` for CUDA tensors and runs
 :func:`orientation_descriptor_plain` for CPU tensors; it never falls back
-from one to the other.
+from one to the other. The kernel visits each keypoint's own support
+(:func:`support_radius` of its scale sizes the window) and sums its
+histograms in a fixed order, so its output is repeatable bit for bit; the
+plain version sums in another order (tolerance, not equality).
 """
 
 from __future__ import annotations
@@ -32,19 +35,33 @@ import math
 
 import torch
 
+from ..runtime.kernels import load_kernel, stream_handle
+
 SUPPORT_R = 40           # window half-size: 81x81 px around the keypoint
+KERNEL_SOURCE = "sift_orient_desc.cu"
+KERNEL_SIGNATURES = {
+    "sift_orient_desc": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p]),
+}
 _ORI_BINS = 36
 _D = 4
 _OBINS = 8
 _TWO_PI = 2.0 * math.pi
 
 
-def support_radius(sigma_max: float) -> int:
+def support_radius(sigma_max):
     """Window half-size that holds every gradient a keypoint of scale
     <= ``sigma_max`` can use: descriptor support 2.5*sqrt(2)*3 sigma from a
     sub-pixel centre within 0.5 px of the window centre, plus the
-    central-difference ring; at most SUPPORT_R."""
-    return min(SUPPORT_R, int(math.ceil(10.61 * sigma_max + 0.5)) + 1)
+    central-difference ring; at most SUPPORT_R. A float gives an int; a
+    tensor of scales gives each one's radius as int32 on its device (what
+    the kernel reads), computed in float64 like the float."""
+    r = torch.clamp(torch.ceil(torch.as_tensor(sigma_max, dtype=torch.float64)
+                               * 10.61 + 0.5) + 1, max=SUPPORT_R)
+    if isinstance(sigma_max, torch.Tensor):
+        return r.to(torch.int32)
+    return int(r)
 
 
 def orientation_descriptor_plain(gauss_flat: torch.Tensor,
@@ -160,24 +177,17 @@ def _plain_chunk(gauss, layer, yf, xf, sigma, true_h, true_w, r):
     return angle, torch.clamp(d / nrm2 * 512.0, max=255.0)
 
 
-def _launch(gauss, layer, yf, xf, sigma, true_h, true_w):
-    from ..runtime.kernels import load_kernel
-
-    lib = load_kernel("sift_orient_desc.cu").lib
-    fn = lib.sift_orient_desc
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_int] + [ctypes.c_void_p] * 8
-                   + [ctypes.c_int, ctypes.c_void_p])
+def _launch(gauss, radius, layer, yf, xf, sigma, true_h, true_w):
+    fn = load_kernel(KERNEL_SOURCE, KERNEL_SIGNATURES).fns["sift_orient_desc"]
     n = layer.shape[0]
     l_, h_, w_ = gauss.shape
     angle = torch.empty((n,), dtype=torch.float32, device=gauss.device)
     desc = torch.empty((n, 128), dtype=torch.float32, device=gauss.device)
-    stream = torch.cuda.current_stream(gauss.device).cuda_stream
-    err = fn(gauss.data_ptr(), l_, h_, w_, layer.data_ptr(), yf.data_ptr(),
+    err = fn(gauss.data_ptr(), l_, h_, w_, radius.data_ptr(),
+             layer.data_ptr(), yf.data_ptr(),
              xf.data_ptr(), sigma.data_ptr(), true_h.data_ptr(),
              true_w.data_ptr(), angle.data_ptr(), desc.data_ptr(), n,
-             stream)
+             stream_handle(gauss.device))
     if err != 0:
         raise RuntimeError(f"sift_orient_desc launch failed: cudaError {err}")
     return angle, desc
@@ -206,14 +216,15 @@ def orientation_descriptor_flat(gauss_flat: torch.Tensor,
                          f"got {tuple(gauss_flat.shape)} {gauss_flat.dtype}")
     if any(a.shape != lead for a in args[1:]):
         raise ValueError("keypoint fields must share one shape")
-    layer = flat_layer.reshape(-1).to(torch.int32).contiguous()
+    layer = flat_layer.reshape(-1).to(torch.int64).contiguous()
     fl = [a.reshape(-1).to(torch.float32).contiguous() for a in args[1:]]
     if dev.type == "cuda":
         if layer.numel() == 0:
             angle = torch.empty((0,), dtype=torch.float32, device=dev)
             desc = torch.empty((0, 128), dtype=torch.float32, device=dev)
         else:
-            angle, desc = _launch(gauss_flat.contiguous(), layer, *fl)
+            angle, desc = _launch(gauss_flat.contiguous(),
+                                  support_radius(fl[2]), layer, *fl)
             orientation_descriptor_flat.launches += 1
     elif dev.type == "cpu":
         angle, desc = orientation_descriptor_plain(gauss_flat, layer, *fl)

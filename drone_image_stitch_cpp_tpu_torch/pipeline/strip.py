@@ -26,7 +26,7 @@ from ..ops import exposure as E
 from ..ops import seam as S
 from ..ops.crop import auto_crop_black_border
 from ..ops.resize import scale_for_megapixels
-from ..ops.warp_kernel import warp_frame
+from ..ops.warp_kernel import warp_frames
 from ..runtime.device import device_sync
 from ..runtime.logging import get_logger
 from . import compose_feed as CF
@@ -60,6 +60,14 @@ class _Frames:
             return self.store.frame(self.indices[k])
         return torch.from_numpy(np.ascontiguousarray(self.images[k])).to(
             self.device)
+
+    def device_batch(self) -> torch.Tensor:
+        """All n frames as one (n, H, W, 3) uint8 device tensor, for
+        reading only: from a store it may be a view of the store's frames
+        (``FrameStore.batch``), so it must not be written."""
+        if self.store is not None:
+            return self.store.batch(self.indices)
+        return torch.from_numpy(np.stack(self.images)).to(self.device)
 
 
 def estimate_strip_transforms(images: Optional[List[np.ndarray]],
@@ -185,7 +193,8 @@ def compose_strip(images: Optional[List[np.ndarray]],
     bands = max(1, tuning.blend_bands)
     B.ensure_canvas_fits(canvas_h, canvas_w, bands, fr.device)
 
-    # ---- seam-scale warps (K2: frame + footprint in one launch) ---------
+    # ---- seam-scale warps (K2: every frame + footprint in ONE launch, as
+    # the JAX package's _seam_warp_batch) ---------------------------------
     seam_scale = scale_for_megapixels(h, w, tuning.seam_estimation_resol_mpx)
     # dims snapped up to a 64 grid like the JAX package: the pad is mask-
     # empty and contributes nothing to the hat upsample
@@ -193,19 +202,17 @@ def compose_strip(images: Optional[List[np.ndarray]],
     sw = B.align_up(max(1, int(round(canvas_w * seam_scale))), 64)
     ssc = np.diag([seam_scale, seam_scale]).astype(np.float32)
     with log.timer(stage, "seam warps", sync=sync):
-        seam_imgs, seam_masks = [], []
-        for k in range(n):
-            simg, scm = warp_frame(fr.device_frame(k),
-                                   (ssc @ t_canvas[k]).astype(np.float32),
-                                   sh, sw)
-            seam_imgs.append(simg)
-            seam_masks.append(scm >= 0.5)
+        simgs, scms = warp_frames(
+            fr.device_batch(),
+            np.stack([ssc @ t for t in t_canvas]).astype(np.float32),
+            sh, sw)
+        smasks = scms >= 0.5
+        seam_imgs, seam_masks = list(simgs), list(smasks)
 
     gain_maps = None
     if tuning.use_blocks_gain:
         with log.timer(stage, "gains", sync=sync):
-            intens = torch.stack([im.mean(dim=-1) for im in seam_imgs])
-            gain_maps = E.block_gain_maps(intens, torch.stack(seam_masks),
+            gain_maps = E.block_gain_maps(simgs.mean(dim=-1), smasks,
                                           block=max(8, 32 * sh // 1024))
         log.log(stage, "gains", gains=[
             round(float(g), 3) for g in gain_maps.mean(dim=(1, 2)).cpu()])
@@ -213,7 +220,7 @@ def compose_strip(images: Optional[List[np.ndarray]],
     axes = _axes_from_transforms(np.asarray(transforms))
     with log.timer(stage, "seams", sync=sync):
         seam_masks = S.find_seams_sequential(seam_imgs, seam_masks, axes)
-    del seam_imgs
+    del seam_imgs, simgs
 
     # ---- full-res compose: ROI warp -> canvas pyramid --------------------
     with log.timer(stage, "blend", sync=sync):

@@ -41,8 +41,15 @@ class FrameStore:
         return self.frames.shape[0]
 
     def batch(self, indices: List[int]) -> torch.Tensor:
-        """(len(indices), H, W, 3) uint8 on the device."""
-        idx = torch.as_tensor(list(indices), dtype=torch.long,
+        """(len(indices), H, W, 3) uint8 on the device, for reading only:
+        a run of consecutive indices is a view of the store, any other list
+        a copy, so the result must not be written (a write would change
+        the store for some index lists and not for others)."""
+        indices = list(indices)
+        if indices and indices == list(range(indices[0],
+                                             indices[0] + len(indices))):
+            return self.frames[indices[0]:indices[0] + len(indices)]
+        idx = torch.as_tensor(indices, dtype=torch.long,
                               device=self.device)
         return self.frames.index_select(0, idx)
 

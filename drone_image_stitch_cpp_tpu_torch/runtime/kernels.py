@@ -6,6 +6,10 @@ takes seconds, not minutes). Libraries land in ``build/kernels/`` at the
 repository root, keyed by a hash of the source and the flags, so an edited
 source rebuilds and an unchanged one is reused.
 
+The C functions get their ``restype``/``argtypes`` once, when the library
+loads; later calls of :func:`load_kernel` return the cached handles without
+taking the lock.
+
 Nothing here runs at import time: the first launch of a kernel builds it.
 """
 
@@ -20,7 +24,9 @@ import tempfile
 import threading
 import time
 from dataclasses import dataclass
-from typing import Dict
+from typing import Callable, Dict, List, Mapping, Tuple
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -28,6 +34,9 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# C function name -> (restype, argtypes)
+Signatures = Mapping[str, Tuple[type, List[type]]]
 
 
 class KernelBuildError(RuntimeError):
@@ -37,6 +46,7 @@ class KernelBuildError(RuntimeError):
 @dataclass
 class BuiltKernel:
     lib: ctypes.CDLL
+    fns: Dict[str, Callable[..., int]]   # typed C entry points
     path: str
     seconds: float      # 0.0 when the library was already built
     ptxas: str          # nvcc's -Xptxas -v report (registers, smem, spills)
@@ -58,41 +68,62 @@ def _nvcc() -> str:
         "installed")
 
 
-def load_kernel(source: str) -> BuiltKernel:
-    """Build (once per source hash) and load ``csrc/<source>``."""
-    with _LOCK:
-        if source in _BUILT:
-            return _BUILT[source]
-        src_path = os.path.join(CSRC_DIR, source)
-        with open(src_path, "rb") as f:
-            digest = hashlib.sha256(
-                f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        stem = os.path.splitext(source)[0]
-        lib_path = os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
-        log_path = lib_path + ".ptxas.txt"
-        seconds = 0.0
-        if not os.path.exists(lib_path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, src_path],
-                capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise KernelBuildError(
-                    f"nvcc failed on {source} (rc={proc.returncode}):\n"
-                    f"{proc.stderr[-4000:]}")
-            with open(log_path, "w") as f:
-                f.write(proc.stderr)
-            os.replace(tmp, lib_path)
-        ptxas = ""
-        if os.path.exists(log_path):
-            with open(log_path) as f:
-                ptxas = f.read()
-        built = BuiltKernel(lib=ctypes.CDLL(lib_path), path=lib_path,
-                            seconds=seconds, ptxas=ptxas)
-        _BUILT[source] = built
+def stream_handle(device: torch.device) -> int:
+    """The cudaStream_t of PyTorch's current stream on ``device`` (a
+    tensor's device, so it has an index): the value of
+    ``torch.cuda.current_stream(device).cuda_stream``, read without
+    building a Stream object, which costs microseconds per launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def load_kernel(source: str, signatures: Signatures) -> BuiltKernel:
+    """Build (once per source hash) and load ``csrc/<source>``, typing the
+    C functions named in ``signatures``."""
+    built = _BUILT.get(source)
+    if built is not None and signatures.keys() <= built.fns.keys():
         return built
+    with _LOCK:
+        if source not in _BUILT:
+            _BUILT[source] = _build(source)
+        built = _BUILT[source]
+        for name, (restype, argtypes) in signatures.items():
+            if name not in built.fns:
+                fn = getattr(built.lib, name)
+                fn.restype = restype
+                fn.argtypes = argtypes
+                built.fns[name] = fn
+        return built
+
+
+def _build(source: str) -> BuiltKernel:
+    src_path = os.path.join(CSRC_DIR, source)
+    with open(src_path, "rb") as f:
+        digest = hashlib.sha256(
+            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    stem = os.path.splitext(source)[0]
+    lib_path = os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
+    log_path = lib_path + ".ptxas.txt"
+    seconds = 0.0
+    if not os.path.exists(lib_path):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src_path],
+            capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise KernelBuildError(
+                f"nvcc failed on {source} (rc={proc.returncode}):\n"
+                f"{proc.stderr[-4000:]}")
+        with open(log_path, "w") as f:
+            f.write(proc.stderr)
+        os.replace(tmp, lib_path)
+    ptxas = ""
+    if os.path.exists(log_path):
+        with open(log_path) as f:
+            ptxas = f.read()
+    return BuiltKernel(lib=ctypes.CDLL(lib_path), fns={}, path=lib_path,
+                       seconds=seconds, ptxas=ptxas)

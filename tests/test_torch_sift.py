@@ -115,3 +115,28 @@ def test_k1_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError):
         SK.orientation_descriptor_flat(g, one.int(), one[:2], one, one, one,
                                        one)
+
+
+def test_k1_launch_plan_round_trips_and_covers_support():
+    """The K1 wrapper's per-keypoint window radius: ``support_radius`` of a
+    tensor of scales (int32 on the tensor's device, what the kernel reads)
+    equals ``support_radius`` of each scale as a float, and covers the whole
+    descriptor and orientation support for every scale up to the largest
+    detected one (sigma < 1.6 * 2^(3.5/3) = 3.59)."""
+    rng = np.random.default_rng(5)
+    sig_max = 1.6 * 2.0 ** (3.5 / 3)
+    sig = np.concatenate([rng.uniform(1.6, sig_max, 400),
+                          np.linspace(0.4, sig_max, 4001),
+                          [1.6, 1.6, sig_max]]).astype(np.float32)
+    radius = SK.support_radius(t(sig))
+    assert radius.dtype == torch.int32 and radius.shape == sig.shape
+    r = n(radius)
+    np.testing.assert_array_equal(
+        r, [SK.support_radius(float(s)) for s in sig])
+    s64 = sig.astype(np.float64)
+    # descriptor support (2.5 * sqrt(2) * 3 sigma) + 0.5 px centre offset
+    # + the central-difference ring, and the round(4.5 sigma) orientation
+    # box, fit the window of half-size r
+    assert (2.5 * np.sqrt(2) * 3 * s64 + 0.5 + 1 <= r).all()
+    assert (np.round(4.5 * s64) <= r - 1).all()
+    assert r.max() <= SK.SUPPORT_R
