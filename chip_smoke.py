@@ -5,12 +5,16 @@
 Phases (one line each; any failure exits nonzero and prints no result):
   1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
   2. build both CUDA kernels from csrc/ (build/kernels/, keyed by source;
-     one nvcc per source), with ptxas's registers and spills;
+     one nvcc per source, all started together), with ptxas's registers
+     and spills;
   3. each kernel's wrapper against its plain PyTorch version on the card
-     at the shapes the main path gives it: K1 at both detect resolutions
-     (two launches bit-identical; the padded-stack build that feeds it
-     timed beside it), K2 at the compose-feed window and, batched, at the
-     seam scale (bit-equal to the plain warps). Times: the wrapper per
+     at the shapes the main paths give it: K1 at both detect resolutions
+     of a strip and at the global stage's strip detect (two launches
+     bit-identical; the padded-stack build that feeds it timed beside
+     it), K2 at the compose-feed window, batched at the seam scale, and
+     in content mode from a padded strip into the global compose's
+     5120x5120 window (each bit-equal to its plain version). Times: the
+     wrapper per
      call (ms: CUDA events around one call on an idle card, median of 10,
      so its host set-up counts; wrapper_b2b_ms: 20 calls back to back / 20,
      where host and device overlap), the bare launch (device_ms: events
@@ -21,7 +25,14 @@ Phases (one line each; any failure exits nonzero and prints no result):
      12-frame 2160x3840 corridor sortie, once to warm up and once measured:
      one group, frame offsets within 1 px, panorama size, GT-RMSE, and the
      kernels' launch counts in the measured pass;
-  5. optional: the port's CLI on a 4-frame JPEG folder, when this machine
+  5. the multi-line main path (app.stitch_frames: three strip stitches
+     whose panoramas stay on the card, then the global stage) on a
+     rendered 3 x 10 boustrophedon sortie of 2160x3840 frames (overlaps
+     0.70 along-track, 0.35 side), once to warm up and once measured:
+     groups, no flips, strip offsets within 2 px, mosaic size within 8 px,
+     GT-RMSE (and per strip), graph-cut seams on every adjacent strip pair,
+     K1 launched by the global stage and K2's content mode launched;
+  6. optional: the port's CLI on a 4-frame JPEG folder, when this machine
      can encode JPEGs (run in child processes; reported, not required).
 The line before the last is a JSON object with each kernel's numbers:
 bound_ms is the larger of the bytes the call must move (each input byte
@@ -56,6 +67,16 @@ K2_WIN = (2176, 3904)               # ROI window of a 4K frame at 5 bands
 GT_RMSE_MAX = 8.0                   # blurred RMSE bound vs the ortho crop
 OFFSET_TOL_PX = 1.0
 SIZE_TOL_PX = 4
+ML_ROWS, ML_COLS = 3, 10            # multi-line sortie: lines x frames
+ML_OVERLAP_Y = 0.35                 # side overlap (BENCH_sortie.json)
+ML_ORTHO_H = 5100
+ML_STRIP_TOL_PX = 2.0               # strip offsets vs the planted ones
+ML_SIZE_TOL_PX = 8
+K2_GLOBAL_WIN = (5120, 5120)        # the global compose's tile window
+# 0.9 x the 1731 valid keypoints the JAX package's global detect finds on
+# the multi-line sortie's line-1 strip (tests/test_torch_global_detect.py
+# holds the port's count to it and this floor under 0.9 of it)
+K1_GLOBAL_MIN_VALID = 1557
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12              # float32 outside the tensor cores
 
@@ -121,16 +142,19 @@ def phase_environment(torch) -> str:
 
 
 def phase_build() -> dict:
-    """Build both kernels, one nvcc each; returns each source's
-    (registers, spill bytes) as ptxas reports them."""
+    """Build both kernels, one nvcc each, started together; returns each
+    source's (registers, spill bytes) as ptxas reports them."""
     from drone_image_stitch_cpp_tpu_torch.ops import sift_kernel as SK
     from drone_image_stitch_cpp_tpu_torch.ops import warp_kernel as WK
-    from drone_image_stitch_cpp_tpu_torch.runtime.kernels import load_kernel
+    from drone_image_stitch_cpp_tpu_torch.runtime.kernels import load_kernels
 
     t0 = time.perf_counter()
+    mods = (SK, WK)
+    built = load_kernels({m.KERNEL_SOURCE: m.KERNEL_SIGNATURES
+                          for m in mods})
     out = {}
-    for m in (SK, WK):
-        k = load_kernel(m.KERNEL_SOURCE, m.KERNEL_SIGNATURES)
+    for m in mods:
+        k = built[m.KERNEL_SOURCE]
         lines = [ln.strip() for ln in k.ptxas.splitlines()
                  if "registers" in ln or "spill" in ln]
         regs = [int(x) for x in re.findall(r"Used (\d+) registers",
@@ -239,22 +263,28 @@ def _k1_bound(torch, gauss, layer, yf, xf, sigma, true_h, true_w, angle):
     return b_ms, b_by, n_bytes / 1e6, n_ops / 1e9
 
 
-def _k1_check(torch, dev, imgs, label, mpx, n_kp):
-    """K1's wrapper (as the main path calls it) against its plain version
-    on the Gaussian stack of one 8-frame detect batch at ``mpx``; two
-    launches must agree bit for bit."""
+def _k1_gray(torch, dev, imgs, mpx):
+    """One 8-frame detect batch of the strip path at ``mpx``: (B, h, w)."""
     from drone_image_stitch_cpp_tpu_torch.ops.color import bgr_to_gray
-    from drone_image_stitch_cpp_tpu_torch.ops.features import (
-        build_scale_space, flat_gauss_stack, num_octaves, select_keypoints)
     from drone_image_stitch_cpp_tpu_torch.ops.resize import (
         resize_area, scale_for_megapixels)
-    from drone_image_stitch_cpp_tpu_torch.ops import sift_kernel as SK
-
     sc = scale_for_megapixels(FRAME_H, FRAME_W, mpx)
     wh, ww = int(round(FRAME_H * sc)), int(round(FRAME_W * sc))
     frames = torch.from_numpy(np.stack(imgs[:K1_FRAMES])).to(dev)
-    gray = resize_area(bgr_to_gray(frames.float()), wh, ww,
+    return resize_area(bgr_to_gray(frames.float()), wh, ww,
                        channels_last=False)
+
+
+def _k1_check(torch, gray, label, n_kp, min_valid=None):
+    """K1's wrapper (as the main path calls it) against its plain version
+    on the Gaussian stack of the detect batch ``gray`` (B, h, w); two
+    launches must agree bit for bit, and at least ``min_valid`` keypoints
+    (default: half the budget) must be valid."""
+    from drone_image_stitch_cpp_tpu_torch.ops.features import (
+        build_scale_space, flat_gauss_stack, num_octaves, select_keypoints)
+    from drone_image_stitch_cpp_tpu_torch.ops import sift_kernel as SK
+
+    wh, ww = gray.shape[1:]
     sel = select_keypoints(gray, n_kp)
     kp = (sel.gauss_flat, sel.flat_layer, sel.yf, sel.xf, sel.sigma,
           sel.true_h, sel.true_w)
@@ -273,7 +303,9 @@ def _k1_check(torch, dev, imgs, label, mpx, n_kp):
     nv = int(v.sum())
     if not (torch.isfinite(ang_k).all() and torch.isfinite(desc_k).all()):
         _fail("k1", f"{label}: non-finite kernel output")
-    if nv < K1_FRAMES * n_kp // 2:
+    if min_valid is None:
+        min_valid = gray.shape[0] * n_kp // 2
+    if nv < min_valid:
         _fail("k1", f"{label}: only {nv} valid keypoints")
     dang = torch.remainder(ang_k - ang_p + np.pi, 2 * np.pi) - np.pi
     dang = dang.abs()[v]
@@ -321,12 +353,14 @@ def phase_k1(torch, dev, imgs, tuning):
     feature budget, grouping/flight_grouper.estimate_relations)."""
     from drone_image_stitch_cpp_tpu_torch.grouping.flight_grouper import (
         _MAX_DIM)
-    reg = _k1_check(torch, dev, imgs, "registration",
-                    tuning.registration_resol_mpx, K1_KP)
+    reg = _k1_check(torch, _k1_gray(torch, dev, imgs,
+                                    tuning.registration_resol_mpx),
+                    "registration", K1_KP)
     group_mpx = FRAME_H * FRAME_W * min(
         1.0, (_MAX_DIM / max(FRAME_H, FRAME_W)) ** 2) / 1e6
     group_kp = int(np.clip(tuning.strip_sift_features, 600, 1800))
-    grp = _k1_check(torch, dev, imgs, "grouping", group_mpx, group_kp)
+    grp = _k1_check(torch, _k1_gray(torch, dev, imgs, group_mpx),
+                    "grouping", group_kp)
     return {"name": "sift_orient_desc", "route": "cuda",
             "source": "drone_image_stitch_cpp_tpu_torch/csrc/"
                       "sift_orient_desc.cu",
@@ -504,9 +538,7 @@ def phase_slice(torch, dev, ortho, imgs, ids, pos, tuning):
     cold = time.perf_counter() - t0
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    orientation_descriptor_flat.launches = 0
-    warp_frame.launches = 0
-    warp_frames.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     res = stitch_frames(imgs, ids, tuning, dev)
     torch.cuda.synchronize()
@@ -520,8 +552,8 @@ def phase_slice(torch, dev, ortho, imgs, ids, pos, tuning):
         ("store", "frame store done"), ("grouping", "grouping done"),
         ("register", "register done"), ("seam_warps", "seam warps done"),
         ("gains", "gains done"), ("seams", "seams done"),
-        ("blend", "blend done"), ("crop", "crop done"),
-        ("stitch", "single-group stitch done"))}
+        ("blend", "blend done"), ("tiled_blend", "tiled blend done"),
+        ("crop", "crop done"), ("stitch", "single-group stitch done"))}
 
     sizes = [len(g.indices) for g in res.groups]
     if sizes != [N_FRAMES]:
@@ -565,6 +597,262 @@ def phase_slice(torch, dev, ortho, imgs, ids, pos, tuning):
     if k2_split[1] != 1:
         _fail("slice", f"seam warps took {k2_split[1]} batched launches, "
                        f"expected 1")
+    return launches
+
+
+def render_multiline(torch, dev):
+    """The 3 x 10 boustrophedon sortie: 2160x3840 frames, overlaps 0.70
+    along-track and 0.35 side, odd lines right to left."""
+    from drone_image_stitch_cpp_tpu_torch.utils.synthetic import (
+        fractal_ortho, render_sortie as render)
+    t0 = time.perf_counter()
+    ortho = fractal_ortho(ML_ORTHO_H, ORTHO_W, seed=0, device=dev)
+    imgs, ids, pos = render(ortho, ML_ROWS, ML_COLS, FRAME_H, FRAME_W,
+                            OVERLAP, overlap_y=ML_OVERLAP_Y)
+    print(f"[smoke] multi-line sortie: {ML_ROWS} lines x {ML_COLS} frames "
+          f"{FRAME_H}x{FRAME_W}, overlaps {OVERLAP}/{ML_OVERLAP_Y}, ortho "
+          f"{ML_ORTHO_H}x{ORTHO_W}, rendered in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return ortho, imgs, ids, pos
+
+
+def _ml_geometry(pos):
+    """(step_y, union (h, w), union origin (y, x)) of the planted sortie."""
+    ys = sorted({p[0] for p in pos})
+    xs = [p[1] for p in pos]
+    step_y = ys[1] - ys[0]
+    return step_y, (ys[-1] - ys[0] + FRAME_H,
+                    max(xs) - min(xs) + FRAME_W), (ys[0], min(xs))
+
+
+def _padded_strip(torch, dev, ortho, pos, line):
+    """Line ``line``'s planted strip panorama (the ortho under its frames)
+    padded with black to the global stage's 512-snapped layout, as the
+    global stage holds it: ((HP, WP, 3) uint8 device tensor, (h, w))."""
+    from drone_image_stitch_cpp_tpu_torch.ops.blend import align_up
+    step_y, (_, uw), (oy, ox) = _ml_geometry(pos)
+    y0 = oy + line * step_y
+    strip = np.clip(ortho[y0:y0 + FRAME_H, ox:ox + uw], 0, 255).astype(
+        np.uint8)
+    hp, wp = align_up(FRAME_H, 512), align_up(uw, 512)
+    out = torch.zeros((hp, wp, 3), dtype=torch.uint8, device=dev)
+    out[:FRAME_H, :uw] = torch.from_numpy(strip).to(dev)
+    return out, (FRAME_H, uw)
+
+
+def phase_k1_global(torch, padded, true_hw, tuning):
+    """K1 at the global stage's strip detect: one padded strip's work
+    image (<= 2800 px wide), the global feature budget, one launch."""
+    from drone_image_stitch_cpp_tpu_torch.pipeline.global_ import (
+        strip_work_image)
+    work = strip_work_image(padded, true_hw)[0]
+    return _k1_check(torch, work[None], "global detect",
+                     tuning.global_sift_features,
+                     min_valid=K1_GLOBAL_MIN_VALID)
+
+
+def phase_k2_content(torch, dev, padded):
+    """K2's content mode as the global compose calls it: a padded strip
+    into the 5120x5120 tile window (a near-identity affine, the second
+    line's offset), with crafted pixels of gray 2 and 3 planted in the
+    strip; bit-equal to its plain version."""
+    from drone_image_stitch_cpp_tpu_torch.ops import warp_kernel as WK
+    from drone_image_stitch_cpp_tpu_torch.ops.color import content_mask
+    src = padded.clone()
+    # gray of (2, 2, 2) is exactly 2 (not content), of (3, 3, 3) 3; mixed
+    # triples land on both sides of the threshold
+    crafted = torch.tensor([[2, 2, 2], [3, 3, 3], [2, 3, 2], [1, 2, 3],
+                            [3, 2, 1], [0, 4, 0], [17, 0, 0], [18, 0, 0]],
+                           dtype=torch.uint8, device=dev)
+    for k in range(crafted.shape[0]):
+        src[100 + 40 * k:130 + 40 * k, 200:260 + 900 * k] = crafted[k]
+    th = np.radians(0.05)
+    c, s_ = np.cos(th), np.sin(th)
+    a23 = np.asarray([[c, -s_, 0.37], [s_, c, 1404.61]], np.float32)
+    oh, ow = K2_GLOBAL_WIN
+    inv = WK.inverse_coeffs(a23)
+    n0 = WK.warp_frame.nonblack_launches
+    wk, mk = WK.warp_frame(src, a23, oh, ow, content="nonblack")
+    if WK.warp_frame.nonblack_launches != n0 + 1:
+        _fail("k2", "content mode did not count its launch")
+    wp, mp = WK.warp_frame_plain(src, inv, oh, ow, content="nonblack")
+    torch.cuda.synchronize()
+    if not (torch.equal(wk, wp) and torch.equal(mk, mp)):
+        d = float(torch.maximum((wk - wp).abs().max(),
+                                (mk - mp).abs().max()))
+        _fail("k2", f"content mode not bit-identical to plain (max |d| {d})")
+    kept = float((mk >= 0.999).float().mean())
+    ms = _median_ms(lambda: WK.warp_frame(src, a23, oh, ow,
+                                          content="nonblack"), torch)
+    device_ms = _device_ms(lambda: WK._launch(src, 1, inv, oh, ow,
+                                              "nonblack"), torch)
+    plain_ms = _median_ms(lambda: WK.warp_frame_plain(
+        src, inv, oh, ow, content="nonblack"), torch)
+    # grid_sample on BGR + the gray > 2 plane (made outside the timed call)
+    import torch.nn.functional as F
+    from drone_image_stitch_cpp_tpu_torch.ops.warp import dst_to_src_coords
+    h, w = src.shape[:2]
+    planes = torch.cat([src.permute(2, 0, 1).float(),
+                        content_mask(src).float()[None]])[None]
+    sx, sy = dst_to_src_coords(torch.tensor(inv, dtype=torch.float32,
+                                            device=dev).reshape(2, 3), oh, ow)
+    grid = torch.stack([sx / (w - 1) * 2 - 1, sy / (h - 1) * 2 - 1],
+                       dim=-1)[None]
+    library_ms = _median_ms(lambda: F.grid_sample(
+        planes, grid, mode="bilinear", padding_mode="zeros",
+        align_corners=True), torch)
+    del planes, grid, sx, sy
+    src_px = _k2_source_pixels(torch, dev, inv, h, w, oh, ow)
+    n_bytes = 3.0 * src_px + 16.0 * oh * ow
+    bound_ms, bound_by = _bound(n_bytes, 54.0 * oh * ow)
+    print(f"[smoke] k2 warp_affine content mode: {h}x{w} u8 padded strip "
+          f"-> {oh}x{ow}x3 + gray>2 mask, kept (>=0.999) {kept:.3f}; "
+          f"bit-identical to plain (crafted gray-2/3 pixels included); "
+          f"wrapper {ms:.4f} ms, device {device_ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, grid_sample {library_ms:.4f} ms; bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({n_bytes / 1e6:.1f} MB), share "
+          f"{bound_ms / device_ms:.3f}", flush=True)
+    return {"shape": [h, w, oh, ow], "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share": bound_ms / device_ms, "max_abs_err": 0.0}
+
+
+def _counts():
+    from drone_image_stitch_cpp_tpu_torch.ops.sift_kernel import (
+        orientation_descriptor_flat)
+    from drone_image_stitch_cpp_tpu_torch.ops.warp_kernel import (
+        warp_frame, warp_frames)
+    return {"sift_orient_desc": orientation_descriptor_flat.launches,
+            "warp_affine": warp_frame.launches + warp_frames.launches,
+            "warp_affine_nonblack": warp_frame.nonblack_launches}
+
+
+def _zero_counts():
+    from drone_image_stitch_cpp_tpu_torch.ops.sift_kernel import (
+        orientation_descriptor_flat)
+    from drone_image_stitch_cpp_tpu_torch.ops.warp_kernel import (
+        warp_frame, warp_frames)
+    orientation_descriptor_flat.launches = 0
+    warp_frame.launches = 0
+    warp_frame.nonblack_launches = 0
+    warp_frames.launches = 0
+
+
+def phase_multiline(torch, dev, ortho, imgs, ids, pos, tuning):
+    """The multi-line main path through app.stitch_frames, warm-up pass
+    then measured pass; hard checks as the module doc lists."""
+    from drone_image_stitch_cpp_tpu_torch import app as A
+    from drone_image_stitch_cpp_tpu_torch.runtime.handoff import DeviceStrip
+    from drone_image_stitch_cpp_tpu_torch.runtime.logging import get_logger
+    from drone_image_stitch_cpp_tpu_torch.utils.native import (
+        graphcut_library)
+    from drone_image_stitch_cpp_tpu_torch.utils.synthetic import gt_rmse
+
+    log = get_logger()
+    log.verbose = False
+    step_y, (gt_h, gt_w), (oy, ox) = _ml_geometry(pos)
+    real_global = A.stitch_inter_strips_custom
+    seen = {}
+
+    def global_probe(strips, *a, **kw):
+        # the strips as the global stage receives them (host copies only
+        # in the warm-up pass), and the kernel launches the stage makes
+        if seen.get("want_strips"):
+            seen["strips"] = [st.host() if isinstance(st, DeviceStrip)
+                              else st for st in strips]
+            seen["device_strips"] = sum(isinstance(st, DeviceStrip)
+                                        for st in strips)
+        before = _counts()
+        out = real_global(strips, *a, **kw)
+        after = _counts()
+        seen["global_launches"] = {k: after[k] - before[k] for k in after}
+        return out
+
+    A.stitch_inter_strips_custom = global_probe
+    try:
+        seen["want_strips"] = True
+        t0 = time.perf_counter()
+        A.stitch_frames(imgs, ids, tuning, dev)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        seen["want_strips"] = False
+        strip_rmse = []
+        for k, st in enumerate(seen.pop("strips")):
+            y0 = oy + k * step_y
+            gt = np.clip(ortho[y0:y0 + FRAME_H, ox:ox + gt_w], 0,
+                         255).astype(np.uint8)
+            strip_rmse.append(round(gt_rmse(st, gt, device=dev)[0], 4))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        mark = len(log._records)
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = A.stitch_frames(imgs, ids, tuning, dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+    finally:
+        A.stitch_inter_strips_custom = real_global
+    peak = torch.cuda.max_memory_allocated(dev)
+    stages = {}
+    for r in log._records[mark:]:
+        if "seconds" in r:
+            stages[f"{r['stage']}/{r['msg'][:-5]}"] = r["seconds"]
+
+    sizes = [g.indices for g in res.groups]
+    want = [list(range(k * ML_COLS, (k + 1) * ML_COLS))
+            for k in range(ML_ROWS)]
+    if sizes != want:
+        _fail("multiline", f"groups {sizes}, expected {want}")
+    if any(res.flipped):
+        _fail("multiline", f"flipped {res.flipped}")
+    offs = np.asarray([t[:2, 2] for t in res.global_transforms], np.float64)
+    exp = np.asarray([(0.0, k * step_y) for k in range(ML_ROWS)])
+    off_err = float(np.abs(offs - exp).max())
+    lin_err = float(max(np.abs(t[:2, :2] - np.eye(2)).max()
+                        for t in res.global_transforms))
+    if off_err > ML_STRIP_TOL_PX:
+        _fail("multiline", f"strip offsets {offs.tolist()} off the planted "
+                           f"{exp.tolist()} by {off_err:.3f} px")
+    pano = res.panorama
+    if abs(pano.shape[0] - gt_h) > ML_SIZE_TOL_PX or \
+            abs(pano.shape[1] - gt_w) > ML_SIZE_TOL_PX:
+        _fail("multiline", f"mosaic {pano.shape[:2]} vs ground truth "
+                           f"{(gt_h, gt_w)}")
+    gt = np.clip(ortho[oy:oy + gt_h, ox:ox + gt_w], 0, 255).astype(np.uint8)
+    rmse, dy, dx = gt_rmse(pano, gt, device=dev)
+    if not np.isfinite(rmse) or rmse > GT_RMSE_MAX:
+        _fail("multiline", f"GT-RMSE {rmse} > {GT_RMSE_MAX} (per strip "
+                           f"{strip_rmse})")
+    gl = seen["global_launches"]
+    if gl["sift_orient_desc"] <= 0:
+        _fail("multiline", "K1 was not launched by the global stage")
+    if launches["warp_affine_nonblack"] <= 0:
+        _fail("multiline", "K2's content mode was never launched")
+    pairs = {(i, i + 1): res.seam_methods.get((i, i + 1))
+             for i in range(ML_ROWS - 1)}
+    solver = graphcut_library()
+    if any(m != "graphcut" for m in pairs.values()):
+        _fail("multiline", f"adjacent strip pairs not cut by the graph-cut "
+                           f"solver: {pairs} (solver library: {solver})")
+    print(f"[smoke] multiline: groups {[len(g) for g in sizes]}, flipped "
+          f"{res.flipped}, strip offsets {np.round(offs, 3).tolist()} "
+          f"(max error {off_err:.4f} px, max |linear - I| {lin_err:.2e}), "
+          f"mosaic {pano.shape[0]}x{pano.shape[1]} (gt {gt_h}x{gt_w}), "
+          f"GT-RMSE {rmse:.4f} at shift ({dy},{dx}), per strip "
+          f"{strip_rmse}, device strips {seen['device_strips']} of "
+          f"{ML_ROWS}; seams {pairs} (solver {os.path.relpath(solver)}); "
+          f"wall {wall:.2f} s (first pass "
+          f"{cold:.2f} s)", flush=True)
+    print("[smoke] multiline stages (s): " + ", ".join(
+        f"{k}={v}" for k, v in stages.items()), flush=True)
+    print(f"[smoke] multiline peak memory {peak / 2**30:.3f} GiB "
+          f"(max_memory_allocated), launches {launches} (global stage: "
+          f"{gl})", flush=True)
+    for name in ("sift_orient_desc", "warp_affine"):
+        if launches[name] <= 0:
+            _fail("multiline", f"kernel {name} never launched")
     return launches
 
 
@@ -637,11 +925,34 @@ def main() -> int:
     k2 = phase_k2(torch, dev, imgs[len(imgs) // 2])
     k2["seam_batch"] = phase_k2_batch(torch, dev, imgs, pos, tuning)
     torch.cuda.empty_cache()
+    _zero_counts()
     launches = phase_slice(torch, dev, ortho, imgs, ids, pos, tuning)
     torch.cuda.empty_cache()
-    phase_cli(imgs)
-    k1["launches"] = launches["sift_orient_desc"]
-    k2["launches"] = launches["warp_affine"]
+    cli_imgs = imgs[:4]
+    del ortho, imgs, ids, pos
+    ml_ortho, ml_imgs, ml_ids, ml_pos = render_multiline(torch, dev)
+    padded, true_hw = _padded_strip(torch, dev, ml_ortho, ml_pos, 1)
+    k1["global_detect"] = phase_k1_global(torch, padded, true_hw, tuning)
+    k2["content_mode"] = phase_k2_content(torch, dev, padded)
+    del padded
+    torch.cuda.empty_cache()
+    ml_launches = phase_multiline(torch, dev, ml_ortho, ml_imgs, ml_ids,
+                                  ml_pos, tuning)
+    del ml_ortho, ml_imgs
+    torch.cuda.empty_cache()
+    phase_cli(cli_imgs)
+    k1["launches"] = (launches["sift_orient_desc"]
+                      + ml_launches["sift_orient_desc"])
+    k2["launches"] = launches["warp_affine"] + ml_launches["warp_affine"]
+    k1["launches_by_path"] = {
+        "single_line": launches["sift_orient_desc"],
+        "multi_line": ml_launches["sift_orient_desc"]}
+    k2["launches_by_path"] = {
+        "single_line": launches["warp_affine"],
+        "multi_line": ml_launches["warp_affine"],
+        "multi_line_content_mode": ml_launches["warp_affine_nonblack"]}
+    k1["max_abs_err"] = max(k1["max_abs_err"],
+                            k1["global_detect"]["max_abs_err"])
     for d in (k1, k2):
         d["registers"], d["spill_bytes"] = ptxas[d["source"].split("/")[-1]]
         d["card"] = card

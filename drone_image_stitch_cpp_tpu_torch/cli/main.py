@@ -1,9 +1,9 @@
 """Command-line interface of the PyTorch port.
 
-The JAX CLI's flags that the single-flight-line path uses (folder, type,
-group, output root, JSONL log, every StitchTuning knob by its field name)
-plus ``--device`` (default ``cuda``; ``cuda`` without a visible card is an
-error, never a silent CPU run).
+The JAX CLI's flags that the ported path uses (folder, type, group,
+output root, JSONL log, every StitchTuning knob by its field name, e.g.
+``--global-sift-features``) plus ``--device`` (default ``cuda``; ``cuda``
+without a visible card is an error, never a silent CPU run).
 
     python -m drone_image_stitch_cpp_tpu_torch.cli.main --device cuda \\
         --image-folder IMAGES --image-type visible --group run \\
@@ -30,8 +30,7 @@ def _str2bool(v: str) -> bool:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tpu-mosaic-torch",
-        description="Drone ortho-mosaicking on PyTorch + CUDA "
-                    "(single flight line)")
+        description="Drone ortho-mosaicking on PyTorch + CUDA")
     p.add_argument("--image-folder", default="../images",
                    help="root folder; images at <root>/<type>/<group>")
     p.add_argument("--image-type", default="visible",

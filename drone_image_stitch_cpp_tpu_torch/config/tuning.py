@@ -1,12 +1,11 @@
 """Stitch tuning configuration: knob surface and modality presets.
 
 A copy of ``drone_image_stitch_cpp_tpu/config/tuning.py`` trimmed to the
-knobs the single-flight-line path reads (the JAX package cannot be
-imported here: its ``__init__`` imports jax). The global stage's feature
-budget, the anchor fallback of the sequential ladder and the OpenCL/GPU
-toggles are not carried: those stages are not ported, and the device is
-chosen explicitly (``--device``). Reference: the ``StitchTuning`` struct and
-preset loader of drone_image_stitch_cpp (stitch_config.hpp:50-100,
+knobs the ported path reads (the JAX package cannot be imported here: its
+``__init__`` imports jax). The anchor fallback of the sequential ladder
+and the OpenCL/GPU toggles are not carried: the ladder is not ported, and
+the device is chosen explicitly (``--device``). Reference: the
+``StitchTuning`` struct and preset loader of drone_image_stitch_cpp (stitch_config.hpp:50-100,
 stitch_config.cpp:17-60,84-103).
 
 The system has no weights; a ``StitchTuning`` is its whole state.
@@ -27,6 +26,7 @@ class StitchTuning:
     # --- feature budgets -------------------------------------------------
     sift_features: int = 1500
     strip_sift_features: int = 1500
+    global_sift_features: int = 2500
 
     # --- matching gates --------------------------------------------------
     match_conf: float = 0.35
@@ -72,19 +72,19 @@ _PRESETS = {
     # applyVisiblePreset (stitch_config.cpp:17-30)
     "visible": dict(
         sift_features=2200, strip_sift_features=2200,
-        match_conf=0.35, range_width=6,
+        global_sift_features=3600, match_conf=0.35, range_width=6,
         blend_bands=5, registration_resol_mpx=0.45,
         seam_estimation_resol_mpx=0.12),
     # applyNirPreset (stitch_config.cpp:32-45)
     "nir": dict(
         sift_features=2800, strip_sift_features=2800,
-        match_conf=0.40, range_width=7,
+        global_sift_features=4200, match_conf=0.40, range_width=7,
         blend_bands=5, registration_resol_mpx=0.55,
         seam_estimation_resol_mpx=0.15),
     # applyLwirPreset (stitch_config.cpp:47-60)
     "lwir": dict(
         sift_features=900, strip_sift_features=900,
-        match_conf=0.48, range_width=4,
+        global_sift_features=1400, match_conf=0.48, range_width=4,
         blend_bands=3, registration_resol_mpx=0.30,
         seam_estimation_resol_mpx=0.08),
 }
@@ -103,12 +103,10 @@ def tuning_as_dict(t: StitchTuning) -> Dict[str, object]:
 
 
 # JAX knobs the port does not carry, with the values under which dropping
-# them changes nothing: the global stage (its feature budget) is not
-# ported and a multi-line sortie raises before reaching it; the anchor
-# fallback belongs to the unported sequential ladder; the OpenCL/GPU
-# toggles chose the JAX backend, which ``--device`` does here.
+# them changes nothing: the anchor fallback belongs to the unported
+# sequential ladder; the OpenCL/GPU toggles chose the JAX backend, which
+# ``--device`` does here.
 _NOT_CARRIED = {
-    "global_sift_features": None,          # any value
     "use_anchor_fallback": False,
     "anchor_window": 4,
     "use_opencl": True,

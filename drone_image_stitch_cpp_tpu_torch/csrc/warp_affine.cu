@@ -8,8 +8,12 @@
 // near-identity transforms (|linear - I| <= 0.05). On the H100 a gather is
 // cheap, so this kernel is the direct per-pixel bilinear gather of
 // ops/warp.warp_affine for any affine, and ONE launch reads N uint8 frames
-// and writes all three float32 channels plus the warped all-ones content
-// mask of each (grid: pixel blocks x frames).
+// and writes all three float32 channels plus the warped content mask of
+// each (grid: pixel blocks x frames). The mask is the warp of all-ones (the
+// strip compose: the source rectangle's footprint) or, in content mode
+// (the global compose, compose_feed.py:94-96), the warp of the source's
+// gray > 2 indicator, computed per tap from the 3 bytes the tap already
+// reads, so content mode costs no extra memory traffic.
 //
 // What bounds it on the H100: memory traffic, almost all of it stores. Per
 // output pixel it writes 16 bytes (3 channels + mask, float32) and reads
@@ -24,7 +28,9 @@
 // + ..., each step rounded to nearest with __fmul_rn/__fadd_rn so nvcc
 // cannot contract them into FMAs. That is the operation order of the plain
 // PyTorch version, so both agree bit for bit even at canvas coordinates of
-// ~1.6e4 px where an FMA would move fx visibly.
+// ~1.6e4 px where an FMA would move fx visibly. Content mode's gray is
+// ((b*0.114f) + (g*0.587f)) + (r*0.299f) with the same rounding, the plain
+// version's ops/color.content_mask, so no pixel crosses 2.0 differently.
 //
 // Plain C interface for ctypes; returns the cudaGetLastError() code.
 
@@ -66,11 +72,21 @@ __device__ __forceinline__ float channel(uint32_t v, int c) {
   return (float)((v >> (8 * c)) & 0xffu);
 }
 
-// One output pixel (x, y): BGR into v[0..2], footprint into *m.
+// The content indicator of a tap: 1 where its gray is above 2, else 0 (an
+// out-of-range tap reads 0 and so is 0 too).
+__device__ __forceinline__ float nonblack(uint32_t v) {
+  const float gray = __fadd_rn(__fadd_rn(__fmul_rn(channel(v, 0), 0.114f),
+                                         __fmul_rn(channel(v, 1), 0.587f)),
+                               __fmul_rn(channel(v, 2), 0.299f));
+  return gray > 2.0f ? 1.f : 0.f;
+}
+
+// One output pixel (x, y): BGR into v[0..2], the warped mask into *m (the
+// footprint, or with `content` the warped gray > 2 indicator).
 __device__ __forceinline__ void warp_pixel(const uint8_t* __restrict__ src,
                                            int h, int w, const Coeffs& k,
-                                           int x, int y, float* v,
-                                           float* m) {
+                                           bool content, int x, int y,
+                                           float* v, float* m) {
   const float xf = (float)x;
   const float yf = (float)y;
   const float sx = __fadd_rn(__fadd_rn(__fmul_rn(k.i00, xf),
@@ -98,8 +114,12 @@ __device__ __forceinline__ void warp_pixel(const uint8_t* __restrict__ src,
   for (int c = 0; c < 3; ++c)
     v[c] = lerp2(channel(t00, c), channel(t01, c), channel(t10, c),
                  channel(t11, c), fx, fy);
-  *m = lerp2((ry0 & cx0) ? 1.f : 0.f, (ry0 & cx1) ? 1.f : 0.f,
-             (ry1 & cx0) ? 1.f : 0.f, (ry1 & cx1) ? 1.f : 0.f, fx, fy);
+  if (content)
+    *m = lerp2(nonblack(t00), nonblack(t01), nonblack(t10), nonblack(t11),
+               fx, fy);
+  else
+    *m = lerp2((ry0 & cx0) ? 1.f : 0.f, (ry0 & cx1) ? 1.f : 0.f,
+               (ry1 & cx0) ? 1.f : 0.f, (ry1 & cx1) ? 1.f : 0.f, fx, fy);
 }
 
 // grid.x: blocks of kThreads * kPix output pixels; grid.y: frames. Frame n
@@ -108,7 +128,7 @@ __device__ __forceinline__ void warp_pixel(const uint8_t* __restrict__ src,
 __global__ void __launch_bounds__(kThreads)
 warp_affine_u8_kernel(const uint8_t* __restrict__ src, size_t src_stride,
                       int h, int w, const float* __restrict__ table,
-                      Coeffs one, float* __restrict__ out,
+                      Coeffs one, int content, float* __restrict__ out,
                       float* __restrict__ mask, int out_h, int out_w) {
   const size_t total = (size_t)out_h * out_w;
   const size_t p0 = ((size_t)blockIdx.x * kThreads + threadIdx.x) * kPix;
@@ -130,7 +150,7 @@ warp_affine_u8_kernel(const uint8_t* __restrict__ src, size_t src_stride,
 #pragma unroll
   for (int j = 0; j < kPix; ++j) {
     if (p0 + j < total) {
-      warp_pixel(frame, h, w, k, x, y, v[j], &m[j]);
+      warp_pixel(frame, h, w, k, content != 0, x, y, v[j], &m[j]);
     } else {
       v[j][0] = v[j][1] = v[j][2] = m[j] = 0.f;
     }
@@ -169,12 +189,14 @@ warp_affine_u8_kernel(const uint8_t* __restrict__ src, size_t src_stride,
 
 // n frames of h x w x 3 bytes, src_stride bytes apart; table: device
 // (n, 6) float32 dst->src coefficients, or null for n == 1 with the
-// coefficients passed by value.
+// coefficients passed by value; content: 0 for the footprint mask, 1 for
+// the warped gray > 2 indicator.
 extern "C" int warp_affine_u8(const uint8_t* src, long long src_stride,
                               int h, int w, const float* table, float i00,
                               float i01, float i02, float i10, float i11,
-                              float i12, float* out, float* mask, int out_h,
-                              int out_w, int n, void* stream) {
+                              float i12, int content, float* out,
+                              float* mask, int out_h, int out_w, int n,
+                              void* stream) {
   const size_t total = (size_t)out_h * out_w;
   if (total == 0 || n <= 0) return 0;
   if (table == nullptr && n != 1) return (int)cudaErrorInvalidValue;
@@ -183,6 +205,7 @@ extern "C" int warp_affine_u8(const uint8_t* src, long long src_stride,
                   (unsigned)n);
   warp_affine_u8_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       src, (size_t)src_stride, h, w, table,
-      Coeffs{i00, i01, i02, i10, i11, i12}, out, mask, out_h, out_w);
+      Coeffs{i00, i01, i02, i10, i11, i12}, content, out, mask, out_h,
+      out_w);
   return (int)cudaGetLastError();
 }

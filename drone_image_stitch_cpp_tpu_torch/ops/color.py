@@ -32,3 +32,17 @@ def nonblack_mask(img: torch.Tensor, thresh: float = 2.0) -> torch.Tensor:
     109-117 uses > 2 for content masks, stitch_common.cpp:9 > 1)."""
     gray = bgr_to_gray(img) if img.shape[-1] == 3 else img
     return gray > thresh
+
+
+def content_mask(img: torch.Tensor) -> torch.Tensor:
+    """Bool (..., H, W): BT.601 gray of (..., H, W, 3) BGR above 2, the
+    strip content test of the global stage (stitch_global.cpp:109-117),
+    evaluated as ((b * 0.114) + (g * 0.587)) + (r * 0.299) in float32
+    with every product and sum rounded. K2's content mode computes the
+    same expression bit for bit (csrc/warp_affine.cu); on 8-bit pixels it
+    decides as ``nonblack_mask(img, 2.0)`` does."""
+    x = img.to(torch.float32)
+    wb, wg, wr = (torch.tensor(v, dtype=torch.float32, device=x.device)
+                  for v in _BGR_WEIGHTS)
+    gray = (x[..., 0] * wb + x[..., 1] * wg) + x[..., 2] * wr
+    return gray > 2.0

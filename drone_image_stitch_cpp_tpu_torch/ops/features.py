@@ -307,6 +307,27 @@ def detect_and_describe_batched(grays: torch.Tensor, max_kp: int,
     return feats
 
 
+_DESC_D = 4        # 4x4 spatial bins
+_DESC_BINS = 8     # orientation bins
+
+
+def mirror_features(feats: Features, width) -> Features:
+    """Exact horizontal-flip transport of a feature set (the JAX
+    package's closed form, features.py:564): under x' = w-1-x the
+    keypoints map to (w-1-x, y) with the same sigma and response, the
+    dominant angle to pi - angle, and the descriptor bin (row, col, ori)
+    to (D-1-row, col, -ori mod 8). ``width``: the true image width in the
+    units of ``feats.xy``. Any leading batch dims."""
+    xy = torch.stack([float(width) - 1.0 - feats.xy[..., 0],
+                      feats.xy[..., 1]], dim=-1)
+    angle = torch.remainder(math.pi - feats.angle, 2.0 * math.pi)
+    lead = feats.desc.shape[:-1]
+    d = feats.desc.reshape(*lead, _DESC_D, _DESC_D, _DESC_BINS).flip(-3)
+    d = torch.cat([d[..., :1], d[..., 1:].flip(-1)], dim=-1)
+    return feats._replace(xy=xy, angle=angle, desc=d.reshape(
+        *lead, _DESC_D * _DESC_D * _DESC_BINS))
+
+
 def _pad_rows(a: torch.Tensor, pad: int) -> torch.Tensor:
     """Append ``pad`` zero (False) rows along the keypoint axis (dim 1)."""
     z = torch.zeros((a.shape[0], pad) + tuple(a.shape[2:]), dtype=a.dtype,

@@ -42,9 +42,25 @@ def knn2_ratio(desc_a: torch.Tensor, valid_a: torch.Tensor,
                ratio: float) -> Matches:
     """kNN(k=2) from A into B with the Lowe ratio test."""
     d2 = distance_sq(desc_a, desc_b, valid_a, valid_b)
+    return knn2_ratio_from_d2(d2, valid_a, valid_b, ratio)
+
+
+def knn2_ratio_from_d2(d2: torch.Tensor, valid_a: torch.Tensor,
+                       valid_b: torch.Tensor, ratio: float) -> Matches:
+    """kNN(k=2) + ratio test on a precomputed (..., Ka, Kb) distance
+    matrix, under the validity masks (..., Ka) and (..., Kb), so a bank of
+    ROI hypotheses shares one distance product. The nearest is the first
+    minimum (as jnp.argmin); the second-nearest distance is the second
+    smallest value of the row, ties included, which is the minimum of the
+    row with the nearest masked out."""
+    both = valid_a[..., :, None] & valid_b[..., None, :]
+    d2 = torch.where(both, d2, torch.full((), _BIG, dtype=d2.dtype,
+                                          device=d2.device))
     best, bidx = torch.min(d2, dim=-1)
-    masked = d2.scatter(-1, bidx[..., None], _BIG)
-    second = masked.min(dim=-1).values
+    if d2.shape[-1] > 1:
+        second = torch.topk(d2, 2, dim=-1, largest=False).values[..., 1]
+    else:
+        second = torch.full_like(best, _BIG)
     d1 = torch.sqrt(best)
     d2r = torch.sqrt(second)
     good = (d1 < ratio * d2r) & valid_a & (best < _BIG * 0.5)

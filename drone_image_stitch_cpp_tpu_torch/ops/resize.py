@@ -90,3 +90,10 @@ def scale_for_megapixels(h: int, w: int, mpx: float) -> float:
     if mpx is None or mpx <= 0:
         return 1.0
     return min(1.0, (mpx * 1e6 / float(h * w)) ** 0.5)
+
+
+def scale_for_max_dim(h: int, w: int, max_dim: int) -> float:
+    """Work-scale so that max(h, w) <= max_dim; never upscales (the global
+    aligner's <= 2800 px, stitch_global.cpp:119-136)."""
+    m = max(h, w)
+    return 1.0 if m <= max_dim else max_dim / float(m)

@@ -1,9 +1,10 @@
 """Affine image warping with bilinear sampling (the exact gather).
 
-Port of ``drone_image_stitch_cpp_tpu/ops/warp.py::warp_affine``
+Port of ``drone_image_stitch_cpp_tpu/ops/warp.py``: ``warp_affine``
 (cv::warpAffine INTER_LINEAR + BORDER_CONSTANT(0), stitch_global.cpp:
-369-376). Transforms are src->dst like OpenCV and are inverted here;
-out-of-bounds taps read the constant border. This is the function the
+369-376) and ``warp_content_mask`` (buildWarpedContentMask, :353-383).
+Transforms are src->dst like OpenCV and are inverted here; out-of-bounds
+taps read the constant border. This is the function the
 hand-written warp kernel (ops/warp_kernel.py) is held to.
 """
 
@@ -61,3 +62,13 @@ def warp_affine(img: torch.Tensor, a23: torch.Tensor, out_h: int,
     inv = invert_affine(a23.to(torch.float32))
     sx, sy = dst_to_src_coords(inv, out_h, out_w)
     return bilinear_sample(img.to(torch.float32), sx, sy, border_value)
+
+
+def warp_content_mask(content_mask: torch.Tensor, a23: torch.Tensor,
+                      out_h: int, out_w: int,
+                      footprint_thresh: float = 0.999) -> torch.Tensor:
+    """Warp a bool/float content mask bilinearly and keep the pixels whose
+    footprint is >= ``footprint_thresh`` (excludes out-of-bounds wedges
+    and interior black pixels). Returns bool (out_h, out_w)."""
+    warped = warp_affine(content_mask.to(torch.float32), a23, out_h, out_w)
+    return warped >= footprint_thresh

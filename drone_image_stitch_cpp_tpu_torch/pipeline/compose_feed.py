@@ -1,10 +1,17 @@
-"""Per-frame compose feed into the canvas pyramid (strip mode, affine).
+"""Per-frame compose feed into the canvas pyramid (affine).
 
 Port of ``drone_image_stitch_cpp_tpu/pipeline/compose_feed.py::
-_feed_body`` for the strip compose: warp the uint8 frame and its content
-footprint into the ROI window (ONE launch of K2, ops/warp_kernel.py),
-modulate by the block-gain surface, upsample the seam mask to the window,
-weight = seam * (footprint >= 0.5), and accumulate the multiband pyramid.
+_feed_body``: warp the uint8 frame and its content mask into the ROI
+window (ONE launch of K2, ops/warp_kernel.py), apply the gains, upsample
+the seam mask to the window, weight it, and accumulate the multiband
+pyramid. Two modes mirror the two callers:
+  * ``mode="strip"``: the mask is the source rectangle's footprint, kept
+    at >= 0.5; a block-gain surface; weight = seam * mask;
+  * ``mode="global"``: the mask is the warp of the source's gray > 2
+    indicator (K2's content mode), kept at >= 0.999; a per-channel gain
+    applied after the warp (warping is linear, so this equals gain-then-
+    warp); weight = the sigma-10 Gaussian of the seam mask inside the mask
+    (buildSoftBlendMask, stitch_global.cpp:332-351,643-660).
 The seam-scale surfaces are upsampled with two 1-D bilinear-hat matmuls,
 the same samples as a gather warp of [[1/s, 0, -gx], [0, 1/s, -gy]].
 """
@@ -17,7 +24,11 @@ import numpy as np
 import torch
 
 from ..ops import blend as B
+from ..ops.gaussian import gaussian_blur
 from ..ops.warp_kernel import warp_frame
+
+_SOFT_MASK_SIGMA = 10.0  # reference :345
+_MODES = {"strip": ("ones", 0.5), "global": ("nonblack", 0.999)}
 
 
 def _hat(n_out: int, n_src: int, off: torch.Tensor,
@@ -42,18 +53,24 @@ def _upsample(m: torch.Tensor, rh: int, rw: int, gx: torch.Tensor,
 def feed_frame(cv: B.MultiBandCanvas, img_u8: torch.Tensor,
                seam_mask: torch.Tensor, t_full: np.ndarray, tlx: int,
                tly: int, gx: float, gy: float, seam_scale: float, rh: int,
-               rw: int, gain_m1: Optional[torch.Tensor] = None
-               ) -> B.MultiBandCanvas:
+               rw: int, gain_m1: Optional[torch.Tensor] = None,
+               mode: str = "strip", chan_gain=None) -> B.MultiBandCanvas:
     """Feed one frame's ROI window into ``cv`` (in place).
 
     ``img_u8``: (H, W, 3) uint8 device frame; ``seam_mask``: (gh, gw) bool
     at seam scale; ``t_full``: host (2, 3) frame->window affine; (tlx, tly)
-    the window's canvas offset and (gx, gy) its float offset at full
-    resolution; ``gain_m1``: optional (gh, gw) block-gain-minus-1 surface.
+    the window's canvas offset (in ``cv``) and (gx, gy) its offset on the
+    seam-scale canvas's full-resolution grid; ``gain_m1``: optional
+    (gh, gw) block-gain-minus-1 surface; ``mode``: "strip" or "global"
+    (see the module doc); ``chan_gain``: optional host (3,) gains.
     """
     dev = img_u8.device
-    wimg, cm = warp_frame(img_u8, t_full, rh, rw)
-    cmask = cm >= 0.5
+    content, cthresh = _MODES[mode]
+    wimg, cm = warp_frame(img_u8, t_full, rh, rw, content=content)
+    cmask = cm >= cthresh
+    if chan_gain is not None:
+        wimg = wimg * torch.as_tensor(np.asarray(chan_gain, np.float32),
+                                      device=dev)
     inv_seam = torch.tensor(1.0 / max(seam_scale, 1e-12),
                             dtype=torch.float32, device=dev)
     gxt = torch.tensor(gx, dtype=torch.float32, device=dev)
@@ -62,5 +79,9 @@ def feed_frame(cv: B.MultiBandCanvas, img_u8: torch.Tensor,
         wimg = wimg * (1.0 + _upsample(gain_m1, rh, rw, gxt, gyt,
                                        inv_seam))[..., None]
     sroi = _upsample(seam_mask, rh, rw, gxt, gyt, inv_seam)
-    weight = sroi * cmask.to(torch.float32)
+    if mode == "global":
+        weight = torch.where(cmask, gaussian_blur(sroi, _SOFT_MASK_SIGMA),
+                             torch.zeros((), device=dev))
+    else:
+        weight = sroi * cmask.to(torch.float32)
     return B.mb_feed(cv, wimg, weight, tlx, tly, cmask)

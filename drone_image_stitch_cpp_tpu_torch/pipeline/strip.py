@@ -5,17 +5,20 @@ Port of the joint path of ``drone_image_stitch_cpp_tpu/pipeline/strip.py``
 337-376): one batched detect, banded match + RANSAC, biggest-component
 filter on pano_conf_thresh, affine-partial bundle adjustment, seam-scale
 warps of every frame (K2), block-gain exposure surfaces, DP seams, and a
-whole-canvas multiband compose fed frame by frame (K2 again).
+multiband compose fed frame by frame (K2 again): whole canvas, or through
+tiles when the canvas pyramid exceeds ``ops/blend.TILED_THRESHOLD_BYTES``.
+A tiled strip's crop box comes from the tiles' device content flags, and
+with ``return_device=True`` its panorama stays on the device as a
+:class:`runtime.handoff.DeviceStrip` for the global stage.
 
 Not ported yet: the sequential anchor-window fallback (a failed joint
-stitch raises :class:`StripStitchError`), the tiled compose, the
-device-resident strip handoff, the perspective warper and a compositing
-resolution below full size.
+stitch raises :class:`StripStitchError`), the perspective warper and a
+compositing resolution below full size.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -28,6 +31,7 @@ from ..ops.crop import auto_crop_black_border
 from ..ops.resize import scale_for_megapixels
 from ..ops.warp_kernel import warp_frames
 from ..runtime.device import device_sync
+from ..runtime.handoff import DeviceStrip
 from ..runtime.logging import get_logger
 from . import compose_feed as CF
 from .bundle import bundle_adjust_similarity, params_from_affine
@@ -154,9 +158,11 @@ def compose_strip(images: Optional[List[np.ndarray]],
                   transforms: np.ndarray, tuning: StitchTuning,
                   stage: str = "Strip",
                   device: Optional[torch.device] = None, store=None,
-                  indices: Optional[List[int]] = None) -> np.ndarray:
-    """Seam-scale warps + gains + DP seams + whole-canvas multiband blend
-    at full resolution. Returns the autocropped (H, W, 3) uint8 panorama.
+                  indices: Optional[List[int]] = None,
+                  return_device: bool = False):
+    """Seam-scale warps + gains + DP seams + multiband blend at full
+    resolution. Returns the cropped (H, W, 3) uint8 host panorama, or,
+    with ``return_device`` and a tiled canvas, a :class:`DeviceStrip`.
     """
     log = get_logger()
     fr = _Frames(images, store, indices, device)
@@ -190,8 +196,18 @@ def compose_strip(images: Optional[List[np.ndarray]],
     t_canvas = [(shift3 @ np.vstack([t, [0.0, 0.0, 1.0]]))[:2].astype(
         np.float32) for t in tf]
     log.log(stage, "canvas", h=canvas_h, w=canvas_w)
+    # the strip stage uses the configured band count (the adaptive formula
+    # belongs to the global stage, stitch_global.cpp:632-635)
     bands = max(1, tuning.blend_bands)
-    B.ensure_canvas_fits(canvas_h, canvas_w, bands, fr.device)
+    use_tiled = (B.pyramid_bytes(canvas_h, canvas_w, bands)
+                 > B.TILED_THRESHOLD_BYTES)
+    if use_tiled:
+        bands = B.tiled_bands(canvas_h, canvas_w, bands)
+        log.log(stage, "tiled compose",
+                tiles=len(B.mb_tile_grid(canvas_h, canvas_w, bands)[0]),
+                bands=bands)
+    else:
+        B.ensure_canvas_fits(canvas_h, canvas_w, bands, fr.device)
 
     # ---- seam-scale warps (K2: every frame + footprint in ONE launch, as
     # the JAX package's _seam_warp_batch) ---------------------------------
@@ -223,23 +239,43 @@ def compose_strip(images: Optional[List[np.ndarray]],
     del seam_imgs, simgs
 
     # ---- full-res compose: ROI warp -> canvas pyramid --------------------
+    def feed_roi(cv, k, oy, ox, ch_, cw_):
+        """Feed frame k into a canvas pyramid whose origin is (ox, oy)."""
+        bx0, by0 = boxes[k][0] - x0 - ox, boxes[k][1] - y0 - oy
+        bx1, by1 = boxes[k][2] - x0 - ox, boxes[k][3] - y0 - oy
+        tlx, tly, rh_b, rw_b = B.bucketed_window(
+            float(bx0), float(by0), float(bx1), float(by1), bands, ch_, cw_)
+        gx, gy = ox + tlx, oy + tly     # canvas offsets of the ROI
+        t_full = t_canvas[k].copy()
+        t_full[0, 2] -= gx
+        t_full[1, 2] -= gy
+        return CF.feed_frame(
+            cv, fr.device_frame(k), seam_masks[k], t_full, tlx, tly,
+            float(gx), float(gy), seam_scale, rh_b, rw_b,
+            gain_m1=(gain_maps[k] - 1.0 if gain_maps is not None
+                     else None))
+
+    if use_tiled:
+        frame_boxes = [(b[0] - x0, b[1] - y0, b[2] - x0, b[3] - y0)
+                       for b in boxes]
+        with log.timer(stage, "tiled blend", sync=sync):
+            out, bbox = B.mb_compose_tiled(
+                canvas_h, canvas_w, bands, frame_boxes, feed_roi, fr.device,
+                assemble="device" if return_device else "host")
+        if bbox is None:
+            raise StripStitchError(f"{stage}: blended canvas is empty")
+        if return_device:
+            return DeviceStrip(out, bbox)
+        # the crop box comes from the tiles' device content flags: a slice
+        # here instead of a host gray pass over the panorama
+        by0, by1, bx0, bx1 = bbox
+        return np.ascontiguousarray(out[by0:by1, bx0:bx1])
+
     with log.timer(stage, "blend", sync=sync):
         canvas = B.mb_prepare(canvas_h, canvas_w, bands, fr.device)
         ch_, cw_ = canvas.wacc[0].shape
         for k in range(n):
-            bx0, by0 = boxes[k][0] - x0, boxes[k][1] - y0
-            bx1, by1 = boxes[k][2] - x0, boxes[k][3] - y0
-            tlx, tly, rh_b, rw_b = B.bucketed_window(
-                float(bx0), float(by0), float(bx1), float(by1), bands,
-                ch_, cw_)
-            t_full = t_canvas[k].copy()
-            t_full[0, 2] -= tlx
-            t_full[1, 2] -= tly
-            canvas = CF.feed_frame(
-                canvas, fr.device_frame(k), seam_masks[k], t_full, tlx, tly,
-                float(tlx), float(tly), seam_scale, rh_b, rw_b,
-                gain_m1=(gain_maps[k] - 1.0 if gain_maps is not None
-                         else None))
+            canvas = feed_roi(canvas, k, 0, 0, ch_, cw_)
         out, _ = B.mb_blend(canvas, canvas_h, canvas_w)
         pano = B.clip_u8(out).cpu().numpy()
         del canvas, out
@@ -251,14 +287,18 @@ def stitch_strip(images: Optional[List[np.ndarray]],
                  tuning: Optional[StitchTuning] = None,
                  stage: str = "Strip",
                  range_width_override: Optional[int] = None,
+                 image_tags: Optional[Sequence[str]] = None,
                  seed: int = 0, device: Optional[torch.device] = None,
                  store=None, indices: Optional[List[int]] = None,
-                 info: Optional[dict] = None) -> np.ndarray:
+                 info: Optional[dict] = None, return_device: bool = False):
     """Joint strip stitch (stitchRobustly's first rung,
     stitch_robust.cpp:337-376); raises StripStitchError on failure.
 
+    ``image_tags``: optional per-frame tags for the logged pair plan.
     ``info``: optional dict that receives ``kept`` (kept frame positions)
     and ``transforms`` ((n_kept, 2, 3) frame->frame0).
+    ``return_device``: a tiled panorama comes back as a
+    :class:`DeviceStrip`; small canvases still return host arrays.
     """
     log = get_logger()
     tuning = tuning or StitchTuning()
@@ -271,6 +311,9 @@ def stitch_strip(images: Optional[List[np.ndarray]],
                 [[[1, 0, 0], [0, 1, 0]]], np.float32))
         return (images[0].copy() if images is not None
                 else store.host_frame(indices[0]).copy())
+    if image_tags:
+        log.log(stage, "plan", pairs=", ".join(
+            f"{a}->{b}" for a, b in zip(image_tags, image_tags[1:])))
     sync = device_sync(store.device if store is not None
                        else torch.device(device))
     with log.timer(stage, "register", sync=sync):
@@ -285,4 +328,5 @@ def stitch_strip(images: Optional[List[np.ndarray]],
     return compose_strip(
         None if images is None else [images[i] for i in kept], transforms,
         tuning, stage, device=device, store=store,
-        indices=None if indices is None else [indices[i] for i in kept])
+        indices=None if indices is None else [indices[i] for i in kept],
+        return_device=return_device)

@@ -58,3 +58,7 @@ class FrameStore:
 
     def host_frame(self, i: int) -> np.ndarray:
         return self.frames[i].cpu().numpy()
+
+    def clear(self) -> None:
+        """Drop the device frames (the global stage needs the memory)."""
+        self.frames = None

@@ -8,7 +8,9 @@ source rebuilds and an unchanged one is reused.
 
 The C functions get their ``restype``/``argtypes`` once, when the library
 loads; later calls of :func:`load_kernel` return the cached handles without
-taking the lock.
+taking the lock. :func:`load_kernels` starts one ``nvcc`` per source
+together and waits for all of them, so several kernels build in the time of
+the slowest.
 
 Nothing here runs at import time: the first launch of a kernel builds it.
 """
@@ -95,31 +97,65 @@ def load_kernel(source: str, signatures: Signatures) -> BuiltKernel:
         return built
 
 
+def load_kernels(specs: Mapping[str, Signatures]) -> Dict[str, BuiltKernel]:
+    """:func:`load_kernel` for several sources ({source: signatures}); the
+    ``nvcc`` runs of the sources still to build are started together."""
+    with _LOCK:
+        started = []
+        try:
+            for source in specs:
+                if source not in _BUILT:
+                    started.append(_start_build(source))
+            for job in started:
+                _BUILT[job[0]] = _finish_build(job)
+        finally:    # a failed build leaves no nvcc running and no output
+            for _, _, proc, tmp, _ in started:
+                if proc is not None and proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                    os.unlink(tmp)
+    return {s: load_kernel(s, sig) for s, sig in specs.items()}
+
+
 def _build(source: str) -> BuiltKernel:
+    return _finish_build(_start_build(source))
+
+
+def _start_build(source: str):
+    """Start ``nvcc`` on ``csrc/<source>`` unless its library exists:
+    (source, library path, nvcc process or None, temporary output, t0)."""
     src_path = os.path.join(CSRC_DIR, source)
     with open(src_path, "rb") as f:
         digest = hashlib.sha256(
             f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     stem = os.path.splitext(source)[0]
     lib_path = os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
+    if os.path.exists(lib_path):
+        return source, lib_path, None, None, 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src_path],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return source, lib_path, proc, tmp, time.perf_counter()
+
+
+def _finish_build(job) -> BuiltKernel:
+    """Wait for a :func:`_start_build` job and load its library."""
+    source, lib_path, proc, tmp, t0 = job
     log_path = lib_path + ".ptxas.txt"
     seconds = 0.0
-    if not os.path.exists(lib_path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src_path],
-            capture_output=True, text=True)
+    if proc is not None:
+        _, stderr = proc.communicate()
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
             os.unlink(tmp)
             raise KernelBuildError(
                 f"nvcc failed on {source} (rc={proc.returncode}):\n"
-                f"{proc.stderr[-4000:]}")
+                f"{stderr[-4000:]}")
         with open(log_path, "w") as f:
-            f.write(proc.stderr)
+            f.write(stderr)
         os.replace(tmp, lib_path)
     ptxas = ""
     if os.path.exists(log_path):

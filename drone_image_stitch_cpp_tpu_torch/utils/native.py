@@ -1,23 +1,36 @@
 """ctypes bindings for the native runtime library (native/libtmnative.so).
 
 A copy of ``drone_image_stitch_cpp_tpu/utils/native.py`` trimmed to the
-JPEG decode and the incremental JPEG encode. Host-side native components
-(the reference's ingest is native C++ via cv::imread). Gracefully absent:
-``_load`` returns None when the library is missing or does not load on
-this machine (it links libjpeg and is built for the host CPU), and
-callers fall back to cv2/PIL.
+JPEG decode, the incremental JPEG encode and the graph-cut min-cut
+solver (``tm_graphcut``, a Boykov-Kolmogorov max-flow). The JPEG paths
+use the committed library, which links libjpeg and is built for one host:
+``_load`` returns None where it is missing or does not load, and callers
+fall back to cv2/PIL. The solver is always built from
+``native/graphcut.cpp`` with the host C++ compiler into ``build/native/``
+at first use (keyed by the source and flags; it needs no libjpeg), so
+every machine runs the same solver.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import shutil
+import subprocess
+import tempfile
+import threading
 from typing import List, Optional
 
 import numpy as np
 
 _LIB = None
 _TRIED = False
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+_GC_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
+_GC_LOCK = threading.Lock()
+_GC = {}        # "fn": the typed tm_graphcut, "path": its library
 
 
 def _load():
@@ -25,9 +38,7 @@ def _load():
     if _TRIED:
         return _LIB
     _TRIED = True
-    here = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    path = os.path.join(here, "native", "libtmnative.so")
+    path = os.path.join(_ROOT, "native", "libtmnative.so")
     if not os.path.exists(path):
         return None
     try:
@@ -79,6 +90,67 @@ def decode_image_native(path: str) -> Optional[np.ndarray]:
     finally:
         lib.tm_free(buf)
     return arr
+
+
+def _build_graphcut() -> Optional[str]:
+    """``native/graphcut.cpp`` built into build/native/ (keyed by the
+    source and flags); None without a C++ compiler or when it fails."""
+    src = os.path.join(_ROOT, "native", "graphcut.cpp")
+    cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+    if cxx is None or not os.path.exists(src):
+        return None
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(
+            f.read() + " ".join(_GC_FLAGS).encode()).hexdigest()[:16]
+    out_dir = os.path.join(_ROOT, "build", "native")
+    path = os.path.join(out_dir, f"libtmgraphcut-{digest}.so")
+    if not os.path.exists(path):
+        os.makedirs(out_dir, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        proc = subprocess.run([cxx, *_GC_FLAGS, src, "-o", tmp],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            return None
+        os.replace(tmp, path)
+    return path
+
+
+def graphcut_library() -> Optional[str]:
+    """Path of the solver library built from ``native/graphcut.cpp`` that
+    serves :func:`graphcut_native`, or None without a C++ compiler."""
+    with _GC_LOCK:
+        if "path" not in _GC:
+            path = _build_graphcut()
+            if path is not None:
+                fptr = np.ctypeslib.ndpointer(dtype=np.float32, flags="C")
+                uptr = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C")
+                fn = ctypes.CDLL(path).tm_graphcut
+                fn.restype = ctypes.c_double
+                fn.argtypes = [ctypes.c_int, ctypes.c_int, fptr, fptr, fptr,
+                               fptr, uptr]
+                _GC["fn"] = fn
+            _GC["path"] = path
+        return _GC["path"]
+
+
+def graphcut_native(cap_src: np.ndarray, cap_snk: np.ndarray,
+                    cap_h: np.ndarray, cap_v: np.ndarray
+                    ) -> Optional[np.ndarray]:
+    """Min-cut labels (1 = source side) on a 4-connected (h, w) grid with
+    terminal capacities ``cap_src``/``cap_snk`` (h, w), horizontal edges
+    ``cap_h`` (h, w-1) and vertical edges ``cap_v`` (h-1, w); None if no
+    solver library is available (:func:`graphcut_library`)."""
+    if graphcut_library() is None:
+        return None
+    h, w = cap_src.shape
+    labels = np.zeros((h, w), np.uint8)
+    _GC["fn"](h, w, np.ascontiguousarray(cap_src, np.float32),
+              np.ascontiguousarray(cap_snk, np.float32),
+              np.ascontiguousarray(cap_h, np.float32),
+              np.ascontiguousarray(cap_v, np.float32), labels)
+    return labels
 
 
 class NativeJpegEncoder:

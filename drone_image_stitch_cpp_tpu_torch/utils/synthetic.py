@@ -32,8 +32,10 @@ def fractal_ortho(h: int, w: int, seed: int = 0,
         grid = r.normal(0, 1.0, (gh, gw, 3)).astype(np.float32)
         g = torch.from_numpy(grid).permute(2, 0, 1)[None].to(device)
         up = F.interpolate(g, size=(gh * cell, gw * cell), mode="bicubic",
-                           align_corners=False)[0, :, :h, :w]
-        img += amp * up.permute(1, 2, 0).cpu().numpy()
+                           align_corners=False)[0, :, :h, :w].cpu().numpy()
+        for c in range(3):      # one channel's temporary at a time
+            img[..., c] += amp * up[c]
+        del up
     img = 118.0 + img * 0.55
     for _ in range(max(600, h * w // 1300)):
         cy, cx = int(r.integers(0, h)), int(r.integers(0, w))
@@ -42,7 +44,9 @@ def fractal_ortho(h: int, w: int, seed: int = 0,
         y0, y1 = max(0, cy - rh_), min(h, cy + rh_)
         x0, x1 = max(0, cx - rw_), min(w, cx + rw_)
         img[y0:y1, x0:x1] = 0.35 * img[y0:y1, x0:x1] + 0.65 * col
-    img += r.normal(0, 3.0, (h, w, 3)).astype(np.float32)
+    for y in range(0, h, 512):  # the same draws as one call, in row bands
+        img[y:y + 512] += r.normal(0, 3.0, (min(512, h - y), w, 3)).astype(
+            np.float32)
     return np.clip(img, 0, 255).astype(np.float32)
 
 

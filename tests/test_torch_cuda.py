@@ -12,6 +12,7 @@ kernels.
 
 import math
 import os
+import time
 
 import numpy as np
 import pytest
@@ -54,17 +55,40 @@ def _keypoints(dev, n=200, h=96, w=160, seed=1):
 
 def _launch_counts():
     return (SK.orientation_descriptor_flat.launches, WK.warp_frame.launches,
-            WK.warp_frames.launches)
+            WK.warp_frames.launches, WK.warp_frame.nonblack_launches)
 
 
 def test_cpu_calls_are_not_counted_as_launches():
     before = _launch_counts()
     SK.orientation_descriptor_flat(_stack("cpu"), *_keypoints("cpu", n=8))
     a23 = np.asarray([[1, 0, 1.5], [0, 1, 0]], np.float32)
-    WK.warp_frame(torch.zeros((16, 16, 3), dtype=torch.uint8), a23, 16, 16)
-    WK.warp_frames(torch.zeros((2, 16, 16, 3), dtype=torch.uint8),
-                   np.stack([a23, a23]), 16, 16)
+    for content in WK.CONTENT_MODES:
+        WK.warp_frame(torch.zeros((16, 16, 3), dtype=torch.uint8), a23, 16,
+                      16, content=content)
+        WK.warp_frames(torch.zeros((2, 16, 16, 3), dtype=torch.uint8),
+                       np.stack([a23, a23]), 16, 16, content=content)
     assert _launch_counts() == before
+
+
+def test_load_kernels_stops_every_build_when_one_fails(tmp_path,
+                                                      monkeypatch):
+    """The kernels' compilers start together; when one fails, the error
+    comes at once and the other build is stopped and leaves no file (a
+    stand-in compiler refuses K1's source and takes 60 s over K2's)."""
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\ncase "$*" in *sift*) echo refused >&2; '
+                    'exit 1;; esac\nsleep 60\n')
+    fake.chmod(0o755)
+    build = tmp_path / "build"
+    monkeypatch.setattr(kernels, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(build))
+    monkeypatch.setattr(kernels, "_BUILT", {})
+    t0 = time.perf_counter()
+    with pytest.raises(kernels.KernelBuildError, match="refused"):
+        kernels.load_kernels({m.KERNEL_SOURCE: m.KERNEL_SIGNATURES
+                              for m in (SK, WK)})
+    assert time.perf_counter() - t0 < 30
+    assert list(build.iterdir()) == []
 
 
 def test_support_radius_covers_every_detected_scale():
@@ -204,6 +228,98 @@ def test_k2_batched_equals_per_frame(cuda, out_hw):
     wp, mp = WK.warp_frames_plain(
         frames, [WK.inverse_coeffs(a) for a in a23s], oh, ow)
     assert torch.equal(wimgs, wp) and torch.equal(masks, mp)
+
+
+def _near_threshold_frame(dev, h=37, w=53, seed=6):
+    """A frame whose pixels sit at and around the content test's gray 2:
+    every (b, g, r) in 0..4, the single-channel steps 17/18 (blue alone
+    crosses 2 between them), black and random texture."""
+    g = torch.Generator().manual_seed(seed)
+    img = torch.randint(0, 256, (h, w, 3), generator=g, dtype=torch.uint8)
+    v = torch.arange(5, dtype=torch.uint8)
+    small = torch.stack(torch.meshgrid(v, v, v, indexing="ij"),
+                        -1).reshape(-1, 3)
+    img[:5, :25] = small.reshape(5, 25, 3)
+    img[5:8, :20] = torch.tensor([17, 0, 0], dtype=torch.uint8)
+    img[5:8, 20:40] = torch.tensor([18, 0, 0], dtype=torch.uint8)
+    img[8:12, :] = 0
+    img[12:15, :] = 2
+    return img.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_hw", [(1, 1), (3, 5), (7, 4099), (64, 96)])
+def test_k2_content_mode_bit_equal_to_plain(cuda, out_hw):
+    """K2's gray > 2 content mask against its plain version: ragged output
+    sizes, an identity window over the crafted pixels (each tap's decision
+    shows unblended) and rotated ones."""
+    img = _near_threshold_frame(cuda)
+    oh, ow = out_hw
+    n0 = WK.warp_frame.nonblack_launches
+    for a23 in ([[1, 0, 0], [0, 1, 0]], [[0.9, 0.05, -2.3], [-0.04, 1.1, 1.7]],
+                [[0.5, -0.2, 3.25], [0.2, 0.5, -0.75]]):
+        a23 = np.asarray(a23, np.float32)
+        wk, mk = WK.warp_frame(img, a23, oh, ow, content="nonblack")
+        wp, mp = WK.warp_frame_plain(img, WK.inverse_coeffs(a23), oh, ow,
+                                     content="nonblack")
+        assert torch.equal(wk, wp) and torch.equal(mk, mp)
+    assert WK.warp_frame.nonblack_launches == n0 + 3
+    if out_hw == (64, 96):
+        wk, mk = WK.warp_frame(img, np.asarray([[1, 0, 0], [0, 1, 0]],
+                                               np.float32), oh, ow,
+                               content="nonblack")
+        # the identity window shows each tap's decision: black and gray-2
+        # rows are out, the (18, 0, 0) run is in and (17, 0, 0) is out
+        assert not mk[8:15, :53].any()
+        assert mk[5:8, 20:40].eq(1).all() and not mk[5:8, :20].any()
+
+
+@pytest.mark.gpu
+def test_k2_content_mode_out_of_range_and_batched(cuda):
+    img = _near_threshold_frame(cuda)
+    for a23 in ([[1, 0, 500.25], [0, 1, 0]], [[1, 0, -3.0e9], [0, 1, 3.0e9]]):
+        a23 = np.asarray(a23, np.float32)
+        wk, mk = WK.warp_frame(img, a23, 17, 23, content="nonblack")
+        assert not wk.any() and not mk.any()
+    frames = torch.stack([img, img.flip(1), img.flip(0)])
+    a23s = np.stack([np.asarray([[1, 0, k * 1.5], [0, 1, -k * 0.25]],
+                                np.float32) for k in range(3)])
+    n0 = WK.warp_frame.nonblack_launches
+    wimgs, masks = WK.warp_frames(frames, a23s, 40, 60, content="nonblack")
+    # the batched content-mode launch counts in the one shared counter
+    assert WK.warp_frame.nonblack_launches == n0 + 1
+    wp, mp = WK.warp_frames_plain(
+        frames, [WK.inverse_coeffs(a) for a in a23s], 40, 60,
+        content="nonblack")
+    assert torch.equal(wimgs, wp) and torch.equal(masks, mp)
+
+
+@pytest.mark.gpu
+def test_tiled_compose_on_card_equals_whole_canvas(cuda, monkeypatch):
+    """The strip compose on the card, tiled (threshold forced to 1) and
+    whole-canvas, on planted transforms: within 1 level, the same crop,
+    and the device handoff holds the tiled result."""
+    from drone_image_stitch_cpp_tpu_torch.config.tuning import StitchTuning
+    from drone_image_stitch_cpp_tpu_torch.ops import blend as B
+    from drone_image_stitch_cpp_tpu_torch.pipeline.strip import compose_strip
+    from drone_image_stitch_cpp_tpu_torch.runtime.handoff import DeviceStrip
+    from drone_image_stitch_cpp_tpu_torch.utils.synthetic import (
+        fractal_ortho, render_sortie)
+    ortho = fractal_ortho(400, 900, seed=0)
+    imgs, _, pos = render_sortie(ortho, 1, 4, 160, 224, 0.6)
+    transforms = np.asarray([[[1, 0, x - pos[0][1]], [0, 1, y - pos[0][0]]]
+                             for y, x in pos], np.float32)
+    tt = StitchTuning(blend_bands=3, seam_estimation_resol_mpx=-1.0)
+    whole = compose_strip(imgs, transforms, tt, device=cuda)
+    monkeypatch.setattr(B, "TILED_THRESHOLD_BYTES", 1)
+    monkeypatch.setattr(B, "TILE", 256)
+    tiled = compose_strip(imgs, transforms, tt, device=cuda)
+    ds = compose_strip(imgs, transforms, tt, device=cuda, return_device=True)
+    assert isinstance(ds, DeviceStrip) and ds.dev.device.type == cuda.type
+    assert whole.shape == tiled.shape
+    diff = np.abs(whole.astype(np.int16) - tiled.astype(np.int16))
+    assert diff.max() <= 1, diff.max()
+    np.testing.assert_array_equal(ds.host(), tiled)
 
 
 @pytest.mark.gpu

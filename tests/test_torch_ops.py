@@ -73,8 +73,8 @@ def test_tuning_from_jax_dict_matches_presets():
     from drone_image_stitch_cpp_tpu_torch.config.tuning import (
         from_jax_dict, load_stitch_tuning as tload,
         tuning_as_dict as ttuning_as_dict)
-    not_carried = {"global_sift_features", "use_anchor_fallback",
-                   "anchor_window", "use_opencl", "try_gpu"}
+    not_carried = {"use_anchor_fallback", "anchor_window", "use_opencl",
+                   "try_gpu"}
     for mod in ("visible", "NIR", "thermal", "unknown"):
         jd = tuning_as_dict(jload(mod))
         carried = {k: v for k, v in jd.items() if k not in not_carried}

@@ -109,14 +109,6 @@ def test_app_single_line(ortho):
     assert gt_rmse(res.panorama, gt, search=3)[0] < 8.0
 
 
-def test_app_rejects_two_lines(ortho):
-    imgs, ids, _ = render_sortie(ortho, 2, 4, frame_h=160, frame_w=208,
-                                 overlap=0.7, overlap_y=0.3)
-    _, tt = small_tunings()
-    with pytest.raises(NotImplementedError, match="global stage"):
-        stitch_frames(imgs, ids, tt, "cpu")
-
-
 def test_cuda_required_when_asked(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
