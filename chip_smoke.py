@@ -28,12 +28,40 @@ Phases (one line each; any failure exits nonzero and prints no result):
   5. the multi-line main path (app.stitch_frames: three strip stitches
      whose panoramas stay on the card, then the global stage) on a
      rendered 3 x 10 boustrophedon sortie of 2160x3840 frames (overlaps
-     0.70 along-track, 0.35 side), once to warm up and once measured:
+     0.70 along-track, 0.35 side), measured once after the production
+     phase's run of the same sortie (its first pass, which also gives the
+     per-strip GT-RMSE from its checkpointed strips):
      groups, no flips, strip offsets within 2 px, mosaic size within 8 px,
      GT-RMSE (and per strip), graph-cut seams on every adjacent strip pair,
      K1 launched by the global stage and K2's content mode launched;
-  6. optional: the port's CLI on a 4-frame JPEG folder, when this machine
-     can encode JPEGs (run in child processes; reported, not required).
+  6. fallback: the strip stage's sequential anchor-window ladder on the
+     first 4 corridor frames (joint registration forced to fail here):
+     panorama size within 8 px of the planted one, GT-RMSE, K1 launched on
+     a mixed-size batch (its mixed_launches counter) and K2 launched; a
+     non-overlapping 4K pair must raise StripStitchError with a
+     diagnostics record; K1 timed at the ladder's mixed-size batch against
+     its plain version, as at the other shapes;
+  7. production (run before phase 5's measured pass), on the multi-line
+     phase's 3 x 10 sortie (its strips tile, so they come back as
+     DeviceStrips):
+     app.stitch_frames with a BackgroundWriter fetching every DeviceStrip
+     and writing the strip checkpoint (.npy) on its thread while the next
+     strip stitches, and an in-memory row sink on the global stage (bands
+     in order, crop box holding the exact content box); then a resume:
+     load_strip_checkpoint + stitch_inter_strips_custom, whose mosaic and
+     bands must equal the straight run's. Then, when this machine can
+     encode JPEGs (the codec built from native/, else cv2), the CLI in
+     child processes on the JPEGs of the sortie's first 6 frames of each
+     line (cut from 10 to keep the smoke's time): rc 0, strip JPEGs and
+     checkpoint written, the streamed write logged when the codec built,
+     the decoded panorama within GT-RMSE 8, and a --resume run whose
+     decoded panorama equals the first; decode, grouping, strip-save
+     drain, streamed write and whole-run times, and the children's peak
+     RSS. Where no encoder exists, it prints why.
+The environment line carries the JPEG codec probe (jpeglib.h, the libjpeg
+the loader sees, g++, cv2 and PIL); the build phase builds the codec from
+native/ beside the kernels and prints its library or the compiler's
+first error line.
 The line before the last is a JSON object with each kernel's numbers:
 bound_ms is the larger of the bytes the call must move (each input byte
 it needs read once: for K1 the stack pixels that its keypoints' needed
@@ -77,6 +105,9 @@ K2_GLOBAL_WIN = (5120, 5120)        # the global compose's tile window
 # the multi-line sortie's line-1 strip (tests/test_torch_global_detect.py
 # holds the port's count to it and this floor under 0.9 of it)
 K1_GLOBAL_MIN_VALID = 1557
+CLI_COLS = 6                        # production CLI: frames per line
+FB_FRAMES = 4                       # fallback phase: corridor frames
+FB_SIZE_TOL_PX = 8
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12              # float32 outside the tensor cores
 
@@ -138,7 +169,32 @@ def phase_environment(torch) -> str:
           f"python={sys.version.split()[0]} nvcc='{nv[-1] if nv else '?'}' "
           f"device={torch.cuda.get_device_name(0)} "
           f"count={torch.cuda.device_count()} card='{card}'", flush=True)
+    print(f"[smoke] env codec probe: {_codec_probe()}", flush=True)
     return card
+
+
+def _codec_probe() -> str:
+    """What this machine offers for JPEG: jpeglib.h, the libjpeg the
+    dynamic loader lists, g++, cv2 and PIL."""
+    import importlib.util
+    heads = [d for d in ("/usr/include", "/usr/local/include",
+                         "/usr/include/x86_64-linux-gnu")
+             if os.path.exists(os.path.join(d, "jpeglib.h"))]
+    try:
+        ld = subprocess.run(["ldconfig", "-p"], capture_output=True,
+                            text=True, timeout=30).stdout
+        libs = sorted({ln.split()[0] for ln in ld.splitlines()
+                       if "libjpeg.so" in ln})
+    except (OSError, subprocess.TimeoutExpired) as e:
+        libs = [f"ldconfig failed: {e}"]
+    gxx = shutil.which("g++")
+    ver = (subprocess.run([gxx, "--version"], capture_output=True, text=True,
+                          timeout=30).stdout.splitlines() or ["?"])[0] \
+        if gxx else "none"
+    mods = {m: importlib.util.find_spec(m) is not None
+            for m in ("cv2", "PIL")}
+    return (f"jpeglib.h {heads or 'absent'}; libjpeg {libs or 'absent'}; "
+            f"g++ '{ver}'; cv2 {mods['cv2']}; PIL {mods['PIL']}")
 
 
 def phase_build() -> dict:
@@ -148,10 +204,23 @@ def phase_build() -> dict:
     from drone_image_stitch_cpp_tpu_torch.ops import warp_kernel as WK
     from drone_image_stitch_cpp_tpu_torch.runtime.kernels import load_kernels
 
+    import threading
+
+    from drone_image_stitch_cpp_tpu_torch.utils.native import (
+        jpeg_codec_error, jpeg_codec_library)
+
     t0 = time.perf_counter()
+    # the host JPEG codec (g++) builds beside the nvcc builds
+    codec = threading.Thread(target=jpeg_codec_error)
+    codec.start()
     mods = (SK, WK)
     built = load_kernels({m.KERNEL_SOURCE: m.KERNEL_SIGNATURES
                           for m in mods})
+    codec.join()
+    err = jpeg_codec_error()
+    print(f"[smoke] build JPEG codec from native/decode.cpp + encode.cpp: "
+          + (f"built {os.path.relpath(jpeg_codec_library())}" if err is None
+             else f"not built: {err}"), flush=True)
     out = {}
     for m in mods:
         k = built[m.KERNEL_SOURCE]
@@ -275,9 +344,10 @@ def _k1_gray(torch, dev, imgs, mpx):
                        channels_last=False)
 
 
-def _k1_check(torch, gray, label, n_kp, min_valid=None):
+def _k1_check(torch, gray, label, n_kp, min_valid=None, true_hw=None):
     """K1's wrapper (as the main path calls it) against its plain version
-    on the Gaussian stack of the detect batch ``gray`` (B, h, w); two
+    on the Gaussian stack of the detect batch ``gray`` (B, h, w), with
+    each frame's true size ``true_hw`` for a mixed-size batch; two
     launches must agree bit for bit, and at least ``min_valid`` keypoints
     (default: half the budget) must be valid."""
     from drone_image_stitch_cpp_tpu_torch.ops.features import (
@@ -285,7 +355,7 @@ def _k1_check(torch, gray, label, n_kp, min_valid=None):
     from drone_image_stitch_cpp_tpu_torch.ops import sift_kernel as SK
 
     wh, ww = gray.shape[1:]
-    sel = select_keypoints(gray, n_kp)
+    sel = select_keypoints(gray, n_kp, true_hw=true_hw)
     kp = (sel.gauss_flat, sel.flat_layer, sel.yf, sel.xf, sel.sigma,
           sel.true_h, sel.true_w)
     flat = (sel.gauss_flat, sel.flat_layer.reshape(-1).contiguous(),
@@ -734,14 +804,17 @@ def _zero_counts():
     from drone_image_stitch_cpp_tpu_torch.ops.warp_kernel import (
         warp_frame, warp_frames)
     orientation_descriptor_flat.launches = 0
+    orientation_descriptor_flat.mixed_launches = 0
     warp_frame.launches = 0
     warp_frame.nonblack_launches = 0
     warp_frames.launches = 0
 
 
-def phase_multiline(torch, dev, ortho, imgs, ids, pos, tuning):
-    """The multi-line main path through app.stitch_frames, warm-up pass
-    then measured pass; hard checks as the module doc lists."""
+def phase_multiline(torch, dev, ortho, imgs, ids, pos, tuning, first):
+    """The multi-line main path through app.stitch_frames, measured pass
+    (the production phase's run before it is the warm-up: ``first`` holds
+    its wall and its strips as the global stage received them, host
+    copies); hard checks as the module doc lists."""
     from drone_image_stitch_cpp_tpu_torch import app as A
     from drone_image_stitch_cpp_tpu_torch.runtime.handoff import DeviceStrip
     from drone_image_stitch_cpp_tpu_torch.runtime.logging import get_logger
@@ -756,13 +829,10 @@ def phase_multiline(torch, dev, ortho, imgs, ids, pos, tuning):
     seen = {}
 
     def global_probe(strips, *a, **kw):
-        # the strips as the global stage receives them (host copies only
-        # in the warm-up pass), and the kernel launches the stage makes
-        if seen.get("want_strips"):
-            seen["strips"] = [st.host() if isinstance(st, DeviceStrip)
-                              else st for st in strips]
-            seen["device_strips"] = sum(isinstance(st, DeviceStrip)
-                                        for st in strips)
+        # how many strips reach the global stage on the device, and the
+        # kernel launches the stage makes
+        seen["device_strips"] = sum(isinstance(st, DeviceStrip)
+                                    for st in strips)
         before = _counts()
         out = real_global(strips, *a, **kw)
         after = _counts()
@@ -771,14 +841,9 @@ def phase_multiline(torch, dev, ortho, imgs, ids, pos, tuning):
 
     A.stitch_inter_strips_custom = global_probe
     try:
-        seen["want_strips"] = True
-        t0 = time.perf_counter()
-        A.stitch_frames(imgs, ids, tuning, dev)
-        torch.cuda.synchronize()
-        cold = time.perf_counter() - t0
-        seen["want_strips"] = False
+        cold = first["seconds"]
         strip_rmse = []
-        for k, st in enumerate(seen.pop("strips")):
+        for k, st in enumerate(first["strips"]):
             y0 = oy + k * step_y
             gt = np.clip(ortho[y0:y0 + FRAME_H, ox:ox + gt_w], 0,
                          255).astype(np.uint8)
@@ -843,7 +908,7 @@ def phase_multiline(torch, dev, ortho, imgs, ids, pos, tuning):
           f"GT-RMSE {rmse:.4f} at shift ({dy},{dx}), per strip "
           f"{strip_rmse}, device strips {seen['device_strips']} of "
           f"{ML_ROWS}; seams {pairs} (solver {os.path.relpath(solver)}); "
-          f"wall {wall:.2f} s (first pass "
+          f"wall {wall:.2f} s (first pass, the production run "
           f"{cold:.2f} s)", flush=True)
     print("[smoke] multiline stages (s): " + ", ".join(
         f"{k}={v}" for k, v in stages.items()), flush=True)
@@ -856,52 +921,375 @@ def phase_multiline(torch, dev, ortho, imgs, ids, pos, tuning):
     return launches
 
 
-def _child_write_jpegs(src_dir: str, out_dir: str) -> int:
-    """Child process: encode the .npy frames of ``src_dir`` as JPEGs."""
-    from drone_image_stitch_cpp_tpu_torch.app import write_image
-    os.makedirs(out_dir, exist_ok=True)
-    for name in sorted(os.listdir(src_dir)):
-        img = np.load(os.path.join(src_dir, name))
-        write_image(os.path.join(out_dir, name.replace(".npy", ".jpg")), img)
-    return 0
+def _counts_all():
+    """Every launch counter, with K1's mixed-size launches."""
+    from drone_image_stitch_cpp_tpu_torch.ops.sift_kernel import (
+        orientation_descriptor_flat)
+    return {**_counts(),
+            "sift_orient_desc_mixed": orientation_descriptor_flat.mixed_launches}
 
 
-def phase_cli(imgs) -> None:
-    """The port's CLI on 4 frames of the line; needs a JPEG codec, which
-    this machine may lack: reported either way, never required."""
-    tmp = tempfile.mkdtemp(prefix="smoke_cli_")
+def phase_fallback(torch, dev, ortho, imgs, pos, tuning):
+    """The sequential ladder on the first FB_FRAMES corridor frames with
+    the joint registration forced to fail; then a non-overlapping pair;
+    then K1 at the ladder's mixed-size batch."""
+    import drone_image_stitch_cpp_tpu_torch.ops.features as TF
+    import drone_image_stitch_cpp_tpu_torch.pipeline.strip as TS
+    from drone_image_stitch_cpp_tpu_torch.runtime.logging import get_logger
+    from drone_image_stitch_cpp_tpu_torch.utils.synthetic import gt_rmse
+
+    log = get_logger()
+    frames = imgs[:FB_FRAMES]
+    st = tuning.replace(sift_features=tuning.strip_sift_features)
+    real_est = TS.estimate_strip_transforms
+    real_det = TF.detect_and_describe_batched
+    mixed = {}
+
+    def est(images, *a, **kw):
+        if images is not None and len(images) > 2:
+            raise TS.StripStitchError("joint registration forced to fail "
+                                      "(smoke)")
+        return real_est(images, *a, **kw)
+
+    def det(grays, max_kp, *a, true_hw=None, **kw):
+        out = real_det(grays, max_kp, *a, true_hw=true_hw, **kw)
+        if true_hw is not None:     # keep the ladder's last mixed batch
+            mixed.update(gray=grays.clone(), true_hw=true_hw.clone(),
+                         n_kp=max_kp, valid=int(out.valid.sum()))
+        return out
+
+    TS.estimate_strip_transforms, TF.detect_and_describe_batched = est, det
+    info = {}
     try:
-        npy = os.path.join(tmp, "npy")
-        os.makedirs(npy)
-        for k, im in enumerate(imgs[:4]):
-            np.save(os.path.join(npy, f"IMG{k:03d}_x.npy"), im)
-        folder = os.path.join(tmp, "in", "visible", "run")
-        w = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--write-jpegs", npy, folder],
-                           capture_output=True, text=True, timeout=300)
-        if w.returncode != 0:
-            tail = (w.stderr.strip().splitlines() or ["?"])[-1]
-            print(f"[smoke] cli: skipped, JPEG codec unavailable here "
-                  f"(rc={w.returncode}: {tail[:160]})", flush=True)
-            return
-        out = os.path.join(tmp, "out")
+        _zero_counts()
         t0 = time.perf_counter()
-        r = subprocess.run(
-            [sys.executable, "-m", "drone_image_stitch_cpp_tpu_torch.cli.main",
-             "--device", "cuda", "--image-folder", os.path.join(tmp, "in"),
-             "--image-type", "visible", "--group", "run",
-             "--output-root", out],
-            capture_output=True, text=True, timeout=600,
-            cwd=os.path.dirname(os.path.abspath(__file__)))
-        pano = os.path.join(out, "visible", "run",
-                            "visible_run_uav_panorama.jpg")
-        print(f"[smoke] cli: rc={r.returncode}, panorama written="
-              f"{os.path.exists(pano)}, {time.perf_counter() - t0:.1f} s",
-              flush=True)
-    except subprocess.TimeoutExpired as e:
-        print(f"[smoke] cli: timed out ({e.timeout} s)", flush=True)
+        pano = TS.stitch_strip(frames, st, stage="Fallback", device=dev,
+                               info=info)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts_all()
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        TS.estimate_strip_transforms = real_est
+        TF.detect_and_describe_batched = real_det
+    if info.get("path") != "sequential":
+        _fail("fallback", f"the ladder did not run (path {info.get('path')})")
+    gt_h = FRAME_H
+    gt_w = FRAME_W + (FB_FRAMES - 1) * (pos[1][1] - pos[0][1])
+    if abs(pano.shape[0] - gt_h) > FB_SIZE_TOL_PX or \
+            abs(pano.shape[1] - gt_w) > FB_SIZE_TOL_PX:
+        _fail("fallback", f"panorama {pano.shape[:2]} vs planted "
+                          f"{(gt_h, gt_w)}")
+    y0, x0 = pos[0]
+    gt = np.clip(ortho[y0:y0 + gt_h, x0:x0 + gt_w], 0, 255).astype(np.uint8)
+    rmse, dy, dx = gt_rmse(pano, gt, device=dev)
+    if not np.isfinite(rmse) or rmse > GT_RMSE_MAX:
+        _fail("fallback", f"GT-RMSE {rmse} > {GT_RMSE_MAX}")
+    if launches["sift_orient_desc_mixed"] <= 0 or not mixed:
+        _fail("fallback", f"K1 never launched on a mixed-size batch "
+                          f"({launches})")
+    if launches["warp_affine"] <= 0:
+        _fail("fallback", f"K2 never launched ({launches})")
+    print(f"[smoke] fallback: {FB_FRAMES} frames {FRAME_H}x{FRAME_W} through "
+          f"the sequential ladder (joint forced to fail), panorama "
+          f"{pano.shape[0]}x{pano.shape[1]} (planted {gt_h}x{gt_w}), GT-RMSE "
+          f"{rmse:.4f} at shift ({dy},{dx}), wall {wall:.2f} s, launches "
+          f"{launches}", flush=True)
+
+    # a non-overlapping pair fails every rung, with a diagnostics record
+    a = np.clip(ortho[0:FRAME_H, 0:FRAME_W], 0, 255).astype(np.uint8)
+    xb = ortho.shape[1] - FRAME_W          # the corridor's far end
+    b = np.clip(ortho[100:100 + FRAME_H, xb:xb + FRAME_W], 0,
+                255).astype(np.uint8)
+    n0 = len(log._records)
+    try:
+        TS.stitch_strip([a, b], st, stage="FallbackPair", device=dev)
+        _fail("fallback", "a non-overlapping pair stitched")
+    except TS.StripStitchError as e:
+        recs = [r for r in log._records[n0:]
+                if r["msg"] == "failure diagnostics"
+                and r["stage"] == "FallbackPair/seq1"]
+        fields = ("left", "right", "kp_left", "kp_right", "good_matches",
+                  "model")
+        if not recs or any(f not in recs[-1] for f in fields):
+            _fail("fallback", f"no diagnostics record for the pair ({e})")
+        print(f"[smoke] fallback pair: StripStitchError '{e}'; diagnostics "
+              + ", ".join(f"{f}={recs[-1][f]}" for f in fields[2:]),
+              flush=True)
+
+    # K1 at the ladder's mixed-size batch (the last one it detected; the
+    # mosaic sets the work scale, so its frames hold fewer keypoints than
+    # the budget: the floor is what the ladder's own detect found)
+    thw = mixed["true_hw"]
+    k1 = _k1_check(torch, mixed["gray"], "fallback mixed-size batch "
+                   f"(true sizes {thw.round().int().tolist()})",
+                   mixed["n_kp"], min_valid=mixed["valid"], true_hw=thw)
+    k1["shape"] = list(mixed["gray"].shape)
+    return launches, k1
+
+
+class _RowSink:
+    """The StreamedMosaicWriter protocol in memory: checks that the bands
+    arrive in order and cover the canvas, and keeps the canvas."""
+
+    def __init__(self):
+        self.crop = self.canvas = None
+        self.next_y = self.bands = 0
+        self.done = False
+
+    def begin(self, canvas_h, canvas_w, crop):
+        self.crop = crop
+        self.canvas = np.zeros((canvas_h, canvas_w, 3), np.uint8)
+
+    def on_rows(self, y0, y1, rows):
+        if y0 != self.next_y or y1 <= y0:
+            _fail("production", f"row band ({y0}, {y1}) out of order "
+                                f"(next row {self.next_y})")
+        self.canvas[y0:y1] = rows
+        self.next_y = y1
+        self.bands += 1
+
+    def finish(self):
+        if self.next_y != self.canvas.shape[0]:
+            _fail("production", f"bands stop at row {self.next_y} of "
+                                f"{self.canvas.shape[0]}")
+        self.done = True
+        y0, y1, x0, x1 = self.crop
+        return y1 - y0, x1 - x0
+
+    def abort(self):
+        pass
+
+
+def _content_box(img):
+    """Exact autocrop box (y0, y1, x0, x1) of a uint8 BGR image: the
+    fixed-point gray > 1 test of ops/blend.content_flags."""
+    x = img.astype(np.int32)
+    c = ((29 * x[..., 0] + 150 * x[..., 1] + 77 * x[..., 2] + 128) >> 8) > 1
+    r, k = np.flatnonzero(c.any(axis=1)), np.flatnonzero(c.any(axis=0))
+    return int(r[0]), int(r[-1]) + 1, int(k[0]), int(k[-1]) + 1
+
+
+def phase_production(torch, dev, ortho, imgs, ids, pos, tuning, work):
+    """The production run in process: strips checkpointed by a
+    BackgroundWriter while the next strip stitches, the global stage into
+    a row sink, then a resume from the checkpoint that must give the same
+    mosaic. It is the multi-line path's first pass: returns (launches,
+    {"seconds": its stitch_frames wall, "strips": the host strips})."""
+    from drone_image_stitch_cpp_tpu_torch.app import (global_tuning,
+                                                      stitch_frames)
+    from drone_image_stitch_cpp_tpu_torch.pipeline.global_ import (
+        stitch_inter_strips_custom)
+    from drone_image_stitch_cpp_tpu_torch.runtime.checkpoint import (
+        load_strip_checkpoint, save_strip_checkpoint)
+    from drone_image_stitch_cpp_tpu_torch.runtime.handoff import (
+        DeviceStrip, as_host_strips)
+    from drone_image_stitch_cpp_tpu_torch.runtime.writer import (
+        BackgroundWriter)
+    from drone_image_stitch_cpp_tpu_torch.utils.synthetic import gt_rmse
+
+    ckpt = os.path.join(work, "strips")
+    writer = BackgroundWriter()
+    done, jobs, strip_end = [], [], []
+
+    def timed(fn):
+        def run():
+            t0 = time.perf_counter()
+            fn()
+            jobs.append((t0, time.perf_counter()))
+        return run
+
+    def on_strip(gi, pano, last):
+        strip_end.append(time.perf_counter())
+        done.append(pano)
+        if isinstance(pano, DeviceStrip):
+            writer.submit(timed(pano.host))
+        if last:
+            writer.submit(timed(lambda: save_strip_checkpoint(
+                ckpt, as_host_strips(done))))
+
+    sink = _RowSink()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = stitch_frames(imgs, ids, tuning, dev, on_strip=on_strip,
+                        row_sink=sink)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = _counts()
+    writer.join()
+    drain = time.perf_counter() - t_end
+    peak = torch.cuda.max_memory_allocated(dev)
+    # writer time during the later strips' stitches, during the global
+    # stage, and the drain left after it
+    busy = sum(b - a for a, b in jobs)
+    in_strips = sum(max(0.0, min(b, strip_end[-1]) - a) for a, b in jobs)
+    in_global = sum(max(0.0, min(b, t_end) - max(a, strip_end[-1]))
+                    for a, b in jobs)
+
+    sizes = [g.indices for g in res.groups]
+    want = [list(range(k * ML_COLS, (k + 1) * ML_COLS))
+            for k in range(ML_ROWS)]
+    if sizes != want:
+        _fail("production", f"groups {sizes}, expected {want}")
+    if not sink.done or sink.bands < 2:
+        _fail("production", f"row sink not driven (done {sink.done}, bands "
+                            f"{sink.bands})")
+    box = _content_box(sink.canvas)
+    cy0, cy1, cx0, cx1 = sink.crop
+    if not (cy0 <= box[0] and box[1] <= cy1 and cx0 <= box[2]
+            and box[3] <= cx1):
+        _fail("production", f"sink crop {sink.crop} does not hold the "
+                            f"exact box {box}")
+    if not np.array_equal(sink.canvas[box[0]:box[1], box[2]:box[3]],
+                          res.panorama):
+        _fail("production", "the sink's canvas, cropped, is not the mosaic")
+    step_y, (gt_h, gt_w), (oy, ox) = _ml_geometry(pos)
+    gt = np.clip(ortho[oy:oy + gt_h, ox:ox + gt_w], 0, 255).astype(np.uint8)
+    rmse, dy, dx = gt_rmse(res.panorama, gt, device=dev)
+    if not np.isfinite(rmse) or rmse > GT_RMSE_MAX:
+        _fail("production", f"GT-RMSE {rmse} > {GT_RMSE_MAX}")
+
+    # resume: the global stage from the checkpoint alone
+    t1 = time.perf_counter()
+    strips = load_strip_checkpoint(ckpt)
+    if strips is None or len(strips) != ML_ROWS:
+        _fail("production", "no complete strip checkpoint")
+    sink2 = _RowSink()
+    mosaic2 = stitch_inter_strips_custom(strips, global_tuning(tuning),
+                                         device=dev, row_sink=sink2)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t1
+    same = (mosaic2.shape == res.panorama.shape
+            and np.array_equal(mosaic2, res.panorama))
+    if not same or not np.array_equal(sink2.canvas, sink.canvas):
+        d = (np.abs(mosaic2.astype(np.int16) - res.panorama.astype(np.int16))
+             .max() if mosaic2.shape == res.panorama.shape else "shape")
+        _fail("production", f"resumed mosaic differs from the straight run "
+                            f"({mosaic2.shape} vs {res.panorama.shape}, max "
+                            f"|d| {d})")
+    print(f"[smoke] production: groups {[len(g) for g in sizes]}, device "
+          f"strips {sum(isinstance(p, DeviceStrip) for p in done)} of "
+          f"{ML_ROWS}, mosaic "
+          f"{res.panorama.shape[0]}x{res.panorama.shape[1]} (gt {gt_h}x"
+          f"{gt_w}), GT-RMSE {rmse:.4f} at shift ({dy},{dx}); row sink "
+          f"{sink.bands} bands in order, crop {sink.crop} holds the exact "
+          f"box {box}; stitch_frames {t_end - t0:.2f} s, peak "
+          f"{peak / 2**30:.3f} GiB, launches {launches}; strip writer "
+          f"{len(jobs)} jobs busy {busy:.3f} s: {in_strips:.3f} s during "
+          f"the later strips, {in_global:.3f} s during the global stage, "
+          f"drain after it {drain:.3f} s; resume (checkpoint load + global "
+          f"stage) {resume_s:.2f} s, mosaic and bands equal to the "
+          f"straight run", flush=True)
+    return launches, {"seconds": t_end - t0, "strips": strips}
+
+
+def _cli(args, log_path):
+    """One CLI run in a child process: (rc, seconds, JSONL records)."""
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "drone_image_stitch_cpp_tpu_torch.cli.main",
+         "--device", "cuda", "--log-jsonl", log_path, *args],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    recs = []
+    if os.path.exists(log_path):
+        with open(log_path) as f:
+            recs = [json.loads(ln) for ln in f if ln.strip()]
+    if r.returncode != 0:
+        tail = (r.stdout + r.stderr).strip().splitlines()[-12:]
+        _fail("production", f"CLI {args[-1:]} rc={r.returncode}: "
+                            + " | ".join(tail))
+    return wall, recs
+
+
+def _rec(recs, msg, key="seconds"):
+    return next((r.get(key) for r in recs if r["msg"] == msg), None)
+
+
+def phase_production_cli(ortho, imgs, pos, work):
+    """The CLI on the production sortie's JPEGs, then --resume."""
+    import resource
+
+    from drone_image_stitch_cpp_tpu_torch.app import write_image
+    from drone_image_stitch_cpp_tpu_torch.runtime.loader import decode_all
+    from drone_image_stitch_cpp_tpu_torch.utils.native import (
+        jpeg_codec_error)
+    from drone_image_stitch_cpp_tpu_torch.utils.synthetic import gt_rmse
+    import importlib.util
+
+    codec = jpeg_codec_error() is None
+    has_cv2 = importlib.util.find_spec("cv2") is not None
+    if not codec and not has_cv2:
+        print(f"[smoke] production cli: skipped, no JPEG encoder here (codec "
+              f"not built: {jpeg_codec_error()}; no cv2)", flush=True)
+        return
+    # the first CLI_COLS frames of each line (along-track), in flight order
+    x_min = min(x for _, x in pos)
+    step_x = int(FRAME_W * (1 - OVERLAP))
+    keep = [i for i, (_, x) in enumerate(pos)
+            if x - x_min < CLI_COLS * step_x]
+    imgs, pos = [imgs[i] for i in keep], [pos[i] for i in keep]
+    folder = os.path.join(work, "in", "visible", "run")
+    t0 = time.perf_counter()
+    for k, im in enumerate(imgs):
+        write_image(os.path.join(folder, f"IMG{k:03d}_x.jpg"), im)
+    enc_s = time.perf_counter() - t0
+    out = os.path.join(work, "out")
+    args = ["--image-folder", os.path.join(work, "in"), "--image-type",
+            "visible", "--group", "run", "--output-root", out]
+    wall, recs = _cli(args, os.path.join(work, "run.jsonl"))
+    rss = resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss / 2**20
+    odir = os.path.join(out, "visible", "run")
+    pano_path = os.path.join(odir, "visible_run_uav_panorama.jpg")
+    names = sorted(os.listdir(os.path.join(odir, "strips")))
+    want = (["checkpoint.json"] + [f"strip_{k:02d}.{e}" for k in
+                                   range(ML_ROWS) for e in ("jpg", "npy")])
+    if names != sorted(want):
+        _fail("production", f"strips/ holds {names}")
+    streamed = _rec(recs, "wrote", "streamed")
+    if codec and not streamed:
+        _fail("production", "the codec built but the mosaic was not "
+                            "streamed")
+    with open(pano_path, "rb") as f:
+        first = f.read()
+    pano = decode_all([pano_path])[0]
+    step_y, (gt_h, gt_w), (oy, ox) = _ml_geometry(pos)
+    gt = np.clip(ortho[oy:oy + gt_h, ox:ox + gt_w], 0, 255).astype(np.uint8)
+    rmse, dy, dx = gt_rmse(pano, gt, search=12)
+    if not np.isfinite(rmse) or rmse > GT_RMSE_MAX:
+        _fail("production", f"CLI panorama GT-RMSE {rmse} > {GT_RMSE_MAX}")
+    wall2, recs2 = _cli(args + ["--resume"], os.path.join(work,
+                                                          "resume.jsonl"))
+    if _rec(recs2, "resuming global stage from checkpoint", "strips") \
+            != ML_ROWS:
+        _fail("production", "the --resume run did not resume")
+    with open(pano_path, "rb") as f:
+        second = f.read()
+    if not np.array_equal(decode_all([pano_path])[0], pano):
+        _fail("production", "the --resume panorama differs from the "
+                            "straight run's")
+    print(f"[smoke] production cli: {ML_ROWS} lines x {CLI_COLS} frames "
+          f"{FRAME_H}x{FRAME_W} (each line cut from {ML_COLS} for time), "
+          f"{len(imgs)} frames encoded with "
+          f"{'cv2' if has_cv2 else 'the codec'} in {enc_s:.2f} s; run rc 0 in "
+          f"{wall:.2f} s (streaming decode "
+          f"{_rec(recs, 'streaming decode', 'decode_seconds')} s of decode "
+          f"thread, grouping {_rec(recs, 'grouping done')} s, global compose "
+          f"{_rec(recs, 'global compose done')} s, strip-save drain "
+          f"{_rec(recs, 'strip-save drain done')} s, "
+          + (f"streamed write encode "
+             f"{_rec(recs, 'streamed mosaic written', 'encode_seconds')} s, "
+             f"finish wait "
+             f"{_rec(recs, 'streamed mosaic written', 'finish_wait_seconds')}"
+             f" s" if streamed else
+             f"write after the blend {_rec(recs, 'write done')} s (no "
+             f"streamed write)")
+          + f"), panorama {pano.shape[0]}x{pano.shape[1]} GT-RMSE "
+          f"{rmse:.4f} at shift ({dy},{dx}); --resume rc 0 in {wall2:.2f} s "
+          f"(global compose {_rec(recs2, 'global compose done')} s), decoded "
+          f"panorama equal, file bytes equal {first == second}; children's "
+          f"peak RSS {rss:.2f} GiB", flush=True)
 
 
 def main() -> int:
@@ -928,7 +1316,9 @@ def main() -> int:
     _zero_counts()
     launches = phase_slice(torch, dev, ortho, imgs, ids, pos, tuning)
     torch.cuda.empty_cache()
-    cli_imgs = imgs[:4]
+    fb_launches, k1["fallback_mixed"] = phase_fallback(torch, dev, ortho,
+                                                       imgs, pos, tuning)
+    torch.cuda.empty_cache()
     del ortho, imgs, ids, pos
     ml_ortho, ml_imgs, ml_ids, ml_pos = render_multiline(torch, dev)
     padded, true_hw = _padded_strip(torch, dev, ml_ortho, ml_pos, 1)
@@ -936,23 +1326,36 @@ def main() -> int:
     k2["content_mode"] = phase_k2_content(torch, dev, padded)
     del padded
     torch.cuda.empty_cache()
-    ml_launches = phase_multiline(torch, dev, ml_ortho, ml_imgs, ml_ids,
-                                  ml_pos, tuning)
+    # the production run takes the multi-line sortie and is that path's
+    # first pass; the multi-line phase measures the second
+    work = tempfile.mkdtemp(prefix="smoke_production_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    try:
+        pr_launches, first = phase_production(
+            torch, dev, ml_ortho, ml_imgs, ml_ids, ml_pos, tuning, work)
+        torch.cuda.empty_cache()
+        ml_launches = phase_multiline(torch, dev, ml_ortho, ml_imgs, ml_ids,
+                                      ml_pos, tuning, first)
+        del first
+        torch.cuda.empty_cache()
+        phase_production_cli(ml_ortho, ml_imgs, ml_pos, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     del ml_ortho, ml_imgs
-    torch.cuda.empty_cache()
-    phase_cli(cli_imgs)
-    k1["launches"] = (launches["sift_orient_desc"]
-                      + ml_launches["sift_orient_desc"])
-    k2["launches"] = launches["warp_affine"] + ml_launches["warp_affine"]
+    paths = {"single_line": launches, "multi_line": ml_launches,
+             "fallback": fb_launches, "production": pr_launches}
+    k1["launches"] = sum(c["sift_orient_desc"] for c in paths.values())
+    k2["launches"] = sum(c["warp_affine"] for c in paths.values())
     k1["launches_by_path"] = {
-        "single_line": launches["sift_orient_desc"],
-        "multi_line": ml_launches["sift_orient_desc"]}
+        **{p: c["sift_orient_desc"] for p, c in paths.items()},
+        "fallback_mixed_size": fb_launches["sift_orient_desc_mixed"]}
     k2["launches_by_path"] = {
-        "single_line": launches["warp_affine"],
-        "multi_line": ml_launches["warp_affine"],
-        "multi_line_content_mode": ml_launches["warp_affine_nonblack"]}
+        **{p: c["warp_affine"] for p, c in paths.items()},
+        "multi_line_content_mode": ml_launches["warp_affine_nonblack"],
+        "production_content_mode": pr_launches["warp_affine_nonblack"]}
     k1["max_abs_err"] = max(k1["max_abs_err"],
-                            k1["global_detect"]["max_abs_err"])
+                            k1["global_detect"]["max_abs_err"],
+                            k1["fallback_mixed"]["max_abs_err"])
     for d in (k1, k2):
         d["registers"], d["spill_bytes"] = ptxas[d["source"].split("/")[-1]]
         d["card"] = card
@@ -971,7 +1374,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 4 and sys.argv[1] == "--write-jpegs":
-        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-        sys.exit(_child_write_jpegs(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -1,9 +1,10 @@
 """Command-line interface of the PyTorch port.
 
 The JAX CLI's flags that the ported path uses (folder, type, group,
-output root, JSONL log, every StitchTuning knob by its field name, e.g.
-``--global-sift-features``) plus ``--device`` (default ``cuda``; ``cuda``
-without a visible card is an error, never a silent CPU run).
+output root, ``--no-save-strips``, ``--resume``, JSONL log, every
+StitchTuning knob by its field name, e.g. ``--global-sift-features``) plus
+``--device`` (default ``cuda``; ``cuda`` without a visible card is an
+error, never a silent CPU run).
 
     python -m drone_image_stitch_cpp_tpu_torch.cli.main --device cuda \\
         --image-folder IMAGES --image-type visible --group run \\
@@ -37,6 +38,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="modality preset alias (visible/nir/lwir/...)")
     p.add_argument("--group", default="minfull")
     p.add_argument("--output-root", default="../output")
+    p.add_argument("--no-save-strips", action="store_true",
+                   help="skip the per-strip JPEGs (the checkpoint is "
+                        "still written)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume the global stage from the strip checkpoint")
     p.add_argument("--device", default="cuda",
                    help="torch device (cuda, cuda:N or cpu)")
     p.add_argument("--log-jsonl", default=None,
@@ -68,6 +74,7 @@ def main(argv=None) -> int:
     cfg = RunConfig(image_folder=args.image_folder,
                     image_type=args.image_type, group=args.group,
                     output_root=args.output_root, device=args.device,
+                    save_strips=not args.no_save_strips, resume=args.resume,
                     tuning_overrides=overrides)
     return run_stitch_application(cfg)
 

@@ -2,9 +2,9 @@
 
 A copy of ``drone_image_stitch_cpp_tpu/config/tuning.py`` trimmed to the
 knobs the ported path reads (the JAX package cannot be imported here: its
-``__init__`` imports jax). The anchor fallback of the sequential ladder
-and the OpenCL/GPU toggles are not carried: the ladder is not ported, and
-the device is chosen explicitly (``--device``). Reference: the
+``__init__`` imports jax). The OpenCL/GPU toggles and the camera
+calibration are not carried: the device is chosen explicitly
+(``--device``), and undistortion is not ported. Reference: the
 ``StitchTuning`` struct and preset loader of drone_image_stitch_cpp (stitch_config.hpp:50-100,
 stitch_config.cpp:17-60,84-103).
 
@@ -36,6 +36,10 @@ class StitchTuning:
     # --- pair schedule ---------------------------------------------------
     use_range_matcher: bool = True
     range_width: int = 6
+
+    # --- sequential fallback (stitch_robust.cpp:273-334) -------------------
+    use_anchor_fallback: bool = False
+    anchor_window: int = 4
 
     # --- model / warp selection ------------------------------------------
     use_affine_bundle: bool = True
@@ -103,12 +107,9 @@ def tuning_as_dict(t: StitchTuning) -> Dict[str, object]:
 
 
 # JAX knobs the port does not carry, with the values under which dropping
-# them changes nothing: the anchor fallback belongs to the unported
-# sequential ladder; the OpenCL/GPU toggles chose the JAX backend, which
+# them changes nothing: the OpenCL/GPU toggles chose the JAX backend, which
 # ``--device`` does here.
 _NOT_CARRIED = {
-    "use_anchor_fallback": False,
-    "anchor_window": 4,
     "use_opencl": True,
     "try_gpu": True,
 }

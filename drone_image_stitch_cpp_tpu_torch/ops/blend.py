@@ -241,7 +241,9 @@ FeedTile = Callable[[MultiBandCanvas, int, int, int, int, int],
 def mb_compose_tiled(canvas_h: int, canvas_w: int, bands: int,
                      frame_boxes: Sequence[Tuple[float, float, float, float]],
                      feed_tile: FeedTile, device: torch.device,
-                     tile: Optional[int] = None, assemble: str = "host"):
+                     tile: Optional[int] = None, assemble: str = "host",
+                     on_rows: Optional[Callable[[int, int, np.ndarray],
+                                                None]] = None):
     """Multiband blend streamed through canvas tiles.
 
     ``frame_boxes``: per-frame (x0, y0, x1, y1) canvas-space bounds;
@@ -256,10 +258,17 @@ def mb_compose_tiled(canvas_h: int, canvas_w: int, bands: int,
     (content in [0, canvas_h) x [0, canvas_w), zeros beyond). ``bbox``:
     the exact autocrop box (y0, y1, x0, x1), exclusive ends, from the
     cores' device content flags (None when the canvas is empty).
+
+    ``on_rows(y0, y1, rows)`` (host assembly only): called in increasing y
+    once every tile of a tile row has landed (empty tiles included), with
+    ``rows`` the finished ``mosaic[y0:y1]`` view, never written again; the
+    caller streams the mosaic out while later tile rows still blend.
     """
     if assemble not in ("host", "device"):
         raise ValueError(f"assemble must be 'host' or 'device', got "
                          f"{assemble!r}")
+    if assemble == "device" and on_rows is not None:
+        raise ValueError("assemble='device' does not support on_rows")
     bands = tiled_bands(canvas_h, canvas_w, bands, tile)
     tiles, _ = mb_tile_grid(canvas_h, canvas_w, bands, tile)
     g = 1 << bands
@@ -270,24 +279,36 @@ def mb_compose_tiled(canvas_h: int, canvas_w: int, bands: int,
     else:
         out = np.zeros((canvas_h, canvas_w, 3), np.uint8)
     flags = []
+    # tiles come row-major, a fixed number per tile row
+    left = {}
+    for t in tiles:
+        left[(t[0], t[1])] = left.get((t[0], t[1]), 0) + 1
+    bands_y = sorted(left)
+    next_band = 0
     for cy0, cy1, cx0, cx1, ey0, ey1, ex0, ex1 in tiles:
         sel = [i for i, (fx0, fy0, fx1, fy1) in enumerate(frame_boxes)
                if not (fx1 <= ex0 or fx0 >= ex1 or fy1 <= ey0
                        or fy0 >= ey1)]
-        if not sel:
-            continue            # an empty tile's rows stay zero
-        eh, ew = ey1 - ey0, ex1 - ex0
-        canvas_t = mb_prepare(eh, ew, bands, device)
-        for i in sel:
-            canvas_t = feed_tile(canvas_t, i, ey0, ex0, eh, ew)
-        win, rows, cols = _blend_core(
-            canvas_t, eh, ew, (cy0 - ey0, cy1 - ey0, cx0 - ex0, cx1 - ex0))
-        del canvas_t
-        if assemble == "device":
-            out[cy0:cy1, cx0:cx1] = win
-        else:
-            out[cy0:cy1, cx0:cx1] = win.cpu().numpy()
-        flags.append((cy0, cx0, rows, cols))
+        if sel:                 # an empty tile's rows stay zero
+            eh, ew = ey1 - ey0, ex1 - ex0
+            canvas_t = mb_prepare(eh, ew, bands, device)
+            for i in sel:
+                canvas_t = feed_tile(canvas_t, i, ey0, ex0, eh, ew)
+            win, rows, cols = _blend_core(
+                canvas_t, eh, ew,
+                (cy0 - ey0, cy1 - ey0, cx0 - ex0, cx1 - ex0))
+            del canvas_t
+            if assemble == "device":
+                out[cy0:cy1, cx0:cx1] = win
+            else:
+                out[cy0:cy1, cx0:cx1] = win.cpu().numpy()
+            flags.append((cy0, cx0, rows, cols))
+        left[(cy0, cy1)] -= 1
+        while (on_rows is not None and next_band < len(bands_y)
+               and left[bands_y[next_band]] == 0):
+            y0, y1 = bands_y[next_band]
+            on_rows(y0, y1, out[y0:y1])
+            next_band += 1
     return out, _bbox_from_flags(flags, canvas_h, canvas_w)
 
 

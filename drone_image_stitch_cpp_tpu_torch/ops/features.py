@@ -83,14 +83,18 @@ def build_scale_space(grays: torch.Tensor, n_layers: int, n_oct: int,
     return octaves
 
 
-def _extrema_candidates(dog: torch.Tensor, prelim_thresh: float, k: int):
+def _extrema_candidates(dog: torch.Tensor, prelim_thresh: float, k: int,
+                        lim=None):
     """Top-k 3-D extrema per frame of a (B, S, H, W) DoG stack.
 
     Returns (idx (B, k, 3) long (layer, y, x), score (B, k), valid (B, k)).
     A pixel qualifies iff it equals its 3x3x3 max (or min), |value|
     exceeds the preliminary threshold, and it is not on the border
-    layer/row/col. The selection is a stable descending sort, so ties
-    keep the lower flat index first (jax.lax.top_k's order).
+    layer/row/col. ``lim``: optional (B, 2) float (h_lim, w_lim) in octave
+    pixels; pixels at or beyond a frame's limit are excluded before the
+    selection (mixed-size frames padded to one batch). The selection is a
+    stable descending sort, so ties keep the lower flat index first
+    (jax.lax.top_k's order).
     """
     b, s, h, w = dog.shape
     mx = F.max_pool3d(dog[:, None], 3, stride=1, padding=1)[:, 0]
@@ -98,6 +102,12 @@ def _extrema_candidates(dog: torch.Tensor, prelim_thresh: float, k: int):
     is_ext = ((dog >= mx) | (dog <= mn)) & (dog.abs() > prelim_thresh)
     border = torch.zeros((s, h, w), dtype=torch.bool, device=dog.device)
     border[1:s - 1, 1:h - 1, 1:w - 1] = True
+    if lim is not None:
+        yi = torch.arange(h, device=dog.device, dtype=torch.float32)
+        xi = torch.arange(w, device=dog.device, dtype=torch.float32)
+        border = (border[None]
+                  & (yi[None, None, :, None] < lim[:, 0, None, None, None])
+                  & (xi[None, None, None, :] < lim[:, 1, None, None, None]))
     score = torch.where(is_ext & border, dog.abs(),
                         torch.full_like(dog, -1.0))
     flat = score.reshape(b, -1)
@@ -236,21 +246,37 @@ def flat_gauss_stack(octs) -> torch.Tensor:
 def select_keypoints(grays: torch.Tensor, max_kp: int,
                      contrast_thresh: float = 0.04,
                      edge_thresh: float = 10.0, n_layers: int = 3,
-                     upsample: bool = False) -> KeypointSelection:
+                     upsample: bool = False,
+                     true_hw=None) -> KeypointSelection:
     """Scale space, extrema, dense refinement and the per-frame top
-    ``max_kp`` by response of a (B, H, W) float gray batch in [0, 255]."""
+    ``max_kp`` by response of a (B, H, W) float gray batch in [0, 255].
+    ``true_hw``: optional (B, 2) true (h, w) of frames padded to the
+    batch's size: extrema at or beyond a frame's size are excluded, and
+    each keypoint's true size (what K1 masks its gradients by) is its own
+    frame's size in its octave; without it, the octave's array size."""
     b, h, w = grays.shape
     n_oct = num_octaves(h, w, upsample)
     prelim = 0.5 * contrast_thresh / n_layers * 255.0
     contrast_abs = contrast_thresh * 255.0
+    scale0 = 0.5 if upsample else 1.0
     octs = build_scale_space(grays, n_layers, n_oct, upsample)
     dev = grays.device
+    if true_hw is not None:
+        true_hw = torch.as_tensor(true_hw, dtype=torch.float32, device=dev)
 
     # phase 1: candidates + dense refinement per octave
     fields = []
-    for o, (_, dog) in enumerate(octs):
+    own = []            # per octave: (B, 2) frame sizes in octave pixels
+    for o, (g, dog) in enumerate(octs):
         k_oct = max(max_kp >> o, min(128, max_kp))
-        cand, _, cvalid = _extrema_candidates(dog, prelim, k_oct)
+        lim = None
+        size = torch.tensor([[float(g.shape[2]), float(g.shape[3])]],
+                            device=dev).expand(b, 2)
+        if true_hw is not None:
+            lim = true_hw / (scale0 * 2.0 ** o)
+            size = torch.minimum(torch.ceil(lim), size)
+        own.append(size)
+        cand, _, cvalid = _extrema_candidates(dog, prelim, k_oct, lim)
         lf, yf, xf, resp, ok = _refine_dense(dog, cand, n_layers,
                                              contrast_abs, edge_thresh)
         ok = ok & cvalid
@@ -273,29 +299,31 @@ def select_keypoints(grays: torch.Tensor, max_kp: int,
     oct_s = take(oct_id)
     s_tot = n_layers + 3
     frame = torch.arange(b, device=dev)[:, None]
-    own_h = torch.tensor([float(g.shape[2]) for g, _ in octs], device=dev)
-    own_w = torch.tensor([float(g.shape[3]) for g, _ in octs], device=dev)
+    own_hw = torch.stack(own, dim=1)                    # (B, n_oct, 2)
+    kp_hw = own_hw[frame.expand_as(oct_s), oct_s]       # (B, k, 2)
     return KeypointSelection(
         gauss_flat=flat_gauss_stack(octs),
         flat_layer=(frame * n_oct + oct_s) * s_tot + take(li),
-        yf=take(yf), xf=take(xf), sigma=take(sig), true_h=own_h[oct_s],
-        true_w=own_w[oct_s], octave=oct_s, response=take(resp),
-        valid=take(ok) & (top > 0.0),
-        scale0=0.5 if upsample else 1.0)
+        yf=take(yf), xf=take(xf), sigma=take(sig), true_h=kp_hw[..., 0],
+        true_w=kp_hw[..., 1], octave=oct_s, response=take(resp),
+        valid=take(ok) & (top > 0.0), scale0=scale0)
 
 
 def detect_and_describe_batched(grays: torch.Tensor, max_kp: int,
                                 contrast_thresh: float = 0.04,
                                 edge_thresh: float = 10.0,
                                 n_layers: int = 3,
-                                upsample: bool = False) -> Features:
+                                upsample: bool = False,
+                                true_hw=None) -> Features:
     """Detect up to ``max_kp`` keypoints per frame of a (B, H, W) float
-    gray batch in [0, 255] and describe them with ONE K1 launch."""
+    gray batch in [0, 255] and describe them with ONE K1 launch.
+    ``true_hw``: optional (B, 2) true sizes of mixed-size frames padded to
+    the batch (:func:`select_keypoints`)."""
     sel = select_keypoints(grays, max_kp, contrast_thresh, edge_thresh,
-                           n_layers, upsample)
+                           n_layers, upsample, true_hw)
     ang, desc = orientation_descriptor_flat(
         sel.gauss_flat, sel.flat_layer, sel.yf, sel.xf, sel.sigma,
-        sel.true_h, sel.true_w)
+        sel.true_h, sel.true_w, mixed=true_hw is not None)
     mult = sel.scale0 * torch.pow(2.0, sel.octave.to(torch.float32))
     feats = Features(
         xy=torch.stack([sel.xf, sel.yf], dim=-1) * mult[..., None],

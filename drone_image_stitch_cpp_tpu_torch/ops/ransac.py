@@ -1,10 +1,13 @@
 """Fixed-iteration RANSAC hypothesis banks, batched over problems.
 
-Port of the ``similarity`` and ``affine`` kinds of ``drone_image_stitch_
-cpp_tpu/ops/ransac.py`` (cv::estimateAffinePartial2D RANSAC,
-visual_flight_grouper.cpp:170-171, and cv::estimateAffine2D RANSAC,
-stitch_global.cpp:184-186): per problem, a bank of ``n_hyp`` minimal
-samples (2 points for a similarity, 3 for an affine) is solved and scored
+Port of ``drone_image_stitch_cpp_tpu/ops/ransac.py``: the ``similarity``
+kind (cv::estimateAffinePartial2D RANSAC, visual_flight_grouper.cpp:
+170-171), the ``affine`` kind (cv::estimateAffine2D RANSAC,
+stitch_global.cpp:184-186) and the ``homography`` kind
+(cv::findHomography RANSAC(3.0), stitch_robust.cpp:135, used by the
+sequential fallback's pair diagnostics): per problem, a bank of ``n_hyp``
+minimal samples (2 points for a similarity, 3 for an affine, 4 for a
+homography) is solved and scored
 in one batch, the best hypothesis is refined by weighted least squares on
 its inliers a fixed number of times, all in Hartley-normalised
 coordinates.
@@ -24,7 +27,7 @@ import torch
 
 from .transform import apply_homography_pts
 
-MIN_SAMPLES = {"similarity": 2, "affine": 3}
+MIN_SAMPLES = {"similarity": 2, "affine": 3, "homography": 4}
 # problems x hypotheses x keypoints scored per chunk of problems (bounds
 # the (chunk, n_hyp, K) residual temporaries; the result does not depend
 # on it)
@@ -99,7 +102,35 @@ def solve_affine(src: torch.Tensor, dst: torch.Tensor,
                        torch.full_like(h, float("nan")))
 
 
-_SOLVERS = {"similarity": solve_similarity, "affine": solve_affine}
+def solve_homography(src: torch.Tensor, dst: torch.Tensor,
+                     w: torch.Tensor) -> torch.Tensor:
+    """Weighted DLT with h33 = 1 (8x8 normal equations) over the trailing
+    point axis, exact for 4-point samples; returns (..., 3, 3), NaN where
+    singular."""
+    x, y = src[..., 0], src[..., 1]
+    u, v = dst[..., 0], dst[..., 1]
+    z = torch.zeros_like(x)
+    o = torch.ones_like(x)
+    # rows [x y 1 0 0 0 -ux -uy] h = u ; [0 0 0 x y 1 -vx -vy] h = v
+    r1 = torch.stack([x, y, o, z, z, z, -u * x, -u * y], dim=-1)
+    r2 = torch.stack([z, z, z, x, y, o, -v * x, -v * y], dim=-1)
+    a = torch.cat([r1, r2], dim=-2)                     # (..., 2K, 8)
+    b = torch.cat([u, v], dim=-1)                       # (..., 2K)
+    aw = a * torch.cat([w, w], dim=-1)[..., None]
+    m = a.transpose(-1, -2) @ aw                        # (..., 8, 8)
+    det_ok = torch.linalg.det(m).abs() > 1e-10
+    eye = torch.eye(8, dtype=m.dtype, device=m.device)
+    ms = torch.where(det_ok[..., None, None], m, eye)
+    hvec = torch.linalg.solve(ms, (aw.transpose(-1, -2) @ b[..., None])[
+        ..., 0])
+    h = torch.cat([hvec, torch.ones_like(hvec[..., :1])], dim=-1)
+    h = h.reshape(*h.shape[:-1], 3, 3)
+    return torch.where(det_ok[..., None, None], h,
+                       torch.full_like(h, float("nan")))
+
+
+_SOLVERS = {"similarity": solve_similarity, "affine": solve_affine,
+            "homography": solve_homography}
 
 
 def _residual_sq(model: torch.Tensor, src: torch.Tensor,
@@ -114,7 +145,8 @@ def _any_nan(h: torch.Tensor) -> torch.Tensor:
 def ransac(src: torch.Tensor, dst: torch.Tensor, good: torch.Tensor,
            raw: torch.Tensor, kind: str, thresh, refine_iters: int = 3,
            min_inliers: int = 4) -> RansacResult:
-    """Robust ``kind`` ("similarity" or "affine") fit per problem.
+    """Robust ``kind`` ("similarity", "affine" or "homography") fit per
+    problem.
 
     ``src``/``dst``: (P, K, 2); ``good``: (P, K) bool; ``raw``: (P, n_hyp,
     m) non-negative sample integers, m = MIN_SAMPLES[kind]; ``thresh``:
@@ -202,4 +234,13 @@ def ransac_similarity(src: torch.Tensor, dst: torch.Tensor,
                       min_inliers: int = 4) -> RansacResult:
     """:func:`ransac` of the similarity kind (``raw``: (P, n_hyp, 2))."""
     return ransac(src, dst, good, raw, "similarity", thresh, refine_iters,
+                  min_inliers)
+
+
+def find_homography(src: torch.Tensor, dst: torch.Tensor, good: torch.Tensor,
+                    raw: torch.Tensor, thresh=3.0, refine_iters: int = 3,
+                    min_inliers: int = 4) -> RansacResult:
+    """cv::findHomography(RANSAC) analog: :func:`ransac` of the homography
+    kind (``raw``: (P, n_hyp, 4))."""
+    return ransac(src, dst, good, raw, "homography", thresh, refine_iters,
                   min_inliers)

@@ -197,13 +197,14 @@ def orientation_descriptor_flat(gauss_flat: torch.Tensor,
                                 flat_layer: torch.Tensor,
                                 yf: torch.Tensor, xf: torch.Tensor,
                                 sigma: torch.Tensor, true_h: torch.Tensor,
-                                true_w: torch.Tensor):
+                                true_w: torch.Tensor, mixed: bool = False):
     """K1 over keypoints with any leading shape into a flat (L, H, W)
     float32 stack. Returns (angle (...,), desc (..., 128)).
 
     CUDA tensors launch ``csrc/sift_orient_desc.cu`` (counted in
-    ``orientation_descriptor_flat.launches``); CPU tensors run the plain
-    version. Mixed devices raise.
+    ``orientation_descriptor_flat.launches``, and also in ``.mixed_launches``
+    when the caller's batch holds frames of different sizes, ``mixed``);
+    CPU tensors run the plain version. Mixed devices raise.
     """
     lead = flat_layer.shape
     dev = gauss_flat.device
@@ -226,6 +227,8 @@ def orientation_descriptor_flat(gauss_flat: torch.Tensor,
             angle, desc = _launch(gauss_flat.contiguous(),
                                   support_radius(fl[2]), layer, *fl)
             orientation_descriptor_flat.launches += 1
+            if mixed:
+                orientation_descriptor_flat.mixed_launches += 1
     elif dev.type == "cpu":
         angle, desc = orientation_descriptor_plain(gauss_flat, layer, *fl)
     else:
@@ -234,3 +237,4 @@ def orientation_descriptor_flat(gauss_flat: torch.Tensor,
 
 
 orientation_descriptor_flat.launches = 0
+orientation_descriptor_flat.mixed_launches = 0

@@ -15,18 +15,20 @@ Port of ``drone_image_stitch_cpp_tpu/pipeline/global_.py``
   (e) graph-cut seams with the DP seam as fallback (:583-630);
   (f) the multiband blend with sigma-10 soft seam masks, through tiles
       above ``ops/blend.TILED_THRESHOLD_BYTES``, the crop box from the
-      tiles' device content flags (:632-666).
+      tiles' device content flags (:632-666), the finished row bands
+      optionally streamed into a row sink (the app's JPEG writer).
 
 Every strip lives on the device once, as uint8 padded to the common
 512-snapped size: that size sets the align detect's work scale and the
 edge clamp of its work image, so it is kept from the JAX package. The
-JAX package's extra shape-bucket pad of the detect image, its mesh and
-streamed row sink are not ported.
+JAX package's extra shape-bucket pad of the detect image and its mesh are
+not ported.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -248,13 +250,24 @@ def _to_seam(strip_u8: torch.Tensor, t_small: np.ndarray, hp_s: int,
 
 def stitch_inter_strips_custom(strips: List, tuning: Optional[StitchTuning]
                                = None, seed: int = 0, device=None,
-                               info: Optional[dict] = None) -> np.ndarray:
+                               info: Optional[dict] = None,
+                               row_sink=None) -> np.ndarray:
     """Compose strip panoramas (host arrays or :class:`DeviceStrip`) into
     one cropped mosaic (reference :386-675) on ``device`` (default: the
     device strips'). ``info``: optional dict that receives ``transforms``
     (per strip, (3, 3) oriented strip -> strip 0), ``flipped``,
-    ``seam_methods`` ({(i, j): "graphcut" or "dp"}), ``canvas``, ``bands``
-    and ``tiled``. Raises GlobalStitchError where the JAX package does.
+    ``seam_methods`` ({(i, j): "graphcut" or "dp"}), ``canvas``, ``bands``,
+    ``tiled`` and ``crop_box``. Raises GlobalStitchError where the JAX
+    package does.
+
+    ``row_sink``: optional ``runtime.writer.StreamedMosaicWriter``-protocol
+    object. On the tiled path the mosaic's finished row bands stream into
+    it while later tiles blend (begin / on_rows / finish); the crop box
+    given to ``begin`` is the union of the seam-scale content masks,
+    upscaled with a margin of 2 ceil(1 / seam_scale) + 2 px, so it
+    contains the exact autocrop box. A sink whose ``begin`` fails is logged
+    ("streamed write unavailable") and left unused; the caller then crops
+    and writes the returned mosaic.
     """
     log = get_logger()
     tuning = tuning or StitchTuning()
@@ -365,12 +378,33 @@ def stitch_inter_strips_custom(strips: List, tuning: Optional[StitchTuning]
         axes.append("vertical" if abs(dt[0]) >= abs(dt[1])
                     else "horizontal")
     methods: dict = {}
+    if row_sink is not None:
+        # before the seams, which carve the masks in place
+        union = torch.stack(seam_masks).any(dim=0).cpu().numpy()
     with log.timer(_STAGE, "seams", sync=sync):
         seam_out = S.find_seams_sequential(comp_imgs, seam_masks, axes,
                                            method="graphcut",
                                            methods=methods)
     log.log(_STAGE, "seam methods",
             **{f"{i}-{j}": m for (i, j), m in methods.items()})
+    crop_box = None
+    if row_sink is not None:
+        # the content bbox at seam scale, upscaled with an outward margin of
+        # TWO scale quanta (+2 px): the seam masks keep only fully covered
+        # cells (coverage >= 0.999, then a 0.999 warp footprint), so each
+        # may drop one partly covered cell at the content's edge. The JAX
+        # package's one quantum cut the last content column of
+        # chip_smoke.py's 3 x 10 4K mosaic on an H100; two keep the whole
+        # exact box
+        r, c = union.any(axis=1), union.any(axis=0)
+        if r.any():
+            margin = 2 * int(math.ceil(1.0 / max(seam_scale, 1e-6))) + 2
+            ry0, ry1 = int(np.argmax(r)), len(r) - int(np.argmax(r[::-1]))
+            cx0, cx1 = int(np.argmax(c)), len(c) - int(np.argmax(c[::-1]))
+            crop_box = (max(0, int(ry0 / seam_scale) - margin),
+                        min(canvas_h, int(ry1 / seam_scale) + margin),
+                        max(0, int(cx0 / seam_scale) - margin),
+                        min(canvas_w, int(cx1 / seam_scale) + margin))
     del comp_imgs, seam_imgs
 
     # ---- multiband blend with soft masks (:632-666) -----------------------
@@ -401,8 +435,29 @@ def stitch_inter_strips_custom(strips: List, tuning: Optional[StitchTuning]
         if use_tiled:
             frame_boxes = [(b[0] - x0, b[1] - y0, b[2] - x0, b[3] - y0)
                            for b in boxes]
+            on_rows = None
+            if row_sink is not None and crop_box is not None:
+                try:
+                    row_sink.begin(canvas_h, canvas_w, crop_box)
+                    on_rows = row_sink.on_rows
+                    log.log(_STAGE, "streaming mosaic write", crop=crop_box)
+                except Exception as err:
+                    log.log(_STAGE, "streamed write unavailable",
+                            error=str(err))
             out, bbox = B.mb_compose_tiled(canvas_h, canvas_w, bands,
-                                           frame_boxes, feed_roi, dev)
+                                           frame_boxes, feed_roi, dev,
+                                           on_rows=on_rows)
+            if on_rows is not None:
+                try:
+                    t0 = time.perf_counter()
+                    hw = row_sink.finish()
+                    log.log(_STAGE, "streamed mosaic written", h=hw[0],
+                            w=hw[1], encode_seconds=round(
+                                getattr(row_sink, "encode_seconds", 0.0), 3),
+                            finish_wait_seconds=round(
+                                time.perf_counter() - t0, 3))
+                except Exception as err:
+                    log.log(_STAGE, "streamed write failed", error=str(err))
             if bbox is None:
                 raise GlobalStitchError("the blended mosaic is empty")
             by0, by1, bx0, bx1 = bbox
@@ -418,5 +473,5 @@ def stitch_inter_strips_custom(strips: List, tuning: Optional[StitchTuning]
     if info is not None:
         info.update(transforms=transforms, flipped=flipped,
                     seam_methods=methods, canvas=(canvas_h, canvas_w),
-                    bands=bands, tiled=use_tiled)
+                    bands=bands, tiled=use_tiled, crop_box=crop_box)
     return result

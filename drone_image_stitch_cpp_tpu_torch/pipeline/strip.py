@@ -1,8 +1,8 @@
 """N-frame strip stitching: the cv::Stitcher SCANS-mode pipeline.
 
-Port of the joint path of ``drone_image_stitch_cpp_tpu/pipeline/strip.py``
-(stitchRobustly / createConfiguredStitcher, stitch_robust.cpp:174-271,
-337-376): one batched detect, banded match + RANSAC, biggest-component
+Port of ``drone_image_stitch_cpp_tpu/pipeline/strip.py`` (stitchRobustly /
+createConfiguredStitcher, stitch_robust.cpp:174-271, 337-376). The joint
+path: one batched detect, banded match + RANSAC, biggest-component
 filter on pano_conf_thresh, affine-partial bundle adjustment, seam-scale
 warps of every frame (K2), block-gain exposure surfaces, DP seams, and a
 multiband compose fed frame by frame (K2 again): whole canvas, or through
@@ -11,14 +11,23 @@ A tiled strip's crop box comes from the tiles' device content flags, and
 with ``return_device=True`` its panorama stays on the device as a
 :class:`runtime.handoff.DeviceStrip` for the global stage.
 
-Not ported yet: the sequential anchor-window fallback (a failed joint
-stitch raises :class:`StripStitchError`), the perspective warper and a
-compositing resolution below full size.
+The fallback ladder (stitch_robust.cpp:273-334, 360-375): when the joint
+stitch fails and no matching mask was given, :func:`_stitch_sequential`
+folds the frames into a growing mosaic, registering an anchor batch
+[mosaic, anchors..., next] (mixed frame sizes: a mixed-size detect batch
+and the non-uniform compose), then the bare pair; a step that fails both
+dumps the pair's diagnostics and raises. 2-image jobs pass the
+min_good_matches / min_inliers gates with a diagnostics record.
+
+Not ported: the perspective warper and a compositing resolution below
+full size (both raise NotImplementedError).
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
+
+from collections import deque
 
 import numpy as np
 import torch
@@ -26,10 +35,12 @@ import torch
 from ..config.tuning import StitchTuning
 from ..ops import blend as B
 from ..ops import exposure as E
+from ..ops import match as M
 from ..ops import seam as S
 from ..ops.crop import auto_crop_black_border
 from ..ops.resize import scale_for_megapixels
-from ..ops.warp_kernel import warp_frames
+from ..ops.ransac import find_homography
+from ..ops.warp_kernel import warp_frame, warp_frames
 from ..runtime.device import device_sync
 from ..runtime.handoff import DeviceStrip
 from ..runtime.logging import get_logger
@@ -43,12 +54,13 @@ _LOWE_RATIO = 0.75
 
 
 class StripStitchError(RuntimeError):
-    """The joint strip stitch failed (the sequential fallback is not
-    ported)."""
+    """Raised when the joint stitch fails and the sequential ladder is not
+    allowed (a matching mask was given) or fails too."""
 
 
 class _Frames:
-    """Uniform access to a strip's frames: host list or device store."""
+    """Access to a strip's frames: host list (frames may differ in size)
+    or device store."""
 
     def __init__(self, images, store, indices, device):
         self.images = images
@@ -56,14 +68,19 @@ class _Frames:
         self.indices = indices
         self.device = store.device if store is not None else device
         self.n = len(indices) if store is not None else len(images)
-        self.shape = (tuple(store.shape0) if store is not None
-                      else images[0].shape)
+        self.shapes = ([tuple(store.shape0[:2])] * self.n
+                       if store is not None
+                       else [tuple(im.shape[:2]) for im in images])
+        self.shape = self.shapes[0]
+        self._dev = {}
 
     def device_frame(self, k: int) -> torch.Tensor:
         if self.store is not None:
             return self.store.frame(self.indices[k])
-        return torch.from_numpy(np.ascontiguousarray(self.images[k])).to(
-            self.device)
+        if k not in self._dev:      # each host frame crosses once
+            self._dev[k] = torch.from_numpy(
+                np.ascontiguousarray(self.images[k])).to(self.device)
+        return self._dev[k]
 
     def device_batch(self) -> torch.Tensor:
         """All n frames as one (n, H, W, 3) uint8 device tensor, for
@@ -80,8 +97,10 @@ def estimate_strip_transforms(images: Optional[List[np.ndarray]],
                               stage: str = "Strip", seed: int = 0,
                               device: Optional[torch.device] = None,
                               store=None,
-                              indices: Optional[List[int]] = None):
-    """Registration: features -> banded pair graph -> component -> BA.
+                              indices: Optional[List[int]] = None,
+                              matching_mask: Optional[np.ndarray] = None):
+    """Registration: features -> pair graph (banded, all pairs, or the
+    pairs ``matching_mask`` marks) -> component -> BA.
 
     Returns (kept_indices, transforms (n_kept, 2, 3) float32 frame->frame0
     numpy, graph).
@@ -93,7 +112,13 @@ def estimate_strip_transforms(images: Optional[List[np.ndarray]],
                                    tuning.registration_resol_mpx,
                                    device=device, store=store,
                                    indices=indices)
-    pairs = banded_pairs(n, rw) if tuning.use_range_matcher else all_pairs(n)
+    if matching_mask is not None:
+        pairs = [(i, j) for i in range(n) for j in range(i + 1, n)
+                 if matching_mask[i, j] or matching_mask[j, i]]
+    elif tuning.use_range_matcher:
+        pairs = banded_pairs(n, rw)
+    else:
+        pairs = all_pairs(n)
     if not pairs:
         raise StripStitchError(f"{stage}: empty pair schedule")
     graph = register_pairs(feats, pairs, _LOWE_RATIO, thresh=4.0 / scale,
@@ -108,8 +133,21 @@ def estimate_strip_transforms(images: Optional[List[np.ndarray]],
         # 2-image pair gates (stitchWithMode, stitch_robust.cpp:233-243)
         ng = int(graph.n_good[0])
         ni = int(graph.n_inliers[0])
-        if (not bool(ok[0])) or ng < tuning.min_good_matches \
+        okp = bool(ok[0])
+        if (not okp) or ng < tuning.min_good_matches \
                 or ni < tuning.min_inliers:
+            # the diagnostics record (logPairDiagnostics,
+            # stitch_robust.cpp:144-172)
+            shape = (lambda k: images[k].shape if images is not None
+                     else tuple(store.shape0))
+            log.log(stage, "failure diagnostics", idx=1,
+                    left=f"{shape(0)}", right=f"{shape(1)}",
+                    kp_left=int(feats.valid[0].sum()),
+                    kp_right=int(feats.valid[1].sum()),
+                    good_matches=f"{ng}(min={tuning.min_good_matches})",
+                    model=("failed" if not okp else
+                           f"inliers/good_matches={ni}/{ng}"
+                           f"(min={tuning.min_inliers})"))
             raise StripStitchError(
                 f"{stage}: pair gates failed (good={ng} inliers={ni}, "
                 f"need {tuning.min_good_matches}/{tuning.min_inliers})")
@@ -163,6 +201,8 @@ def compose_strip(images: Optional[List[np.ndarray]],
     """Seam-scale warps + gains + DP seams + multiband blend at full
     resolution. Returns the cropped (H, W, 3) uint8 host panorama, or,
     with ``return_device`` and a tiled canvas, a :class:`DeviceStrip`.
+    Host ``images`` may differ in size (the sequential ladder's mosaic and
+    frames): each is then warped to the seam scale on its own.
     """
     log = get_logger()
     fr = _Frames(images, store, indices, device)
@@ -178,10 +218,11 @@ def compose_strip(images: Optional[List[np.ndarray]],
 
     # canvas bbox over all transformed corners (host numpy)
     tf = np.asarray(transforms, np.float32)
-    corners = np.asarray([[0.0, 0.0], [w - 1.0, 0.0], [w - 1.0, h - 1.0],
-                          [0.0, h - 1.0]], np.float32)
     boxes = []
-    for t in tf:
+    for t, (ih, iw) in zip(tf, fr.shapes):
+        corners = np.asarray([[0.0, 0.0], [iw - 1.0, 0.0],
+                              [iw - 1.0, ih - 1.0], [0.0, ih - 1.0]],
+                             np.float32)
         pts = corners @ t[:, :2].T + t[:, 2]
         boxes.append((pts[:, 0].min(), pts[:, 1].min(),
                       pts[:, 0].max(), pts[:, 1].max()))
@@ -217,11 +258,14 @@ def compose_strip(images: Optional[List[np.ndarray]],
     sh = B.align_up(max(1, int(round(canvas_h * seam_scale))), 64)
     sw = B.align_up(max(1, int(round(canvas_w * seam_scale))), 64)
     ssc = np.diag([seam_scale, seam_scale]).astype(np.float32)
+    t_seam = np.stack([ssc @ t for t in t_canvas]).astype(np.float32)
     with log.timer(stage, "seam warps", sync=sync):
-        simgs, scms = warp_frames(
-            fr.device_batch(),
-            np.stack([ssc @ t for t in t_canvas]).astype(np.float32),
-            sh, sw)
+        if len(set(fr.shapes)) == 1:
+            simgs, scms = warp_frames(fr.device_batch(), t_seam, sh, sw)
+        else:   # frames of different sizes: one warp each
+            simgs, scms = (torch.stack(a) for a in zip(*(
+                warp_frame(fr.device_frame(k), t_seam[k], sh, sw)
+                for k in range(n))))
         smasks = scms >= 0.5
         seam_imgs, seam_masks = list(simgs), list(smasks)
 
@@ -290,15 +334,23 @@ def stitch_strip(images: Optional[List[np.ndarray]],
                  image_tags: Optional[Sequence[str]] = None,
                  seed: int = 0, device: Optional[torch.device] = None,
                  store=None, indices: Optional[List[int]] = None,
-                 info: Optional[dict] = None, return_device: bool = False):
-    """Joint strip stitch (stitchRobustly's first rung,
-    stitch_robust.cpp:337-376); raises StripStitchError on failure.
+                 info: Optional[dict] = None, return_device: bool = False,
+                 matching_mask: Optional[np.ndarray] = None):
+    """Robust strip stitch with the reference's fallback ladder
+    (stitchRobustly, stitch_robust.cpp:337-376): the joint stitch first;
+    when it fails, and only without a ``matching_mask``
+    (stitch_robust.cpp:360-364), the sequential anchor-window ladder
+    (:func:`_stitch_sequential`) on the host frames. Raises
+    StripStitchError when no rung succeeds.
 
     ``image_tags``: optional per-frame tags for the logged pair plan.
     ``info``: optional dict that receives ``kept`` (kept frame positions)
-    and ``transforms`` ((n_kept, 2, 3) frame->frame0).
-    ``return_device``: a tiled panorama comes back as a
-    :class:`DeviceStrip`; small canvases still return host arrays.
+    and ``transforms`` ((n_kept, 2, 3) frame->frame0; NaN after the
+    sequential ladder, which folds frames into a growing mosaic and keeps
+    no per-frame transform) and ``path`` ("joint" or "sequential").
+    ``return_device``: a tiled joint panorama comes back as a
+    :class:`DeviceStrip`; small canvases and the ladder's mosaic are host
+    arrays.
     """
     log = get_logger()
     tuning = tuning or StitchTuning()
@@ -308,25 +360,125 @@ def stitch_strip(images: Optional[List[np.ndarray]],
     if n == 1:
         if info is not None:
             info.update(kept=[0], transforms=np.asarray(
-                [[[1, 0, 0], [0, 1, 0]]], np.float32))
+                [[[1, 0, 0], [0, 1, 0]]], np.float32), path="joint")
         return (images[0].copy() if images is not None
                 else store.host_frame(indices[0]).copy())
     if image_tags:
         log.log(stage, "plan", pairs=", ".join(
             f"{a}->{b}" for a, b in zip(image_tags, image_tags[1:])))
-    sync = device_sync(store.device if store is not None
-                       else torch.device(device))
-    with log.timer(stage, "register", sync=sync):
-        kept, transforms, _ = estimate_strip_transforms(
-            images, tuning, range_width_override, stage, seed,
-            device=device, store=store, indices=indices)
-    if len(kept) < n:
-        log.log(stage, "dropped weak frames",
-                dropped=[i for i in range(n) if i not in set(kept)])
+    dev = store.device if store is not None else torch.device(device)
+    sync = device_sync(dev)
+    try:
+        with log.timer(stage, "register", sync=sync):
+            kept, transforms, _ = estimate_strip_transforms(
+                images, tuning, range_width_override, stage, seed,
+                device=device, store=store, indices=indices,
+                matching_mask=matching_mask)
+        if len(kept) < n:
+            log.log(stage, "dropped weak frames",
+                    dropped=[i for i in range(n) if i not in set(kept)])
+        pano = compose_strip(
+            None if images is None else [images[i] for i in kept],
+            transforms, tuning, stage, device=device, store=store,
+            indices=None if indices is None else [indices[i] for i in kept],
+            return_device=return_device)
+        if info is not None:
+            info.update(kept=kept, transforms=transforms, path="joint")
+        return pano
+    except StripStitchError as err:
+        log.log(stage, "joint stitch failed", error=str(err))
+        if matching_mask is not None:
+            raise       # reference: no fallback when a mask was supplied
+    # the sequential ladder is unconditional on joint failure
+    # (stitch_robust.cpp:366-375); use_anchor_fallback only gates the
+    # anchor batch inside it (:297)
+    log.log(stage, "falling back to sequential stitch")
+    if images is None:
+        images = [store.host_frame(i) for i in indices]
+    pano = _stitch_sequential(images, tuning, stage, seed,
+                              range_width_override, dev)
     if info is not None:
-        info.update(kept=kept, transforms=transforms)
-    return compose_strip(
-        None if images is None else [images[i] for i in kept], transforms,
-        tuning, stage, device=device, store=store,
-        indices=None if indices is None else [indices[i] for i in kept],
-        return_device=return_device)
+        info.update(kept=list(range(n)),
+                    transforms=np.full((n, 2, 3), np.nan, np.float32),
+                    path="sequential")
+    return pano
+
+
+def _pair_diagnostics_dump(left: np.ndarray, right: np.ndarray,
+                           tuning: StitchTuning, stage: str, idx: int,
+                           device: torch.device) -> None:
+    """Diagnostics of a bare pair after a failed step (logPairDiagnostics,
+    stitch_robust.cpp:144-172, 319-325): detect -> kNN-2 ratio 0.75 ->
+    homography RANSAC(3.0), with both sides' keypoint counts. Never masks
+    the error that led here."""
+    log = get_logger()
+    try:
+        feats, scale = detect_features([left, right], tuning.sift_features,
+                                       tuning.registration_resol_mpx,
+                                       device=device)
+        m = M.knn2_ratio(feats.desc[0], feats.valid[0], feats.desc[1],
+                         feats.valid[1], _LOWE_RATIO)
+        src, dst, good = M.gather_correspondences(feats.xy[0], feats.xy[1],
+                                                  m)
+        g = torch.Generator(device="cpu")
+        g.manual_seed(idx)
+        raw = torch.randint(0, 2 ** 31 - 1, (1, 1024, 4), generator=g)
+        res = find_homography(src[None], dst[None], good[None],
+                              raw.to(src.device),
+                              thresh=3.0 / max(scale, 1e-6))
+        ng = int(good.sum())
+        ni = int(res.n_inliers[0])
+        log.log(stage, "failure diagnostics", idx=idx,
+                left=f"{left.shape}", right=f"{right.shape}",
+                kp_left=int(feats.valid[0].sum()),
+                kp_right=int(feats.valid[1].sum()),
+                good_matches=f"{ng}(min={tuning.min_good_matches})",
+                model=("failed" if not bool(res.ok[0]) else
+                       f"inliers/good_matches={ni}/{ng}"
+                       f"(min={tuning.min_inliers})"))
+    except Exception as diag_err:   # diagnostics never mask the error
+        log.log(stage, "failure diagnostics unavailable",
+                error=str(diag_err))
+
+
+def _stitch_sequential(images: List[np.ndarray], tuning: StitchTuning,
+                       stage: str, seed: int,
+                       range_width_override: Optional[int],
+                       device: torch.device) -> np.ndarray:
+    """Left-fold incremental stitch with a sliding anchor window
+    (stitchSequentially, stitch_robust.cpp:273-334): the anchors start
+    with the FIRST frame (:285); each step tries the anchor batch
+    [mosaic, anchors..., next] with the local range width
+    max(2, min(len(batch), range_width)) (:305-310), then the bare pair;
+    a step that fails both dumps the pair's diagnostics (:319-325) and
+    raises."""
+    log = get_logger()
+    current = images[0]
+    anchors: deque = deque([images[0]], maxlen=max(1, tuning.anchor_window))
+    rw = (range_width_override if range_width_override
+          and range_width_override > 0 else tuning.range_width)
+    for i in range(1, len(images)):
+        attempts = [[current, images[i]]]
+        if tuning.use_anchor_fallback and anchors:
+            attempts.insert(0, [current, *anchors, images[i]])
+        for attempt, imgs in enumerate(attempts):
+            local_rw = max(2, min(len(imgs), rw)) if len(imgs) > 2 else rw
+            try:
+                kept, transforms, _ = estimate_strip_transforms(
+                    imgs, tuning, range_width=local_rw,
+                    stage=f"{stage}/seq{i}", seed=seed + i, device=device)
+                current = compose_strip([imgs[k] for k in kept], transforms,
+                                        tuning, f"{stage}/seq{i}",
+                                        device=device)
+                break
+            except StripStitchError as err:
+                log.log(f"{stage}/seq{i}", "attempt failed",
+                        attempt=attempt, n_images=len(imgs),
+                        error=str(err))
+        else:
+            _pair_diagnostics_dump(current, images[i], tuning,
+                                   f"{stage}/seq{i}", i, device)
+            raise StripStitchError(
+                f"{stage}: sequential stitch failed at frame {i}")
+        anchors.append(images[i])
+    return current

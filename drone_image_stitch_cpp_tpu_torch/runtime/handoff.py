@@ -6,14 +6,20 @@ panorama on the card as a uint8 canvas plus the exact content box from
 the tiles' content flags; the global compose re-lays it into its common
 padded layout on the device (:meth:`DeviceStrip.device_padded`), so the
 pixels never cross to the host between the two stages. A host copy is
-made only on request (:meth:`DeviceStrip.host`), losslessly.
+made only on request (:meth:`DeviceStrip.host`), losslessly; the app
+calls it on its background writer thread (strip JPEG, checkpoint) while
+the main thread stitches the next strip, so the handle is thread-safe:
+one lock guards the host copy and the canvas, and the canvas is released
+only once the global stage has consumed it AND the host copy exists.
 
-The JAX package's jitted slice programs, its background-writer thread and
-the degrade-ladder recovery are not ported.
+The JAX package's jitted slice programs and the degrade-ladder recovery
+are not ported (a device fault ends the run; ``--resume`` restarts it
+from the strip checkpoint).
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -38,6 +44,8 @@ class DeviceStrip:
         self.bbox = (y0, y1, x0, x1)
         self.hw = (y1 - y0, x1 - x0)
         self._host: Optional[np.ndarray] = None
+        self._consumed = False
+        self._lock = threading.Lock()
 
     @property
     def shape(self):
@@ -46,18 +54,29 @@ class DeviceStrip:
 
     def host(self) -> np.ndarray:
         """The cropped panorama as host BGR uint8 (copied once, cached)."""
-        if self._host is None:
-            if self.dev is None:
-                raise RuntimeError("DeviceStrip released without a host copy")
-            y0, y1, x0, x1 = self.bbox
-            self._host = np.ascontiguousarray(
-                self.dev[y0:y1, x0:x1].cpu().numpy())
-        return self._host
+        with self._lock:
+            if self._host is None:
+                if self.dev is None:
+                    raise RuntimeError("DeviceStrip released without a host "
+                                       "copy")
+                y0, y1, x0, x1 = self.bbox
+                self._host = np.ascontiguousarray(
+                    self.dev[y0:y1, x0:x1].cpu().numpy())
+                self._release_if_done()
+            return self._host
 
     def mark_consumed(self) -> None:
-        """The caller is done with the device canvas: release it (a host
-        copy, if one was made, stays)."""
-        self.dev = None
+        """The global stage has taken ``device_padded()``'s output: the
+        canvas is released as soon as the host copy exists (at once if it
+        does; else by the ``host()`` call that makes it)."""
+        with self._lock:
+            self._consumed = True
+            self._release_if_done()
+
+    def _release_if_done(self) -> None:
+        # caller holds self._lock
+        if self._consumed and self._host is not None:
+            self.dev = None
 
     def device_padded(self, hp: int, wp: int) -> torch.Tensor:
         """The cropped content at the origin of a zero (hp, wp, 3) uint8
@@ -68,9 +87,17 @@ class DeviceStrip:
             raise ValueError(f"pad ({hp}, {wp}) smaller than the strip "
                              f"({h}, {w})")
         out = torch.zeros((hp, wp, 3), dtype=torch.uint8, device=self.device)
-        if self.dev is not None:
+        with self._lock:
+            src = self.dev
+            host = self._host
+        if src is not None:
             y0, y1, x0, x1 = self.bbox
-            out[:h, :w] = self.dev[y0:y1, x0:x1]
+            out[:h, :w] = src[y0:y1, x0:x1]
         else:
-            out[:h, :w] = torch.from_numpy(self.host()).to(self.device)
+            out[:h, :w] = torch.from_numpy(host).to(self.device)
         return out
+
+
+def as_host_strips(strips) -> list:
+    """A strips list (np.ndarray or DeviceStrip) as host arrays."""
+    return [s.host() if isinstance(s, DeviceStrip) else s for s in strips]

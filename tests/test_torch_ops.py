@@ -73,8 +73,7 @@ def test_tuning_from_jax_dict_matches_presets():
     from drone_image_stitch_cpp_tpu_torch.config.tuning import (
         from_jax_dict, load_stitch_tuning as tload,
         tuning_as_dict as ttuning_as_dict)
-    not_carried = {"use_anchor_fallback", "anchor_window", "use_opencl",
-                   "try_gpu"}
+    not_carried = {"use_opencl", "try_gpu"}
     for mod in ("visible", "NIR", "thermal", "unknown"):
         jd = tuning_as_dict(jload(mod))
         carried = {k: v for k, v in jd.items() if k not in not_carried}
@@ -83,11 +82,14 @@ def test_tuning_from_jax_dict_matches_presets():
     with pytest.raises(ValueError):
         from_jax_dict({"sift_features": 10})
     jd = tuning_as_dict(jload("visible"))
-    for key, value in (("use_anchor_fallback", True), ("try_gpu", False),
-                       ("use_opencl", False), ("anchor_window", 2),
+    for key, value in (("try_gpu", False), ("use_opencl", False),
                        ("no_such_knob", 1)):
         with pytest.raises(ValueError, match=key):
             from_jax_dict({**jd, key: value})
+    # the sequential ladder's knobs are carried
+    tt = from_jax_dict({**jd, "use_anchor_fallback": True,
+                        "anchor_window": 2})
+    assert tt.use_anchor_fallback is True and tt.anchor_window == 2
 
 
 def test_color_ops():
