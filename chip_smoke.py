@@ -58,6 +58,26 @@ Phases (one line each; any failure exits nonzero and prints no result):
      decoded panorama equals the first; decode, grouping, strip-save
      drain, streamed write and whole-run times, and the children's peak
      RSS. Where no encoder exists, it prints why.
+  8. knobs, on the corridor's 2160x3840 frames (all 12), each run with the
+     launch counts set to 0 just before it and read just after (in the
+     order (b), (c), (d), (e), (a)):
+     (a) a calibrated run: a barrel lens of a drone camera's size
+     (fx = fy = 3000 px, centred, k1 = -0.05, k2 = 0.01) planted by
+     rendering each frame distorted (the inverse of the undistortion map
+     by fixed-point iteration, as cv::undistortPoints, sampled from the
+     reflect-padded ortho at the corridor's positions), then
+     app.undistort_frames and app.stitch_frames: one group,
+     frame offsets within 1 px of the planted ones, GT-RMSE; (b)
+     compositing_resol_mpx = 2.0: panorama size within 4 px of the scaled
+     planted size, GT-RMSE against the ortho crop resized by the same
+     scale, K2's float32 source launched; (c) use_affine_warper=False:
+     panorama shape equal to the affine run's (phase 4), blurred RMSE
+     between the two < 2; (d) pipeline.pairwise.stitch_pair on frames 0
+     and 1 in similarity and homography mode: size within 4 px of
+     2160 x 4992, GT-RMSE; (e) K2's float32 source at the compositing
+     shape as (b) called it (the frame, affine and window of its first
+     float32 compose feed), bit-equal to its plain version and timed as
+     the other K2 rows, plus its batched seam warp of (b)'s frames.
 The environment line carries the JPEG codec probe (jpeglib.h, the libjpeg
 the loader sees, g++, cv2 and PIL); the build phase builds the codec from
 native/ beside the kernels and prints its library or the compiler's
@@ -105,6 +125,12 @@ K2_GLOBAL_WIN = (5120, 5120)        # the global compose's tile window
 # the multi-line sortie's line-1 strip (tests/test_torch_global_detect.py
 # holds the port's count to it and this floor under 0.9 of it)
 K1_GLOBAL_MIN_VALID = 1557
+KNOB_LENS = dict(fx=3000.0, fy=3000.0, cx=(FRAME_W - 1) / 2.0,
+                 cy=(FRAME_H - 1) / 2.0,
+                 dist=(-0.05, 0.01, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0))
+KNOB_PAD = 96                       # ortho padding for the lens's samples
+KNOB_COMPOSITING_MPX = 2.0
+KNOB_PAIR_W = FRAME_W + 1152        # two corridor frames, 0.70 overlap
 CLI_COLS = 6                        # production CLI: frames per line
 FB_FRAMES = 4                       # fallback phase: corridor frames
 FB_SIZE_TOL_PX = 8
@@ -667,7 +693,333 @@ def phase_slice(torch, dev, ortho, imgs, ids, pos, tuning):
     if k2_split[1] != 1:
         _fail("slice", f"seam warps took {k2_split[1]} batched launches, "
                        f"expected 1")
-    return launches
+    return launches, pano
+
+
+def _distorted_frames(torch, dev, ortho, pos, calib):
+    """The corridor's frames (at ``pos``) as the planted lens sees them:
+    distorted pixel v shows the ortho at the frame's origin + u, with
+    u = m^-1(v) for the undistortion map m (ops/undistort.distortion_maps)
+    inverted by fixed-point iteration as cv::undistortPoints does. The
+    ortho is reflect-padded by KNOB_PAD px first, so no sample falls
+    outside it; the padding is seen only by distorted pixels whose u lies
+    outside the frame, which the undistortion never reads back. Returns
+    (uint8 frames, the largest |u - v| in px)."""
+    from drone_image_stitch_cpp_tpu_torch.ops.warp import bilinear_sample
+    k1, k2 = calib.dist[0], calib.dist[1]
+    ys = torch.arange(FRAME_H, dtype=torch.float64, device=dev)[:, None]
+    xs = torch.arange(FRAME_W, dtype=torch.float64, device=dev)[None, :]
+    xd = ((xs - calib.cx) / calib.fx).expand(FRAME_H, FRAME_W)
+    yd = ((ys - calib.cy) / calib.fy).expand(FRAME_H, FRAME_W)
+    x, y = xd, yd
+    for _ in range(30):
+        r2 = x * x + y * y
+        rad = 1.0 + k1 * r2 + k2 * r2 * r2
+        x, y = xd / rad, yd / rad
+    ux = (x * calib.fx + calib.cx).float()
+    uy = (y * calib.fy + calib.cy).float()
+    shift = float(torch.maximum((ux - xs.float()).abs(),
+                                (uy - ys.float()).abs()).max())
+    src = torch.from_numpy(np.pad(ortho, ((KNOB_PAD, KNOB_PAD),
+                                          (KNOB_PAD, KNOB_PAD), (0, 0)),
+                                  mode="reflect")).to(dev)
+    frames = []
+    for py, px in pos:
+        sx, sy = ux + (px + KNOB_PAD), uy + (py + KNOB_PAD)
+        if float(sx.min()) < 0 or float(sy.min()) < 0 or \
+                float(sx.max()) > src.shape[1] - 2 or \
+                float(sy.max()) > src.shape[0] - 2:
+            _fail("knobs", f"distorted frame at {(py, px)} samples outside "
+                           f"the padded ortho (lens shift {shift:.1f} px)")
+        d = bilinear_sample(src, sx, sy)
+        frames.append(d.round().clamp(0, 255).to(torch.uint8).cpu().numpy())
+    del src
+    return frames, shift
+
+
+def _knob_run(torch, dev, label, fn):
+    """Run ``fn`` with the launch counts set to 0 just before it: (its
+    result, wall s, launch counts read just after); prints them with the
+    stage timers the run logged."""
+    from drone_image_stitch_cpp_tpu_torch.runtime.logging import get_logger
+    log = get_logger()
+    mark = len(log._records)
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    stages = ", ".join(f"{r['stage']}/{r['msg'][:-5]}={r['seconds']}"
+                       for r in log._records[mark:] if "seconds" in r)
+    print(f"[smoke] knobs {label}: wall {wall:.2f} s, launches {counts}; "
+          f"stages (s): {stages or 'none logged'}", flush=True)
+    return out, wall, counts
+
+
+def _check_line(res, pos, label):
+    """One group of every frame, offsets within OFFSET_TOL_PX of ``pos``."""
+    n = len(pos)
+    if [len(g.indices) for g in res.groups] != [n] or \
+            res.kept != list(range(n)):
+        _fail("knobs", f"{label}: groups {[g.indices for g in res.groups]}, "
+                       f"kept {res.kept}")
+    exp = np.asarray([(x - pos[0][1], y - pos[0][0]) for y, x in pos],
+                     np.float64)
+    per = np.abs(res.transforms[:, :, 2].astype(np.float64)
+                 - exp).max(axis=1)
+    err = float(per.max())
+    if err > OFFSET_TOL_PX:
+        _fail("knobs", f"{label}: frame offsets off by {err:.3f} px (per "
+                       f"frame {np.round(per, 3).tolist()}, max |linear - I| "
+                       f"{np.abs(res.transforms[:, :, :2] - np.eye(2)).max():.2e})")
+    return err
+
+
+def phase_knobs(torch, dev, ortho, imgs, ids, pos, tuning, affine_pano):
+    """The strip-stage and ingest options on the corridor (module doc,
+    phase 8). Returns (summed launch counts, the K2 float32 row)."""
+    from drone_image_stitch_cpp_tpu_torch import app as A
+    from drone_image_stitch_cpp_tpu_torch.config.tuning import (
+        CameraCalibration, MultiBandCalibration)
+    from drone_image_stitch_cpp_tpu_torch.ops.resize import (
+        resize_area, scale_for_megapixels)
+    from drone_image_stitch_cpp_tpu_torch.pipeline import compose_feed as CF
+    from drone_image_stitch_cpp_tpu_torch.pipeline.pairwise import (
+        stitch_pair)
+    from drone_image_stitch_cpp_tpu_torch.runtime.logging import get_logger
+    from drone_image_stitch_cpp_tpu_torch.utils.synthetic import gt_rmse
+
+    log = get_logger()
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    n = len(imgs)
+    gt_h = FRAME_H
+    gt_w = FRAME_W + (n - 1) * (pos[1][1] - pos[0][1])
+
+    # (b) compositing below full resolution; the first float32 compose
+    # feed's frame, affine and window are kept for (e)
+    cs = scale_for_megapixels(FRAME_H, FRAME_W, KNOB_COMPOSITING_MPX)
+    comp = tuning.replace(compositing_resol_mpx=KNOB_COMPOSITING_MPX)
+    real_warp = CF.warp_frame
+    fed = {}
+
+    def probe(img, a23, oh, ow, content="ones"):
+        if img.dtype == torch.float32 and "img" not in fed:
+            fed.update(img=img, a23=np.asarray(a23, np.float32), oh=oh,
+                       ow=ow)
+        return real_warp(img, a23, oh, ow, content=content)
+
+    mark = len(log._records)
+    CF.warp_frame = probe
+    try:
+        res, wall_b, counts = _knob_run(
+            torch, dev, "compositing",
+            lambda: A.stitch_frames(imgs, ids, comp, dev))
+    finally:
+        CF.warp_frame = real_warp
+    add(counts)
+    tiled = any(r["msg"] == "tiled compose" for r in log._records[mark:])
+    if counts["warp_affine_f32"] <= 0 or not fed:
+        _fail("knobs", f"compositing: K2's float32 source never launched "
+                       f"({counts})")
+    _check_line(res, pos, "compositing")
+    sh, sw = int(round(gt_h * cs)), int(round(gt_w * cs))
+    ph, pw = res.panorama.shape[:2]
+    if abs(ph - sh) > SIZE_TOL_PX or abs(pw - sw) > SIZE_TOL_PX:
+        _fail("knobs", f"compositing: panorama {ph}x{pw} vs scaled planted "
+                       f"{sh}x{sw}")
+    y0, x0 = pos[0]
+    crop = torch.from_numpy(np.ascontiguousarray(
+        ortho[y0:y0 + gt_h, x0:x0 + gt_w])).to(dev)
+    gt = resize_area(crop, sh, sw).clamp(0, 255).to(torch.uint8).cpu(
+        ).numpy()
+    del crop
+    rmse, dy, dx = gt_rmse(res.panorama, gt, device=dev)
+    if not np.isfinite(rmse) or rmse > GT_RMSE_MAX:
+        _fail("knobs", f"compositing GT-RMSE {rmse} > {GT_RMSE_MAX}")
+    print(f"[smoke] knobs compositing: {KNOB_COMPOSITING_MPX} MP, scale "
+          f"{cs:.4f}, panorama {ph}x{pw} (scaled planted {sh}x{sw}), "
+          f"GT-RMSE {rmse:.4f} at shift ({dy},{dx}) against the ortho crop "
+          f"resized by the same scale; canvas tiled {tiled}; K2 float32 "
+          f"launches {counts['warp_affine_f32']}", flush=True)
+    del res
+
+    # (c) the perspective warper
+    persp = tuning.replace(use_affine_warper=False)
+    res, wall_c, counts = _knob_run(
+        torch, dev, "perspective",
+        lambda: A.stitch_frames(imgs, ids, persp, dev))
+    add(counts)
+    _check_line(res, pos, "perspective")
+    if res.panorama.shape != affine_pano.shape:
+        _fail("knobs", f"perspective panorama {res.panorama.shape} vs the "
+                       f"affine run's {affine_pano.shape}")
+    rmse_pa, _, _ = gt_rmse(res.panorama, affine_pano, search=1, device=dev)
+    if not np.isfinite(rmse_pa) or rmse_pa >= 2.0:
+        _fail("knobs", f"perspective vs affine blurred RMSE {rmse_pa} >= 2")
+    if counts["sift_orient_desc"] <= 0:
+        _fail("knobs", "perspective: K1 never launched")
+    print(f"[smoke] knobs perspective: panorama {res.panorama.shape[0]}x"
+          f"{res.panorama.shape[1]} equal in shape to the affine run's, "
+          f"blurred RMSE between the two {rmse_pa:.4f}; wall {wall_c:.2f} s; "
+          f"K2 launches {counts['warp_affine']} (the perspective route "
+          f"warps in plain PyTorch)", flush=True)
+    del res
+
+    # (d) the two-frame stitch
+    y0, x0 = pos[0]
+    gt = np.clip(ortho[y0:y0 + FRAME_H, x0:x0 + KNOB_PAIR_W], 0,
+                 255).astype(np.uint8)
+    for kind in ("similarity", "homography"):
+        pano, wall_d, counts = _knob_run(
+            torch, dev, f"pair {kind}",
+            lambda: stitch_pair(imgs[0], imgs[1], tuning, model_kind=kind,
+                                device=dev))
+        add(counts)
+        if abs(pano.shape[0] - FRAME_H) > SIZE_TOL_PX or \
+                abs(pano.shape[1] - KNOB_PAIR_W) > SIZE_TOL_PX:
+            _fail("knobs", f"pair {kind}: panorama {pano.shape[:2]} vs "
+                           f"{(FRAME_H, KNOB_PAIR_W)}")
+        rmse, dy, dx = gt_rmse(pano, gt, device=dev)
+        if not np.isfinite(rmse) or rmse > GT_RMSE_MAX:
+            _fail("knobs", f"pair {kind}: GT-RMSE {rmse} > {GT_RMSE_MAX}")
+        if counts["sift_orient_desc"] <= 0:
+            _fail("knobs", f"pair {kind}: K1 never launched")
+        print(f"[smoke] knobs pair {kind}: panorama {pano.shape[0]}x"
+              f"{pano.shape[1]} (planted {FRAME_H}x{KNOB_PAIR_W}), GT-RMSE "
+              f"{rmse:.4f} at shift ({dy},{dx}), wall {wall_d:.2f} s",
+              flush=True)
+    k2f = phase_k2_f32(torch, dev, fed, imgs, pos, comp, cs)
+
+    # (a) the calibrated run
+    cam = CameraCalibration(name="visible", **KNOB_LENS)
+    t0 = time.perf_counter()
+    dist, shift = _distorted_frames(torch, dev, ortho, pos, cam)
+    render_s = time.perf_counter() - t0
+    calibrated = tuning.replace(
+        calibration=MultiBandCalibration(visible=cam))
+
+    def run_a():
+        t1 = time.perf_counter()
+        und = A.undistort_frames(dist, calibrated, "visible", dev)
+        torch.cuda.synchronize()
+        und_s = time.perf_counter() - t1
+        return A.stitch_frames(und, ids, calibrated, dev), und_s
+
+    (res, und_s), wall, counts = _knob_run(torch, dev, "calibrated", run_a)
+    add(counts)
+    err = _check_line(res, pos, "calibrated")
+    y0, x0 = pos[0]
+    gt = np.clip(ortho[y0:y0 + gt_h, x0:x0 + gt_w], 0, 255).astype(np.uint8)
+    rmse, dy, dx = gt_rmse(res.panorama, gt, device=dev)
+    if not np.isfinite(rmse) or rmse > GT_RMSE_MAX:
+        _fail("knobs", f"calibrated GT-RMSE {rmse} > {GT_RMSE_MAX}")
+    print(f"[smoke] knobs calibrated: lens fx=fy={cam.fx:.0f} k1={cam.dist[0]}"
+          f" k2={cam.dist[1]} (planted shift up to {shift:.1f} px, {n} "
+          f"distorted frames rendered in {render_s:.2f} s); undistortion "
+          f"{und_s / n * 1e3:.1f} ms per frame; groups "
+          f"{[len(g.indices) for g in res.groups]}, max offset error "
+          f"{err:.4f} px, panorama {res.panorama.shape[0]}x"
+          f"{res.panorama.shape[1]} (gt {gt_h}x{gt_w}), GT-RMSE {rmse:.4f} "
+          f"at shift ({dy},{dx})", flush=True)
+    del dist, res
+    return total, k2f
+
+
+def phase_k2_f32(torch, dev, fed, imgs, pos, tuning, cs):
+    """(e) K2's float32 source at the compositing shape: the frame, affine
+    and window of phase (b)'s first float32 compose feed, bit-equal to its
+    plain version and timed as the other K2 rows; then the batched seam
+    warp of every frame resized as (b) resized them, bit-equal too."""
+    from drone_image_stitch_cpp_tpu_torch.ops import warp_kernel as WK
+    from drone_image_stitch_cpp_tpu_torch.ops.blend import align_up
+    from drone_image_stitch_cpp_tpu_torch.ops.resize import (
+        resize_area, scale_for_megapixels)
+    frame, a23, oh, ow = fed["img"], fed["a23"], fed["oh"], fed["ow"]
+    h, w = frame.shape[:2]
+    inv = WK.inverse_coeffs(a23)
+    n0 = WK.warp_frame.f32_launches
+    wk, mk = WK.warp_frame(frame, a23, oh, ow)
+    if WK.warp_frame.f32_launches != n0 + 1:
+        _fail("k2", "float32 source did not count its launch")
+    wp, mp = WK.warp_frame_plain(frame, inv, oh, ow)
+    torch.cuda.synchronize()
+    if not (torch.equal(wk, wp) and torch.equal(mk, mp)):
+        d = float(torch.maximum((wk - wp).abs().max(),
+                                (mk - mp).abs().max()))
+        _fail("k2", f"float32 source not bit-identical to plain (max |d| "
+                    f"{d})")
+    covered = float((mk >= 0.5).float().mean())
+    ms = _median_ms(lambda: WK.warp_frame(frame, a23, oh, ow), torch)
+    b2b_ms = _device_ms(lambda: WK.warp_frame(frame, a23, oh, ow), torch)
+    device_ms = _device_ms(lambda: WK._launch(frame, 1, inv, oh, ow), torch)
+    plain_ms = _median_ms(lambda: WK.warp_frame_plain(frame, inv, oh, ow),
+                          torch)
+    import torch.nn.functional as F
+    from drone_image_stitch_cpp_tpu_torch.ops.warp import dst_to_src_coords
+    planes = torch.cat([frame.permute(2, 0, 1),
+                        torch.ones((1, h, w), device=dev)])[None]
+    sx, sy = dst_to_src_coords(torch.tensor(inv, dtype=torch.float32,
+                                            device=dev).reshape(2, 3), oh, ow)
+    grid = torch.stack([sx / (w - 1) * 2 - 1, sy / (h - 1) * 2 - 1],
+                       dim=-1)[None]
+    library_ms = _median_ms(lambda: F.grid_sample(
+        planes, grid, mode="bilinear", padding_mode="zeros",
+        align_corners=True), torch)
+    del planes, grid, sx, sy
+    src_px = _k2_source_pixels(torch, dev, inv, h, w, oh, ow)
+    n_bytes = 12.0 * src_px + 16.0 * oh * ow
+    bound_ms, bound_by = _bound(n_bytes, 30.0 * oh * ow)
+    print(f"[smoke] k2 warp_affine float32 source: {h}x{w} f32 (compositing "
+          f"scale {cs:.4f}) -> {oh}x{ow}x3 + mask, window coverage "
+          f"{covered:.3f}; bit-identical to plain; wrapper {ms:.4f} ms "
+          f"({b2b_ms:.4f} ms back to back), device {device_ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, grid_sample {library_ms:.4f} ms; bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({n_bytes / 1e6:.1f} MB), share "
+          f"{bound_ms / device_ms:.3f}", flush=True)
+    row = {"shape": [h, w, oh, ow], "ms": ms, "wrapper_b2b_ms": b2b_ms,
+           "device_ms": device_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "share": bound_ms / device_ms,
+           "max_abs_err": 0.0}
+
+    # the batched seam warp of the resized frames (strip.compose_strip)
+    rh_, rw_ = int(round(FRAME_H * cs)), int(round(FRAME_W * cs))
+    frames = torch.stack([resize_area(torch.from_numpy(im).to(dev).float(),
+                                      rh_, rw_) for im in imgs])
+    ss = scale_for_megapixels(rh_, rw_, tuning.seam_estimation_resol_mpx)
+    xs = [p[1] - pos[0][1] for p in pos]
+    sh = align_up(int(round(rh_ * ss)), 64)
+    sw = align_up(int(round((max(xs) * cs + rw_) * ss)), 64)
+    a23s = np.stack([np.asarray([[ss, 0, ss * cs * x], [0, ss, 0]],
+                                np.float32) for x in xs])
+    wb, mb = WK.warp_frames(frames, a23s, sh, sw)
+    invs = [WK.inverse_coeffs(a) for a in a23s]
+    for k in range(len(imgs)):
+        wp, mp = WK.warp_frame_plain(frames[k], invs[k], sh, sw)
+        if not (torch.equal(wb[k], wp) and torch.equal(mb[k], mp)):
+            _fail("k2", f"float32 seam batch: frame {k} differs from its "
+                        f"plain warp")
+    table = torch.tensor(invs, dtype=torch.float32, device=dev)
+    batch_ms = _device_ms(lambda: WK._launch(frames, len(imgs), table, sh,
+                                             sw), torch)
+    src_px = sum(_k2_source_pixels(torch, dev, inv, rh_, rw_, sh, sw)
+                 for inv in invs)
+    n_out = len(imgs) * sh * sw
+    b_ms, b_by = _bound(12.0 * src_px + 16.0 * n_out, 30.0 * n_out)
+    print(f"[smoke] k2 warp_affine float32 seam batch: {len(imgs)} x {rh_}x"
+          f"{rw_} f32 -> {sh}x{sw} in one launch, every frame bit-identical "
+          f"to plain; device {batch_ms:.4f} ms; bound {b_ms:.4f} ms by "
+          f"{b_by}, share {b_ms / batch_ms:.3f}", flush=True)
+    row["seam_batch"] = {"shape": [len(imgs), sh, sw], "device_ms": batch_ms,
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "share": b_ms / batch_ms}
+    return row
 
 
 def render_multiline(torch, dev):
@@ -795,7 +1147,8 @@ def _counts():
         warp_frame, warp_frames)
     return {"sift_orient_desc": orientation_descriptor_flat.launches,
             "warp_affine": warp_frame.launches + warp_frames.launches,
-            "warp_affine_nonblack": warp_frame.nonblack_launches}
+            "warp_affine_nonblack": warp_frame.nonblack_launches,
+            "warp_affine_f32": warp_frame.f32_launches}
 
 
 def _zero_counts():
@@ -807,6 +1160,7 @@ def _zero_counts():
     orientation_descriptor_flat.mixed_launches = 0
     warp_frame.launches = 0
     warp_frame.nonblack_launches = 0
+    warp_frame.f32_launches = 0
     warp_frames.launches = 0
 
 
@@ -1314,10 +1668,15 @@ def main() -> int:
     k2["seam_batch"] = phase_k2_batch(torch, dev, imgs, pos, tuning)
     torch.cuda.empty_cache()
     _zero_counts()
-    launches = phase_slice(torch, dev, ortho, imgs, ids, pos, tuning)
+    launches, affine_pano = phase_slice(torch, dev, ortho, imgs, ids, pos,
+                                        tuning)
     torch.cuda.empty_cache()
     fb_launches, k1["fallback_mixed"] = phase_fallback(torch, dev, ortho,
                                                        imgs, pos, tuning)
+    torch.cuda.empty_cache()
+    kn_launches, k2["f32_source"] = phase_knobs(torch, dev, ortho, imgs, ids,
+                                                pos, tuning, affine_pano)
+    del affine_pano
     torch.cuda.empty_cache()
     del ortho, imgs, ids, pos
     ml_ortho, ml_imgs, ml_ids, ml_pos = render_multiline(torch, dev)
@@ -1343,7 +1702,8 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     del ml_ortho, ml_imgs
     paths = {"single_line": launches, "multi_line": ml_launches,
-             "fallback": fb_launches, "production": pr_launches}
+             "fallback": fb_launches, "production": pr_launches,
+             "knobs": kn_launches}
     k1["launches"] = sum(c["sift_orient_desc"] for c in paths.values())
     k2["launches"] = sum(c["warp_affine"] for c in paths.values())
     k1["launches_by_path"] = {
@@ -1353,6 +1713,8 @@ def main() -> int:
         **{p: c["warp_affine"] for p, c in paths.items()},
         "multi_line_content_mode": ml_launches["warp_affine_nonblack"],
         "production_content_mode": pr_launches["warp_affine_nonblack"]}
+    k2["f32_launches_by_path"] = {p: c.get("warp_affine_f32", 0)
+                                  for p, c in paths.items()}
     k1["max_abs_err"] = max(k1["max_abs_err"],
                             k1["global_detect"]["max_abs_err"],
                             k1["fallback_mixed"]["max_abs_err"])

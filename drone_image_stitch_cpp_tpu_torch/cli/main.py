@@ -4,7 +4,8 @@ The JAX CLI's flags that the ported path uses (folder, type, group,
 output root, ``--no-save-strips``, ``--resume``, JSONL log, every
 StitchTuning knob by its field name, e.g. ``--global-sift-features``) plus
 ``--device`` (default ``cuda``; ``cuda`` without a visible card is an
-error, never a silent CPU run).
+error, never a silent CPU run). The camera calibration is not a flag, as
+in the JAX CLI: pass it through ``RunConfig.tuning_overrides``.
 
     python -m drone_image_stitch_cpp_tpu_torch.cli.main --device cuda \\
         --image-folder IMAGES --image-type visible --group run \\
@@ -28,6 +29,12 @@ def _str2bool(v: str) -> bool:
     raise argparse.ArgumentTypeError(f"boolean expected, got {v!r}")
 
 
+def _knob_fields():
+    """The StitchTuning fields that are flags (all but the calibration)."""
+    return [f for f in dataclasses.fields(StitchTuning)
+            if f.name != "calibration"]
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tpu-mosaic-torch",
@@ -48,7 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log-jsonl", default=None,
                    help="structured log sink (JSONL)")
     defaults = StitchTuning()
-    for f in dataclasses.fields(StitchTuning):
+    for f in _knob_fields():
         flag = "--" + f.name.replace("_", "-")
         default = getattr(defaults, f.name)
         if isinstance(default, bool):
@@ -66,8 +73,7 @@ def main(argv=None) -> int:
     from ..app import RunConfig, run_stitch_application
     from ..runtime.logging import get_logger
 
-    overrides = {f.name: getattr(args, f.name)
-                 for f in dataclasses.fields(StitchTuning)
+    overrides = {f.name: getattr(args, f.name) for f in _knob_fields()
                  if getattr(args, f.name) is not None}
     if args.log_jsonl:
         get_logger().jsonl_path = args.log_jsonl

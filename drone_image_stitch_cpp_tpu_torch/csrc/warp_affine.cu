@@ -1,4 +1,5 @@
-// K2: exact bilinear affine warp of uint8 BGR frames + their content masks.
+// K2: exact bilinear affine warp of BGR frames (uint8 or float32) + their
+// content masks.
 //
 // Replaces the Pallas TPU kernel drone_image_stitch_cpp_tpu/ops/
 // pallas_warp.py::_kernel (launched through _run; entries warp_affine and
@@ -7,21 +8,28 @@
 // avoided gathers with a two-pass shift-select that is only valid for
 // near-identity transforms (|linear - I| <= 0.05). On the H100 a gather is
 // cheap, so this kernel is the direct per-pixel bilinear gather of
-// ops/warp.warp_affine for any affine, and ONE launch reads N uint8 frames
-// and writes all three float32 channels plus the warped content mask of
-// each (grid: pixel blocks x frames). The mask is the warp of all-ones (the
+// ops/warp.warp_affine for any affine, and ONE launch reads N frames and
+// writes all three float32 channels plus the warped content mask of each
+// (grid: pixel blocks x frames). The mask is the warp of all-ones (the
 // strip compose: the source rectangle's footprint) or, in content mode
-// (the global compose, compose_feed.py:94-96), the warp of the source's
-// gray > 2 indicator, computed per tap from the 3 bytes the tap already
-// reads, so content mode costs no extra memory traffic.
+// (the global compose, compose_feed.py:94-96; uint8 sources only), the warp
+// of the source's gray > 2 indicator, computed per tap from the 3 values
+// the tap already reads, so content mode costs no extra memory traffic.
+//
+// The source is templated on its element type: uint8 BGR (the frames as
+// decoded) or float32 BGR (the frames area-resized for compositing below
+// full resolution, strip.py:227-239, which the JAX package warps
+// unquantised). Both feed the same arithmetic: a tap's three channels
+// become floats, exactly the values the uint8 path has always used.
 //
 // What bounds it on the H100: memory traffic, almost all of it stores. Per
 // output pixel it writes 16 bytes (3 channels + mask, float32) and reads
-// 4 taps x 3 bytes of uint8 source; a 2176x3904 window is ~136 MB written
-// and ~25 MB of source read. So each thread produces 4 consecutive output
-// pixels and writes them as three 16-byte stores of BGR (48 B) and one
-// 16-byte store of the mask; a tap pixel is read as the aligned 32-bit
-// word(s) holding its 3 bytes, not byte by byte.
+// 4 taps x 3 values of source (3 bytes each for uint8, 12 for float32); a
+// 2176x3904 window is ~136 MB written. So each thread produces 4
+// consecutive output pixels and writes them as three 16-byte stores of BGR
+// (48 B) and one 16-byte store of the mask; a uint8 tap is read as the
+// aligned 32-bit word(s) holding its 3 bytes, a float32 tap as three
+// 4-byte loads (a 12-byte pixel has no wider aligned load).
 //
 // Rounding: each pixel's source coordinates are ((i00*x) + (i01*y)) + i02
 // from its own (x, y), and the blend is ((v00*(1-fx)) + (v01*fx))*(1-fy)
@@ -32,7 +40,8 @@
 // ((b*0.114f) + (g*0.587f)) + (r*0.299f) with the same rounding, the plain
 // version's ops/color.content_mask, so no pixel crosses 2.0 differently.
 //
-// Plain C interface for ctypes; returns the cudaGetLastError() code.
+// Plain C interface for ctypes; each entry returns the cudaGetLastError()
+// code.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,22 +77,36 @@ __device__ __forceinline__ float lerp2(float v00, float v01, float v10,
   return __fadd_rn(__fmul_rn(top, gy), __fmul_rn(bot, fy));
 }
 
-__device__ __forceinline__ float channel(uint32_t v, int c) {
-  return (float)((v >> (8 * c)) & 0xffu);
+// The three channels of source pixel `pix` (a pixel index) as floats.
+__device__ __forceinline__ void load_tap(const uint8_t* src, size_t pix,
+                                         float* c) {
+  const uint32_t v = load_bgr(src, pix * 3);
+  c[0] = (float)(v & 0xffu);
+  c[1] = (float)((v >> 8) & 0xffu);
+  c[2] = (float)((v >> 16) & 0xffu);
+}
+
+__device__ __forceinline__ void load_tap(const float* src, size_t pix,
+                                         float* c) {
+  const float* p = src + pix * 3;
+  c[0] = __ldg(p);
+  c[1] = __ldg(p + 1);
+  c[2] = __ldg(p + 2);
 }
 
 // The content indicator of a tap: 1 where its gray is above 2, else 0 (an
 // out-of-range tap reads 0 and so is 0 too).
-__device__ __forceinline__ float nonblack(uint32_t v) {
-  const float gray = __fadd_rn(__fadd_rn(__fmul_rn(channel(v, 0), 0.114f),
-                                         __fmul_rn(channel(v, 1), 0.587f)),
-                               __fmul_rn(channel(v, 2), 0.299f));
+__device__ __forceinline__ float nonblack(const float* c) {
+  const float gray = __fadd_rn(__fadd_rn(__fmul_rn(c[0], 0.114f),
+                                         __fmul_rn(c[1], 0.587f)),
+                               __fmul_rn(c[2], 0.299f));
   return gray > 2.0f ? 1.f : 0.f;
 }
 
 // One output pixel (x, y): BGR into v[0..2], the warped mask into *m (the
 // footprint, or with `content` the warped gray > 2 indicator).
-__device__ __forceinline__ void warp_pixel(const uint8_t* __restrict__ src,
+template <typename T>
+__device__ __forceinline__ void warp_pixel(const T* __restrict__ src,
                                            int h, int w, const Coeffs& k,
                                            bool content, int x, int y,
                                            float* v, float* m) {
@@ -104,16 +127,16 @@ __device__ __forceinline__ void warp_pixel(const uint8_t* __restrict__ src,
   const bool cx1 = (xi >= -1) & (xi < w - 1);
   const bool ry0 = (yi >= 0) & (yi < h);
   const bool ry1 = (yi >= -1) & (yi < h - 1);
-  const size_t o00 = ((size_t)yi * w + xi) * 3;
-  const size_t row = (size_t)w * 3;
-  const uint32_t t00 = (ry0 & cx0) ? load_bgr(src, o00) : 0u;
-  const uint32_t t01 = (ry0 & cx1) ? load_bgr(src, o00 + 3) : 0u;
-  const uint32_t t10 = (ry1 & cx0) ? load_bgr(src, o00 + row) : 0u;
-  const uint32_t t11 = (ry1 & cx1) ? load_bgr(src, o00 + row + 3) : 0u;
+  const size_t p00 = (size_t)yi * w + xi;
+  float t00[3] = {0.f, 0.f, 0.f}, t01[3] = {0.f, 0.f, 0.f};
+  float t10[3] = {0.f, 0.f, 0.f}, t11[3] = {0.f, 0.f, 0.f};
+  if (ry0 & cx0) load_tap(src, p00, t00);
+  if (ry0 & cx1) load_tap(src, p00 + 1, t01);
+  if (ry1 & cx0) load_tap(src, p00 + w, t10);
+  if (ry1 & cx1) load_tap(src, p00 + w + 1, t11);
 #pragma unroll
   for (int c = 0; c < 3; ++c)
-    v[c] = lerp2(channel(t00, c), channel(t01, c), channel(t10, c),
-                 channel(t11, c), fx, fy);
+    v[c] = lerp2(t00[c], t01[c], t10[c], t11[c], fx, fy);
   if (content)
     *m = lerp2(nonblack(t00), nonblack(t01), nonblack(t10), nonblack(t11),
                fx, fy);
@@ -123,13 +146,15 @@ __device__ __forceinline__ void warp_pixel(const uint8_t* __restrict__ src,
 }
 
 // grid.x: blocks of kThreads * kPix output pixels; grid.y: frames. Frame n
-// reads src + n * src_stride bytes and its coefficients from table[6n..]
-// (or `one` when table is null), and writes out/mask at n * out_h * out_w.
+// reads src + n * src_stride elements and its coefficients from
+// table[6n..] (or `one` when table is null), and writes out/mask at
+// n * out_h * out_w.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-warp_affine_u8_kernel(const uint8_t* __restrict__ src, size_t src_stride,
-                      int h, int w, const float* __restrict__ table,
-                      Coeffs one, int content, float* __restrict__ out,
-                      float* __restrict__ mask, int out_h, int out_w) {
+warp_affine_kernel(const T* __restrict__ src, size_t src_stride, int h,
+                   int w, const float* __restrict__ table, Coeffs one,
+                   int content, float* __restrict__ out,
+                   float* __restrict__ mask, int out_h, int out_w) {
   const size_t total = (size_t)out_h * out_w;
   const size_t p0 = ((size_t)blockIdx.x * kThreads + threadIdx.x) * kPix;
   if (p0 >= total) return;
@@ -139,7 +164,7 @@ warp_affine_u8_kernel(const uint8_t* __restrict__ src, size_t src_stride,
     const float* t = table + 6 * n;
     k = Coeffs{t[0], t[1], t[2], t[3], t[4], t[5]};
   }
-  const uint8_t* frame = src + (size_t)n * src_stride;
+  const T* frame = src + (size_t)n * src_stride;
   float* fout = out + (size_t)n * total * 3 + p0 * 3;
   float* fmask = mask + (size_t)n * total + p0;
 
@@ -185,27 +210,47 @@ warp_affine_u8_kernel(const uint8_t* __restrict__ src, size_t src_stride,
   }
 }
 
-}  // namespace
-
-// n frames of h x w x 3 bytes, src_stride bytes apart; table: device
+// n frames of h x w x 3 elements, src_stride elements apart; table: device
 // (n, 6) float32 dst->src coefficients, or null for n == 1 with the
-// coefficients passed by value; content: 0 for the footprint mask, 1 for
-// the warped gray > 2 indicator.
-extern "C" int warp_affine_u8(const uint8_t* src, long long src_stride,
-                              int h, int w, const float* table, float i00,
-                              float i01, float i02, float i10, float i11,
-                              float i12, int content, float* out,
-                              float* mask, int out_h, int out_w, int n,
-                              void* stream) {
+// coefficients passed by value.
+template <typename T>
+int launch(const T* src, long long src_stride, int h, int w,
+           const float* table, Coeffs k, int content, float* out,
+           float* mask, int out_h, int out_w, int n, void* stream) {
   const size_t total = (size_t)out_h * out_w;
   if (total == 0 || n <= 0) return 0;
   if (table == nullptr && n != 1) return (int)cudaErrorInvalidValue;
   const size_t threads = (total + kPix - 1) / kPix;
   const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads),
                   (unsigned)n);
-  warp_affine_u8_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      src, (size_t)src_stride, h, w, table,
-      Coeffs{i00, i01, i02, i10, i11, i12}, content, out, mask, out_h,
+  warp_affine_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      src, (size_t)src_stride, h, w, table, k, content, out, mask, out_h,
       out_w);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// uint8 frames (src_stride in bytes); content: 0 for the footprint mask,
+// 1 for the warped gray > 2 indicator.
+extern "C" int warp_affine_u8(const uint8_t* src, long long src_stride,
+                              int h, int w, const float* table, float i00,
+                              float i01, float i02, float i10, float i11,
+                              float i12, int content, float* out,
+                              float* mask, int out_h, int out_w, int n,
+                              void* stream) {
+  return launch(src, src_stride, h, w, table,
+                Coeffs{i00, i01, i02, i10, i11, i12}, content, out, mask,
+                out_h, out_w, n, stream);
+}
+
+// float32 frames (src_stride in floats); the mask is always the footprint.
+extern "C" int warp_affine_f32(const float* src, long long src_stride,
+                               int h, int w, const float* table, float i00,
+                               float i01, float i02, float i10, float i11,
+                               float i12, float* out, float* mask,
+                               int out_h, int out_w, int n, void* stream) {
+  return launch(src, src_stride, h, w, table,
+                Coeffs{i00, i01, i02, i10, i11, i12}, 0, out, mask, out_h,
+                out_w, n, stream);
 }

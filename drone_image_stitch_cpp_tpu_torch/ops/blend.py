@@ -366,3 +366,38 @@ def mb_blend(canvas: MultiBandCanvas, out_h: int, out_w: int):
 def clip_u8(img: torch.Tensor) -> torch.Tensor:
     """float -> uint8 the JAX way: clip to [0, 255], then truncate."""
     return img.clamp(0.0, 255.0).to(torch.uint8)
+
+
+# --------------------------------------------------------------------------
+# feather blend (the two-frame stitch, pipeline/pairwise.py)
+# --------------------------------------------------------------------------
+
+def border_feather_weight(h: int, w: int, sharpness: float = 0.04,
+                          device=None) -> torch.Tensor:
+    """Source-frame weight: distance to the frame border, saturating.
+
+    OpenCV's FeatherBlender weights by the distance transform of the mask;
+    for a full rectangle that is the distance to the nearest edge. The
+    weight is warped with the frame, so it holds under any transform;
+    ``sharpness`` is cv2's 1 / ramp width (0.04 -> a 25 px ramp)."""
+    ys = torch.arange(h, dtype=torch.float32, device=device)[:, None]
+    xs = torch.arange(w, dtype=torch.float32, device=device)[None, :]
+    d = torch.minimum(torch.minimum(ys + 1.0, h - ys),
+                      torch.minimum(xs + 1.0, w - xs))
+    return (d * sharpness).clamp(0.0, 1.0)
+
+
+def feather_blend(images: Sequence[torch.Tensor],
+                  weights: Sequence[torch.Tensor]):
+    """Weighted-average blend of (H, W, 3) images by (H, W) weights in
+    [0, 1]: (blended (H, W, 3), covered (H, W) bool)."""
+    acc = torch.zeros_like(images[0])
+    wsum = torch.zeros(images[0].shape[:2], dtype=torch.float32,
+                       device=images[0].device)
+    for img, w in zip(images, weights):
+        acc = acc + img * w[..., None]
+        wsum = wsum + w
+    out = acc / wsum.clamp(min=1e-6)[..., None]
+    covered = wsum > 1e-6
+    return torch.where(covered[..., None], out,
+                       torch.zeros((), device=out.device)), covered

@@ -9,6 +9,13 @@ from __future__ import annotations
 import torch
 
 
+def affine_to_h3(a23: torch.Tensor) -> torch.Tensor:
+    """Lift a (..., 2, 3) affine to a (..., 3, 3) homogeneous matrix."""
+    bottom = torch.tensor([0.0, 0.0, 1.0], dtype=a23.dtype,
+                          device=a23.device).expand(*a23.shape[:-2], 1, 3)
+    return torch.cat([a23, bottom], dim=-2)
+
+
 def invert_affine(a23: torch.Tensor) -> torch.Tensor:
     """Invert a (..., 2, 3) affine transform."""
     inv_lin = torch.linalg.inv(a23[..., :, :2])
@@ -40,3 +47,10 @@ def apply_homography_pts(h33: torch.Tensor, pts: torch.Tensor
     out = torch.cat([pts, ones], dim=-1) @ h33.transpose(-1, -2)
     w = out[..., 2:]
     return out[..., :2] / torch.clamp(w.abs(), min=1e-12) * torch.sign(w)
+
+
+def image_corners(h: int, w: int, dtype=torch.float32) -> torch.Tensor:
+    """Corner points (4, 2) as (x, y) of an h x w image."""
+    return torch.tensor(
+        [[0.0, 0.0], [w - 1.0, 0.0], [w - 1.0, h - 1.0], [0.0, h - 1.0]],
+        dtype=dtype)

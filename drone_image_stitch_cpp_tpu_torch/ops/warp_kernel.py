@@ -1,4 +1,4 @@
-"""K2: bilinear affine warp of uint8 BGR frames + their content masks.
+"""K2: bilinear affine warp of BGR frames + their content masks.
 
 Replaces the Pallas TPU kernel ``drone_image_stitch_cpp_tpu/ops/
 pallas_warp.py::_kernel`` (launched through ``_run``; entries
@@ -7,17 +7,22 @@ feed at ``pipeline/compose_feed.py:92,97``: three channels and the content
 mask). The Pallas kernel was a near-identity shift-select approximation
 (|linear - I| <= 0.05, errors of a few levels); the CUDA kernel
 ``csrc/warp_affine.cu`` is the exact per-pixel bilinear gather of
-:func:`ops.warp.warp_affine` for ANY affine, and one launch reads N uint8
+:func:`ops.warp.warp_affine` for ANY affine, and one launch reads N
 frames and writes all three float32 channels and the warped content mask
 of each (BORDER_CONSTANT 0 outside the source). The mask is the warp of
 all-ones (``content="ones"``, the strip compose) or of the source's gray
 > 2 indicator (``content="nonblack"``, the global compose:
-:func:`ops.color.content_mask`).
+:func:`ops.color.content_mask`). Frames are uint8 (as decoded) or float32
+(area-resized for compositing below full resolution, which the JAX
+package warps unquantised); float32 frames take ``content="ones"`` only,
+as no caller of either package warps float frames in content mode.
 
 :func:`warp_frame` (one frame) and :func:`warp_frames` (a batch, as the
 JAX package's ``warp_affine_many``) launch the kernel for CUDA tensors and
 run the plain versions for CPU tensors; they never fall back from one to
-the other.
+the other. Every launch counts in its wrapper's ``launches``; content-
+mode launches also in ``warp_frame.nonblack_launches`` and float32-source
+launches in ``warp_frame.f32_launches`` (both shared by the wrappers).
 """
 
 from __future__ import annotations
@@ -34,14 +39,16 @@ from .color import content_mask
 from .warp import bilinear_sample, dst_to_src_coords
 
 KERNEL_SOURCE = "warp_affine.cu"
+_HEAD = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+         ctypes.c_void_p] + [ctypes.c_float] * 6
+_TAIL = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_void_p]
 KERNEL_SIGNATURES = {
-    "warp_affine_u8": (ctypes.c_int, [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p] + [ctypes.c_float] * 6 + [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+    "warp_affine_u8": (ctypes.c_int, _HEAD + [ctypes.c_int] + _TAIL),
+    "warp_affine_f32": (ctypes.c_int, _HEAD + _TAIL),
 }
 CONTENT_MODES = ("ones", "nonblack")
+SOURCE_DTYPES = (torch.uint8, torch.float32)
 _MAX_FRAMES = 65535          # grid.y of one launch
 _F32 = struct.Struct("f")
 
@@ -94,45 +101,47 @@ def inverse_coeffs(a23) -> tuple:
             i10, i11, -_r32(i11 * ty + _r32(i10 * tx)))
 
 
-def warp_frame_plain(img_u8: torch.Tensor, inv, out_h: int, out_w: int,
+def warp_frame_plain(img: torch.Tensor, inv, out_h: int, out_w: int,
                      content: str = "ones"):
-    """Plain PyTorch version of K2 for one frame and its
+    """Plain PyTorch version of K2 for one uint8 or float32 frame and its
     :func:`inverse_coeffs`: (warped (out_h, out_w, 3) float32, warped
     content mask (out_h, out_w) float32: the warp of all-ones, or with
     ``content="nonblack"`` of :func:`ops.color.content_mask`)."""
     inv23 = torch.tensor(inv, dtype=torch.float32,
-                         device=img_u8.device).reshape(2, 3)
+                         device=img.device).reshape(2, 3)
     sx, sy = dst_to_src_coords(inv23, out_h, out_w)
-    wimg = bilinear_sample(img_u8.to(torch.float32), sx, sy)
+    wimg = bilinear_sample(img.to(torch.float32), sx, sy)
     if content == "nonblack":
-        src = content_mask(img_u8).to(torch.float32)
+        src = content_mask(img).to(torch.float32)
     else:
-        src = torch.ones(img_u8.shape[:2], dtype=torch.float32,
-                         device=img_u8.device)
+        src = torch.ones(img.shape[:2], dtype=torch.float32,
+                         device=img.device)
     return wimg, bilinear_sample(src, sx, sy)
 
 
-def warp_frames_plain(frames_u8: torch.Tensor, invs, out_h: int, out_w: int,
-                      content: str = "ones"):
+def warp_frames_plain(frames: torch.Tensor, invs, out_h: int,
+                      out_w: int, content: str = "ones"):
     """Plain version of the batched K2: :func:`warp_frame_plain` per frame,
     stacked to ((N, out_h, out_w, 3), (N, out_h, out_w))."""
     outs = [warp_frame_plain(f, inv, out_h, out_w, content)
-            for f, inv in zip(frames_u8, invs)]
+            for f, inv in zip(frames, invs)]
     return (torch.stack([o[0] for o in outs]),
             torch.stack([o[1] for o in outs]))
 
 
-def _launch(src_u8: torch.Tensor, nf: int, invs, out_h: int, out_w: int,
+def _launch(src: torch.Tensor, nf: int, invs, out_h: int, out_w: int,
             content: str = "ones"):
-    """One kernel launch over ``nf`` contiguous (H, W, 3) uint8 frames
-    (``src_u8``: (H, W, 3) for one, (N, H, W, 3) for a batch); ``invs``:
-    one coefficient tuple (passed by value, nf == 1) or a device (N, 6)
-    float32 table. Returns the warped planes, shaped with src_u8's leading
-    dimensions."""
-    fn = load_kernel(KERNEL_SOURCE, KERNEL_SIGNATURES).fns["warp_affine_u8"]
-    lead = src_u8.shape[:-3]
-    h, w = src_u8.shape[-3], src_u8.shape[-2]
-    dev = src_u8.device
+    """One kernel launch over ``nf`` contiguous (H, W, 3) uint8 or float32
+    frames (``src``: (H, W, 3) for one, (N, H, W, 3) for a batch);
+    ``invs``: one coefficient tuple (passed by value, nf == 1) or a device
+    (N, 6) float32 table. Returns the warped planes, shaped with src's
+    leading dimensions."""
+    f32 = src.dtype == torch.float32
+    name = "warp_affine_f32" if f32 else "warp_affine_u8"
+    fn = load_kernel(KERNEL_SOURCE, KERNEL_SIGNATURES).fns[name]
+    lead = src.shape[:-3]
+    h, w = src.shape[-3], src.shape[-2]
+    dev = src.device
     wimg = torch.empty(lead + (out_h, out_w, 3), dtype=torch.float32,
                        device=dev)
     mask = torch.empty(lead + (out_h, out_w), dtype=torch.float32,
@@ -141,34 +150,38 @@ def _launch(src_u8: torch.Tensor, nf: int, invs, out_h: int, out_w: int,
         table, coeffs = invs.data_ptr(), (0.0,) * 6
     else:
         table, coeffs = None, invs
-    err = fn(src_u8.data_ptr(), h * w * 3, h, w, table, *coeffs,
-             int(content == "nonblack"), wimg.data_ptr(), mask.data_ptr(),
-             out_h, out_w, nf, stream_handle(dev))
+    mode = () if f32 else (int(content == "nonblack"),)
+    err = fn(src.data_ptr(), h * w * 3, h, w, table, *coeffs, *mode,
+             wimg.data_ptr(), mask.data_ptr(), out_h, out_w, nf,
+             stream_handle(dev))
     if err != 0:
-        raise RuntimeError(f"warp_affine_u8 launch failed: cudaError {err}")
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
     return wimg, mask
 
 
-def _check(frames_u8: torch.Tensor, ndim: int, out_h: int, out_w: int,
+def _check(frames: torch.Tensor, ndim: int, out_h: int, out_w: int,
            content: str):
-    if frames_u8.dtype != torch.uint8 or frames_u8.ndim != ndim \
-            or frames_u8.shape[-1] != 3:
+    if frames.dtype not in SOURCE_DTYPES or frames.ndim != ndim \
+            or frames.shape[-1] != 3:
         shape = "(H, W, 3)" if ndim == 3 else "(N, H, W, 3)"
-        raise ValueError(f"K2 takes {shape} uint8 frames, got "
-                         f"{tuple(frames_u8.shape)} {frames_u8.dtype}")
+        raise ValueError(f"K2 takes {shape} uint8 or float32 frames, got "
+                         f"{tuple(frames.shape)} {frames.dtype}")
     if out_h <= 0 or out_w <= 0:
         raise ValueError(f"empty output window {out_h}x{out_w}")
     if content not in CONTENT_MODES:
         raise ValueError(f"content must be one of {CONTENT_MODES}, got "
                          f"{content!r}")
-    if frames_u8.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {frames_u8.device}")
+    if content != "ones" and frames.dtype == torch.float32:
+        raise ValueError(f"content={content!r} takes uint8 frames; float32 "
+                         f"frames warp with content='ones' only")
+    if frames.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {frames.device}")
 
 
-def warp_frame(img_u8: torch.Tensor, a23, out_h: int, out_w: int,
+def warp_frame(img: torch.Tensor, a23, out_h: int, out_w: int,
                content: str = "ones"):
-    """Warp an (H, W, 3) uint8 BGR frame by the src->dst affine ``a23``
-    (host (2, 3)) into an (out_h, out_w) window.
+    """Warp an (H, W, 3) uint8 or float32 BGR frame by the src->dst affine
+    ``a23`` (host (2, 3)) into an (out_h, out_w) window.
 
     Returns (warped (out_h, out_w, 3) float32, content mask (out_h, out_w)
     float32: the bilinear footprint of the source rectangle, or with
@@ -177,19 +190,19 @@ def warp_frame(img_u8: torch.Tensor, a23, out_h: int, out_w: int,
     ``warp_frame.launches``; see :func:`_count_launch`); CPU frames run the
     plain version.
     """
-    _check(img_u8, 3, out_h, out_w, content)
+    _check(img, 3, out_h, out_w, content)
     inv = inverse_coeffs(a23)
-    if img_u8.device.type == "cpu":
-        return warp_frame_plain(img_u8, inv, out_h, out_w, content)
-    out = _launch(img_u8.contiguous(), 1, inv, out_h, out_w, content)
-    _count_launch(warp_frame, content)
+    if img.device.type == "cpu":
+        return warp_frame_plain(img, inv, out_h, out_w, content)
+    out = _launch(img.contiguous(), 1, inv, out_h, out_w, content)
+    _count_launch(warp_frame, content, img.dtype)
     return out
 
 
-def warp_frames(frames_u8: torch.Tensor, a23s, out_h: int, out_w: int,
+def warp_frames(frames: torch.Tensor, a23s, out_h: int, out_w: int,
                 content: str = "ones"):
-    """Warp N same-size (N, H, W, 3) uint8 frames, each by its src->dst
-    affine (host (N, 2, 3)), into one (out_h, out_w) window size.
+    """Warp N same-size (N, H, W, 3) uint8 or float32 frames, each by its
+    src->dst affine (host (N, 2, 3)), into one (out_h, out_w) window size.
 
     Returns ((N, out_h, out_w, 3), (N, out_h, out_w)) float32, the mask as
     in :func:`warp_frame`. CUDA frames make ONE launch of
@@ -197,30 +210,34 @@ def warp_frames(frames_u8: torch.Tensor, a23s, out_h: int, out_w: int,
     (counted in ``warp_frames.launches``; see :func:`_count_launch`); CPU
     frames run :func:`warp_frames_plain`.
     """
-    _check(frames_u8, 4, out_h, out_w, content)
+    _check(frames, 4, out_h, out_w, content)
     a = np.asarray(a23s, np.float32).reshape(-1, 2, 3)
-    nf = frames_u8.shape[0]
+    nf = frames.shape[0]
     if a.shape[0] != nf or not 0 < nf <= _MAX_FRAMES:
         raise ValueError(f"{nf} frames with {a.shape[0]} affines "
                          f"(need 1..{_MAX_FRAMES} of each)")
     invs = [inverse_coeffs(t) for t in a]
-    if frames_u8.device.type == "cpu":
-        return warp_frames_plain(frames_u8, invs, out_h, out_w, content)
-    table = torch.tensor(invs, dtype=torch.float32).to(frames_u8.device)
-    out = _launch(frames_u8.contiguous(), nf, table, out_h, out_w, content)
-    _count_launch(warp_frames, content)
+    if frames.device.type == "cpu":
+        return warp_frames_plain(frames, invs, out_h, out_w, content)
+    table = torch.tensor(invs, dtype=torch.float32).to(frames.device)
+    out = _launch(frames.contiguous(), nf, table, out_h, out_w, content)
+    _count_launch(warp_frames, content, frames.dtype)
     return out
 
 
-def _count_launch(wrapper, content: str) -> None:
+def _count_launch(wrapper, content: str, dtype: torch.dtype) -> None:
     """One kernel launch by ``wrapper`` (its ``launches``); a content-mode
     launch of either wrapper also counts in the one shared
-    ``warp_frame.nonblack_launches``."""
+    ``warp_frame.nonblack_launches``, a float32-source launch in the one
+    shared ``warp_frame.f32_launches``."""
     wrapper.launches += 1
     if content == "nonblack":
         warp_frame.nonblack_launches += 1
+    if dtype == torch.float32:
+        warp_frame.f32_launches += 1
 
 
 warp_frame.launches = 0
 warp_frame.nonblack_launches = 0
+warp_frame.f32_launches = 0
 warp_frames.launches = 0

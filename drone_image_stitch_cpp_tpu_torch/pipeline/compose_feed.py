@@ -1,10 +1,13 @@
-"""Per-frame compose feed into the canvas pyramid (affine).
+"""Per-frame compose feed into the canvas pyramid.
 
 Port of ``drone_image_stitch_cpp_tpu/pipeline/compose_feed.py::
-_feed_body``: warp the uint8 frame and its content mask into the ROI
-window (ONE launch of K2, ops/warp_kernel.py), apply the gains, upsample
-the seam mask to the window, weight it, and accumulate the multiband
-pyramid. Two modes mirror the two callers:
+_feed_body``: warp the frame (uint8, or float32 below full compositing
+resolution) and its content mask into the ROI window (ONE launch of K2,
+ops/warp_kernel.py; with the perspective warper, ``persp=True``, two
+plain ``ops/warp.warp_perspective`` warps instead, as the JAX package
+never sends those to its Pallas kernel), apply the gains, upsample the
+seam mask to the window, weight it, and accumulate the multiband pyramid.
+Two modes mirror the two callers:
   * ``mode="strip"``: the mask is the source rectangle's footprint, kept
     at >= 0.5; a block-gain surface; weight = seam * mask;
   * ``mode="global"``: the mask is the warp of the source's gray > 2
@@ -25,6 +28,7 @@ import torch
 
 from ..ops import blend as B
 from ..ops.gaussian import gaussian_blur
+from ..ops.warp import warp_perspective
 from ..ops.warp_kernel import warp_frame
 
 _SOFT_MASK_SIGMA = 10.0  # reference :345
@@ -50,23 +54,34 @@ def _upsample(m: torch.Tensor, rh: int, rw: int, gx: torch.Tensor,
     return _hat(rh, gh, gy, inv_seam) @ t             # (rh, rw)
 
 
-def feed_frame(cv: B.MultiBandCanvas, img_u8: torch.Tensor,
+def feed_frame(cv: B.MultiBandCanvas, img: torch.Tensor,
                seam_mask: torch.Tensor, t_full: np.ndarray, tlx: int,
                tly: int, gx: float, gy: float, seam_scale: float, rh: int,
                rw: int, gain_m1: Optional[torch.Tensor] = None,
-               mode: str = "strip", chan_gain=None) -> B.MultiBandCanvas:
+               mode: str = "strip", chan_gain=None, persp: bool = False,
+               h33: Optional[np.ndarray] = None) -> B.MultiBandCanvas:
     """Feed one frame's ROI window into ``cv`` (in place).
 
-    ``img_u8``: (H, W, 3) uint8 device frame; ``seam_mask``: (gh, gw) bool
-    at seam scale; ``t_full``: host (2, 3) frame->window affine; (tlx, tly)
-    the window's canvas offset (in ``cv``) and (gx, gy) its offset on the
-    seam-scale canvas's full-resolution grid; ``gain_m1``: optional
-    (gh, gw) block-gain-minus-1 surface; ``mode``: "strip" or "global"
-    (see the module doc); ``chan_gain``: optional host (3,) gains.
+    ``img``: (H, W, 3) uint8 or float32 device frame; ``seam_mask``:
+    (gh, gw) bool at seam scale; ``t_full``: host (2, 3) frame->window
+    affine; (tlx, tly) the window's canvas offset (in ``cv``) and (gx, gy)
+    its offset on the seam-scale canvas's full-resolution grid;
+    ``gain_m1``: optional (gh, gw) block-gain-minus-1 surface; ``mode``:
+    "strip" or "global" (see the module doc); ``chan_gain``: optional host
+    (3,) gains; ``persp`` (strip mode, the perspective warper): warp the
+    frame and an all-ones mask with ``warp_perspective`` by the host
+    (3, 3) ``h33`` (compose_feed.py:82-88) instead of K2.
     """
-    dev = img_u8.device
+    dev = img.device
     content, cthresh = _MODES[mode]
-    wimg, cm = warp_frame(img_u8, t_full, rh, rw, content=content)
+    if persp:
+        if mode != "strip":
+            raise ValueError("the perspective route feeds strip mode only")
+        ones = torch.ones(img.shape[:2], dtype=torch.float32, device=dev)
+        wimg = warp_perspective(img, h33, rh, rw)
+        cm = warp_perspective(ones, h33, rh, rw)
+    else:
+        wimg, cm = warp_frame(img, t_full, rh, rw, content=content)
     cmask = cm >= cthresh
     if chan_gain is not None:
         wimg = wimg * torch.as_tensor(np.asarray(chan_gain, np.float32),

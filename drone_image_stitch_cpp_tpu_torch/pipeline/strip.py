@@ -19,8 +19,13 @@ and the non-uniform compose), then the bare pair; a step that fails both
 dumps the pair's diagnostics and raises. 2-image jobs pass the
 min_good_matches / min_inliers gates with a diagnostics record.
 
-Not ported: the perspective warper and a compositing resolution below
-full size (both raise NotImplementedError).
+Two knobs of the compose (stitch_robust.cpp:185, 203-205), as the JAX
+package has them: ``compositing_resol_mpx`` > 0 area-resizes the frames on
+the device to the megapixel budget and composes them unquantised, as
+float32 (K2's float32 source), with the transforms rescaled;
+``use_affine_warper=False`` sends the seam-scale warps and every compose
+feed through the plain perspective warp (``ops/warp.warp_perspective``)
+instead of K2.
 """
 
 from __future__ import annotations
@@ -38,8 +43,9 @@ from ..ops import exposure as E
 from ..ops import match as M
 from ..ops import seam as S
 from ..ops.crop import auto_crop_black_border
-from ..ops.resize import scale_for_megapixels
+from ..ops.resize import resize_area, scale_for_megapixels
 from ..ops.ransac import find_homography
+from ..ops.warp import warp_perspective
 from ..ops.warp_kernel import warp_frame, warp_frames
 from ..runtime.device import device_sync
 from ..runtime.handoff import DeviceStrip
@@ -59,8 +65,8 @@ class StripStitchError(RuntimeError):
 
 
 class _Frames:
-    """Access to a strip's frames: host list (frames may differ in size)
-    or device store."""
+    """Access to a strip's frames: host list (frames may differ in size),
+    device store, or (:meth:`resized`) float32 device frames."""
 
     def __init__(self, images, store, indices, device):
         self.images = images
@@ -83,12 +89,29 @@ class _Frames:
         return self._dev[k]
 
     def device_batch(self) -> torch.Tensor:
-        """All n frames as one (n, H, W, 3) uint8 device tensor, for
-        reading only: from a store it may be a view of the store's frames
+        """All n frames as one (n, H, W, 3) device tensor, for reading
+        only: from a store it may be a view of the store's frames
         (``FrameStore.batch``), so it must not be written."""
         if self.store is not None:
             return self.store.batch(self.indices)
+        if self.images is None:
+            return torch.stack([self._dev[k] for k in range(self.n)])
         return torch.from_numpy(np.stack(self.images)).to(self.device)
+
+    def resized(self, cs: float) -> "_Frames":
+        """The frames area-resized by ``cs`` on the device and kept float32
+        (strip.py:232-235): a store's frames are read on the device, host
+        frames cross once."""
+        out = _Frames.__new__(_Frames)
+        out.images = out.store = out.indices = None
+        out.device, out.n = self.device, self.n
+        out._dev = {k: resize_area(self.device_frame(k).to(torch.float32),
+                                   max(1, int(round(h * cs))),
+                                   max(1, int(round(w * cs))))
+                    for k, (h, w) in enumerate(self.shapes)}
+        out.shapes = [tuple(out._dev[k].shape[:2]) for k in range(self.n)]
+        out.shape = out.shapes[0]
+        return out
 
 
 def estimate_strip_transforms(images: Optional[List[np.ndarray]],
@@ -183,6 +206,27 @@ def estimate_strip_transforms(images: Optional[List[np.ndarray]],
     return kept, transforms[np.asarray(kept)], graph
 
 
+def _scale_transform(t33: np.ndarray, s: float) -> np.ndarray:
+    """Rescale a transform estimated at full resolution to scale ``s``."""
+    sc = np.diag([s, s, 1.0]).astype(np.float32)
+    return sc @ t33 @ np.linalg.inv(sc)
+
+
+def _seam_warps_persp(fr: _Frames, t_seam: np.ndarray, sh: int, sw: int):
+    """The perspective warper's seam-scale warps (strip.py:60-73): each
+    frame and its all-ones mask by ``warp_perspective``; (images (n, sh,
+    sw, 3), footprints (n, sh, sw))."""
+    imgs, masks = [], []
+    for k in range(fr.n):
+        img = fr.device_frame(k)
+        h33 = np.vstack([t_seam[k], [0.0, 0.0, 1.0]]).astype(np.float32)
+        ones = torch.ones(img.shape[:2], dtype=torch.float32,
+                          device=img.device)
+        imgs.append(warp_perspective(img, h33, sh, sw))
+        masks.append(warp_perspective(ones, h33, sh, sw))
+    return torch.stack(imgs), torch.stack(masks)
+
+
 def _axes_from_transforms(transforms: np.ndarray) -> List[str]:
     """Seam axis per adjacent pair from the dominant translation."""
     axes = []
@@ -198,23 +242,35 @@ def compose_strip(images: Optional[List[np.ndarray]],
                   device: Optional[torch.device] = None, store=None,
                   indices: Optional[List[int]] = None,
                   return_device: bool = False):
-    """Seam-scale warps + gains + DP seams + multiband blend at full
-    resolution. Returns the cropped (H, W, 3) uint8 host panorama, or,
-    with ``return_device`` and a tiled canvas, a :class:`DeviceStrip`.
-    Host ``images`` may differ in size (the sequential ladder's mosaic and
-    frames): each is then warped to the seam scale on its own.
+    """Seam-scale warps + gains + DP seams + multiband blend at
+    compositing resolution. Returns the cropped (H, W, 3) uint8 host
+    panorama, or, with ``return_device`` and a tiled canvas, a
+    :class:`DeviceStrip`. Host ``images`` may differ in size (the
+    sequential ladder's mosaic and frames): each is then warped to the
+    seam scale on its own.
+
+    ``transforms``: (N, 2, 3) frame->reference affines in full-resolution
+    pixels. ``compositing_resol_mpx`` > 0 composes at that megapixel
+    budget (setCompositingResol, stitch_robust.cpp:185): the frames are
+    area-resized on the device and stay float32, the transforms are
+    rescaled, and the seam scale is taken relative to the resized frames.
+    ``use_affine_warper=False`` warps through the perspective route.
     """
     log = get_logger()
     fr = _Frames(images, store, indices, device)
     n = fr.n
     h, w = fr.shape[:2]
-    if not tuning.use_affine_warper:
-        raise NotImplementedError(
-            "use_affine_warper=False (perspective compose) is not ported")
-    if scale_for_megapixels(h, w, tuning.compositing_resol_mpx) < 1.0:
-        raise NotImplementedError(
-            "compositing below full resolution is not ported")
     sync = device_sync(fr.device)
+    cs = scale_for_megapixels(h, w, tuning.compositing_resol_mpx)
+    if cs < 1.0:
+        log.log(stage, "compositing scale", scale=round(cs, 4))
+        with log.timer(stage, "compositing resize", sync=sync):
+            fr = fr.resized(cs)
+        transforms = np.stack([
+            _scale_transform(np.vstack([t, [0.0, 0.0, 1.0]]).astype(
+                np.float32), cs)[:2] for t in np.asarray(transforms)])
+        h, w = fr.shape[:2]
+    persp = not tuning.use_affine_warper
 
     # canvas bbox over all transformed corners (host numpy)
     tf = np.asarray(transforms, np.float32)
@@ -260,7 +316,9 @@ def compose_strip(images: Optional[List[np.ndarray]],
     ssc = np.diag([seam_scale, seam_scale]).astype(np.float32)
     t_seam = np.stack([ssc @ t for t in t_canvas]).astype(np.float32)
     with log.timer(stage, "seam warps", sync=sync):
-        if len(set(fr.shapes)) == 1:
+        if persp:
+            simgs, scms = _seam_warps_persp(fr, t_seam, sh, sw)
+        elif len(set(fr.shapes)) == 1:
             simgs, scms = warp_frames(fr.device_batch(), t_seam, sh, sw)
         else:   # frames of different sizes: one warp each
             simgs, scms = (torch.stack(a) for a in zip(*(
@@ -297,7 +355,9 @@ def compose_strip(images: Optional[List[np.ndarray]],
             cv, fr.device_frame(k), seam_masks[k], t_full, tlx, tly,
             float(gx), float(gy), seam_scale, rh_b, rw_b,
             gain_m1=(gain_maps[k] - 1.0 if gain_maps is not None
-                     else None))
+                     else None), persp=persp,
+            h33=(np.vstack([t_full, [0.0, 0.0, 1.0]]).astype(np.float32)
+                 if persp else None))
 
     if use_tiled:
         frame_boxes = [(b[0] - x0, b[1] - y0, b[2] - x0, b[3] - y0)

@@ -55,7 +55,8 @@ def _keypoints(dev, n=200, h=96, w=160, seed=1):
 
 def _launch_counts():
     return (SK.orientation_descriptor_flat.launches, WK.warp_frame.launches,
-            WK.warp_frames.launches, WK.warp_frame.nonblack_launches)
+            WK.warp_frames.launches, WK.warp_frame.nonblack_launches,
+            WK.warp_frame.f32_launches)
 
 
 def test_cpu_calls_are_not_counted_as_launches():
@@ -67,6 +68,8 @@ def test_cpu_calls_are_not_counted_as_launches():
                       16, content=content)
         WK.warp_frames(torch.zeros((2, 16, 16, 3), dtype=torch.uint8),
                        np.stack([a23, a23]), 16, 16, content=content)
+    WK.warp_frame(torch.zeros((16, 16, 3)), a23, 16, 16)
+    WK.warp_frames(torch.zeros((2, 16, 16, 3)), np.stack([a23, a23]), 16, 16)
     assert _launch_counts() == before
 
 
@@ -292,6 +295,88 @@ def test_k2_content_mode_out_of_range_and_batched(cuda):
         frames, [WK.inverse_coeffs(a) for a in a23s], 40, 60,
         content="nonblack")
     assert torch.equal(wimgs, wp) and torch.equal(masks, mp)
+
+
+def _float_frames(dev, n=None, h=37, w=53, seed=7):
+    """Float32 BGR frames with fractional values (as area-resized frames
+    have), including values above 255 and below 0."""
+    g = torch.Generator().manual_seed(seed)
+    shape = (h, w, 3) if n is None else (n, h, w, 3)
+    return (torch.rand(shape, generator=g) * 300.0 - 20.0).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_hw", [(1, 1), (3, 5), (7, 4099), (320, 512)])
+def test_k2_float32_bit_equal_to_plain_ragged(cuda, out_hw):
+    """K2's float32 source against its plain version: output sizes whose
+    pixel count is not a multiple of 4, a rotation at canvas coordinates,
+    and a scale-down."""
+    img = _float_frames(cuda)
+    oh, ow = out_hw
+    th = math.radians(15.0)
+    n0 = WK.warp_frame.f32_launches
+    for a23 in ([[0.9, 0.05, -2.3], [-0.04, 1.1, 1.7]],
+                [[math.cos(th), -math.sin(th), 12000.5 - 11990.0],
+                 [math.sin(th), math.cos(th), -3.25]],
+                [[0.49, 0.0, 0.37], [0.0, 0.49, 1.61]]):
+        a23 = np.asarray(a23, np.float32)
+        wk, mk = WK.warp_frame(img, a23, oh, ow)
+        wp, mp = WK.warp_frame_plain(img, WK.inverse_coeffs(a23), oh, ow)
+        assert torch.equal(wk, wp) and torch.equal(mk, mp)
+    assert WK.warp_frame.f32_launches == n0 + 3
+
+
+@pytest.mark.gpu
+def test_k2_float32_all_out_of_range(cuda):
+    img = _float_frames(cuda, h=20, w=30)
+    for a23 in ([[1, 0, 500.25], [0, 1, 0]], [[1, 0, 0], [0, 1, -90.5]],
+                [[1, 0, -3.0e9], [0, 1, 3.0e9]]):
+        a23 = np.asarray(a23, np.float32)
+        wk, mk = WK.warp_frame(img, a23, 17, 23)
+        wp, mp = WK.warp_frame_plain(img, WK.inverse_coeffs(a23), 17, 23)
+        assert torch.equal(wk, wp) and torch.equal(mk, mp)
+        assert not wk.any() and not mk.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_hw", [(64, 128), (37, 53)])
+def test_k2_float32_batched_equals_per_frame(cuda, out_hw):
+    frames = _float_frames(cuda, n=5, h=120, w=200)
+    a23s = np.stack([np.asarray([[0.3, -0.01 * k, 7.31 * k],
+                                 [0.01 * k, 0.3, 1.17 * k]], np.float32)
+                     for k in range(5)])
+    oh, ow = out_hw
+    n0 = (WK.warp_frames.launches, WK.warp_frame.f32_launches)
+    wimgs, masks = WK.warp_frames(frames, a23s, oh, ow)
+    # one launch, counted by the batched wrapper and the shared f32 count
+    assert (WK.warp_frames.launches, WK.warp_frame.f32_launches) == (
+        n0[0] + 1, n0[1] + 1)
+    for k in range(5):
+        wk, mk = WK.warp_frame(frames[k], a23s[k], oh, ow)
+        assert torch.equal(wimgs[k], wk) and torch.equal(masks[k], mk)
+    wp, mp = WK.warp_frames_plain(
+        frames, [WK.inverse_coeffs(a) for a in a23s], oh, ow)
+    assert torch.equal(wimgs, wp) and torch.equal(masks, mp)
+
+
+@pytest.mark.gpu
+def test_k2_uint8_unchanged_beside_float32(cuda):
+    """A uint8 frame and its float32 copy warp to the same planes, and the
+    uint8 launches stay bit-equal to their plain version."""
+    g = torch.Generator().manual_seed(8)
+    img = torch.randint(0, 256, (300, 420, 3), generator=g,
+                        dtype=torch.uint8).to(cuda)
+    a23 = np.asarray([[0.97, -0.2, 31.5], [0.2, 0.97, -12.25]], np.float32)
+    n0 = WK.warp_frame.f32_launches
+    wu, mu = WK.warp_frame(img, a23, 320, 512)
+    assert WK.warp_frame.f32_launches == n0
+    wf, mf = WK.warp_frame(img.float(), a23, 320, 512)
+    assert WK.warp_frame.f32_launches == n0 + 1
+    wp, mp = WK.warp_frame_plain(img, WK.inverse_coeffs(a23), 320, 512)
+    assert torch.equal(wu, wp) and torch.equal(mu, mp)
+    assert torch.equal(wf, wu) and torch.equal(mf, mu)
+    with pytest.raises(ValueError):
+        WK.warp_frame(img.float(), a23, 32, 32, content="nonblack")
 
 
 @pytest.mark.gpu

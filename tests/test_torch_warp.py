@@ -64,7 +64,8 @@ def test_port_gather_matches_jax(a23):
 def test_k2_wrapper_rejects_bad_inputs():
     a = np.asarray([[1, 0, 0], [0, 1, 0]], np.float32)
     with pytest.raises(ValueError):
-        WK.warp_frame(torch.zeros((8, 8, 3)), a, 8, 8)        # not uint8
+        WK.warp_frame(torch.zeros((8, 8, 3), dtype=torch.float64), a, 8,
+                      8)                          # neither uint8 nor float32
     with pytest.raises(ValueError):
         WK.warp_frame(torch.zeros((8, 8), dtype=torch.uint8), a, 8, 8)
     with pytest.raises(ValueError):
