@@ -78,6 +78,27 @@ Phases (one line each; any failure exits nonzero and prints no result):
      shape as (b) called it (the frame, affine and window of its first
      float32 compose feed), bit-equal to its plain version and timed as
      the other K2 rows, plus its batched seam warp of (b)'s frames.
+  9. devices: the corridor (phase 4) and the multi-line pass (phase 5)
+     again over the device list [cuda:0, cuda:0] (app.stitch_frames:
+     the pair registration's chunks, the strips and the host-assembled
+     compose tiles placed over it, two tiles in flight): panorama bytes,
+     groups, strip and global transforms equal to the one-device pass,
+     and the same launch counts; walls and peak memory beside the
+     one-device pass's. With more than one card also device="cuda" (every
+     card) under the same checks; with one, a line says it did not run;
+ 10. sortie step: parallel/sortie_step over [cuda:0, cuda:0] against
+     [cuda:0] on the corridor's first 8 frames as gray at the grouper's
+     work size and feature budget: transforms within 1e-4, inlier counts
+     equal, the planted steps within 2 px, K1 launched; the canvas's
+     largest difference and the warm walls; then K1 against its plain
+     version at the step's shape (one frame, one call per frame);
+ 11. trace: one more multi-line pass under runtime/logging.device_trace
+     (torch.profiler, CPU and CUDA activity) into build/smoke_trace: the
+     file parses, it holds launches of both kernels, and its device busy
+     share (the union of the kernel, copy and memset intervals over the
+     traced wall) is in (0, 1]; its size, event count, the five device
+     operations that took the most time, the traced wall against the
+     untraced pass of phase 5, and the mosaic equal to that pass's.
 The environment line carries the JPEG codec probe (jpeglib.h, the libjpeg
 the loader sees, g++, cv2 and PIL); the build phase builds the codec from
 native/ beside the kernels and prints its library or the compiler's
@@ -693,7 +714,7 @@ def phase_slice(torch, dev, ortho, imgs, ids, pos, tuning):
     if k2_split[1] != 1:
         _fail("slice", f"seam warps took {k2_split[1]} batched launches, "
                        f"expected 1")
-    return launches, pano
+    return launches, {"res": res, "wall": wall, "peak": peak}
 
 
 def _distorted_frames(torch, dev, ortho, pos, calib):
@@ -1272,7 +1293,7 @@ def phase_multiline(torch, dev, ortho, imgs, ids, pos, tuning, first):
     for name in ("sift_orient_desc", "warp_affine"):
         if launches[name] <= 0:
             _fail("multiline", f"kernel {name} never launched")
-    return launches
+    return launches, {"res": res, "wall": wall, "peak": peak}
 
 
 def _counts_all():
@@ -1646,6 +1667,220 @@ def phase_production_cli(ortho, imgs, pos, work):
           f"peak RSS {rss:.2f} GiB", flush=True)
 
 
+def _synchronize_all(torch) -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _stitch_counted(torch, dev, fn):
+    """Run ``fn`` (a stitch) with the launch counts set to 0 just before
+    it: (its result, wall s, launch counts read just after, peak bytes on
+    ``dev``)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = fn()
+    _synchronize_all(torch)
+    wall = time.perf_counter() - t0
+    return res, wall, _counts(), torch.cuda.max_memory_allocated(dev)
+
+
+def _same_stitch(label, ref, got):
+    """Panorama bytes, groups, kept frames, every strip and global
+    transform, flips and seam methods equal to the one-device run's."""
+    a, b = ref.panorama, got.panorama
+    if a.shape != b.shape or not np.array_equal(a, b):
+        diff = (int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+                if a.shape == b.shape else "n/a")
+        _fail("devices", f"{label}: panorama {b.shape} differs from the "
+                         f"one-device run's {a.shape} (max |diff| {diff})")
+    if [g.indices for g in ref.groups] != [g.indices for g in got.groups] \
+            or ref.strip_kept != got.strip_kept:
+        _fail("devices", f"{label}: groups or kept frames differ")
+    for name in ("strip_transforms", "global_transforms"):
+        for x, y in zip(getattr(ref, name), getattr(got, name)):
+            x, y = np.asarray(x), np.asarray(y)
+            if not np.array_equal(x, y):
+                _fail("devices", f"{label}: {name} differ by "
+                                 f"{np.abs(x - y).max():.3e}")
+    if ref.flipped != got.flipped or ref.seam_methods != got.seam_methods:
+        _fail("devices", f"{label}: flips or seam methods differ")
+
+
+def phase_devices(torch, dev, label, imgs, ids, tuning, ref, ref_launches):
+    """The main path over the device list [dev, dev] (the pair
+    registration's chunks, the strips and the host-assembled compose tiles
+    placed over it, two tiles in flight) against the one-device pass
+    ``ref`` of the same frames: equal bit for bit, with the same launches.
+    With more than one card, ``device="cuda"`` (every card) too."""
+    from drone_image_stitch_cpp_tpu_torch.app import stitch_frames
+
+    def check(tag, spec):
+        res, wall, counts, peak = _stitch_counted(
+            torch, dev, lambda: stitch_frames(imgs, ids, tuning, spec))
+        _same_stitch(f"{label} {tag}", ref["res"], res)
+        for name in ("sift_orient_desc", "warp_affine"):
+            if counts[name] <= 0:
+                _fail("devices", f"{label} {tag}: kernel {name} never "
+                                 f"launched")
+            if counts[name] != ref_launches[name]:
+                _fail("devices", f"{label} {tag}: {name} launched "
+                                 f"{counts[name]} times, one device "
+                                 f"{ref_launches[name]}")
+        ph, pw = res.panorama.shape[:2]
+        print(f"[smoke] devices {label} {tag}: equal to one device "
+              f"(panorama {ph}x{pw} bytes, {len(res.strip_transforms)} "
+              f"strip and {len(res.global_transforms)} global transforms); "
+              f"wall {wall:.2f} s (one device {ref['wall']:.2f} s), peak "
+              f"{peak / 2**30:.3f} GiB on cuda:0 (one device "
+              f"{ref['peak'] / 2**30:.3f}); launches {counts}", flush=True)
+        return counts
+
+    counts = check("[cuda:0, cuda:0]", [dev, dev])
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        check(f"device='cuda' ({n_cards} cards)", "cuda")
+    else:
+        print(f"[smoke] devices {label}: the multi-card check did not run "
+              f"({n_cards} card visible)", flush=True)
+    return counts
+
+
+def phase_sortie_step(torch, dev, imgs, tuning):
+    """parallel/sortie_step over [dev, dev] against [dev] on the first 8
+    corridor frames as gray at the grouper's work size and feature
+    budget: transforms within 1e-4, inlier counts equal, the planted
+    steps recovered within 2 px; K1 launched, and held against its plain
+    version at the step's 1-frame shape."""
+    from drone_image_stitch_cpp_tpu_torch.grouping.flight_grouper import (
+        _MAX_DIM)
+    from drone_image_stitch_cpp_tpu_torch.parallel.sortie_step import (
+        build_sortie_step)
+    group_mpx = FRAME_H * FRAME_W * min(
+        1.0, (_MAX_DIM / max(FRAME_H, FRAME_W)) ** 2) / 1e6
+    gray = _k1_gray(torch, dev, imgs, group_mpx)
+    n_fr, h, w = gray.shape
+    kw = dict(max_kp=int(np.clip(tuning.strip_sift_features, 600, 1800)),
+              range_width=2, n_hyp=1024, thresh=4.0, canvas_h=512,
+              canvas_w=2048)
+    outs = {}
+    for n_dev in (1, 1, 2, 2):  # the first run of each count warms it
+        devices = [dev] * n_dev
+        step = build_sortie_step(devices, n_fr, h, w, **kw)
+        shards = [c.contiguous() for c in gray.chunk(n_dev)]
+        _zero_counts()
+        t0 = time.perf_counter()
+        out = step(shards, seed=0)
+        torch.cuda.synchronize()
+        outs[n_dev] = (out, time.perf_counter() - t0, _counts())
+    (t1, c1, i1), wall1, _ = outs[1]
+    (t2, c2, i2), wall2, counts = outs[2]
+    dt = float((t1 - t2).abs().max())
+    dc = float((c1 - c2).abs().max())
+    if dt > 1e-4:
+        _fail("sortie_step", f"transforms over [cuda:0, cuda:0] differ from "
+                             f"[cuda:0] by {dt:.3e} > 1e-4")
+    if not torch.equal(i1, i2):
+        _fail("sortie_step", f"inlier counts differ: {i1.tolist()} vs "
+                             f"{i2.tolist()}")
+    step_x = (FRAME_W * (1 - OVERLAP)) * w / FRAME_W
+    exp = torch.tensor([k * step_x for k in range(n_fr)], device=dev)
+    off = float((t2[:, 0, 2] - exp).abs().max().item())
+    if not torch.isfinite(c2).all() or off > 2.0:
+        _fail("sortie_step", f"steps off the planted {step_x:.1f} px by "
+                             f"{off:.3f} px (or the canvas is not finite)")
+    if counts["sift_orient_desc"] <= 0:
+        _fail("sortie_step", "K1 never launched")
+    # the step detects each frame on its own: K1 at a 1 x max_kp call
+    k1 = _k1_check(torch, gray[:1], "sortie step", kw["max_kp"])
+    print(f"[smoke] sortie_step: {n_fr} frames {h}x{w}, {kw['max_kp']} "
+          f"keypoints, {kw['n_hyp']} hypotheses; [cuda:0, cuda:0] vs "
+          f"[cuda:0]: transforms max |diff| {dt:.3e}, inlier counts equal "
+          f"{i2.tolist()}, canvas {tuple(c2.shape)} max |diff| {dc:.3e}; "
+          f"x steps within {off:.4f} px of the planted {step_x:.2f}; K1 "
+          f"launches {counts['sift_orient_desc']}; warm wall {wall2:.3f} s "
+          f"(one device {wall1:.3f} s)", flush=True)
+    return counts, k1
+
+
+def _union_us(intervals) -> float:
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b <= end:
+            continue
+        busy += b - max(a, end)
+        end = b
+    return busy
+
+
+def phase_trace(torch, dev, imgs, ids, tuning, ref):
+    """One warm multi-line pass under runtime/logging.device_trace into
+    build/: the trace's size and events, the device busy share (the union
+    of the CUDA kernel, copy and memset intervals over the traced wall),
+    the five device operations that took the most time, and the traced
+    wall against the untraced pass ``ref`` (the profiler's overhead)."""
+    from drone_image_stitch_cpp_tpu_torch.app import stitch_frames
+    from drone_image_stitch_cpp_tpu_torch.runtime.logging import device_trace
+    tdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "smoke_trace")
+    shutil.rmtree(tdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    _zero_counts()
+    t_all = time.perf_counter()
+    with device_trace(tdir):
+        t0 = time.perf_counter()
+        res = stitch_frames(imgs, ids, tuning, dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    export_s = time.perf_counter() - t_all - wall
+    counts = _counts()
+    files = os.listdir(tdir)
+    if len(files) != 1:
+        _fail("trace", f"expected one trace file in {tdir}, found {files}")
+    path = os.path.join(tdir, files[0])
+    size = os.path.getsize(path)
+    try:
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    except (ValueError, KeyError) as e:
+        _fail("trace", f"{files[0]} does not parse: {e}")
+    dev_ev = [e for e in events if e.get("ph") == "X" and e.get("cat") in
+              ("kernel", "gpu_memcpy", "gpu_memset")]
+    names = {e["name"] for e in dev_ev if e["cat"] == "kernel"}
+    for k in ("sift_orient_desc", "warp_affine"):
+        if not any(k in nm for nm in names):
+            _fail("trace", f"no {k} kernel in the trace")
+    busy = _union_us((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                     for e in dev_ev)
+    share = busy / (wall * 1e6)
+    if not 0.0 < share <= 1.0:
+        _fail("trace", f"device busy share {share} outside (0, 1]")
+    by_name = {}
+    for e in dev_ev:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e["dur"])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    kernel_us = sum(float(e["dur"]) for e in dev_ev if e["cat"] == "kernel")
+    same = np.array_equal(res.panorama, ref["res"].panorama)
+    if not same:
+        _fail("trace", "the traced pass's mosaic differs from the untraced "
+                       "pass's")
+    print(f"[smoke] trace: {os.path.relpath(path)} {size / 2**20:.1f} MiB, "
+          f"{len(events)} events ({len(dev_ev)} on the device: "
+          f"{sum(e['cat'] == 'kernel' for e in dev_ev)} kernels); device busy "
+          f"{busy / 1e6:.3f} s of the traced wall {wall:.2f} s: share "
+          f"{share:.4f} (kernels alone {kernel_us / 1e6:.3f} s); traced wall "
+          f"{wall:.2f} s vs the untraced pass {ref['wall']:.2f} s "
+          f"(x{wall / ref['wall']:.3f}), export {export_s:.2f} s; mosaic "
+          f"equal to the untraced pass's; launches {counts}", flush=True)
+    print("[smoke] trace top device operations (s, count): " + "; ".join(
+        f"{nm[:90]} {us / 1e6:.3f} "
+        f"{sum(e['name'] == nm for e in dev_ev)}" for nm, us in top),
+        flush=True)
+    shutil.rmtree(tdir, ignore_errors=True)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1668,8 +1903,8 @@ def main() -> int:
     k2["seam_batch"] = phase_k2_batch(torch, dev, imgs, pos, tuning)
     torch.cuda.empty_cache()
     _zero_counts()
-    launches, affine_pano = phase_slice(torch, dev, ortho, imgs, ids, pos,
-                                        tuning)
+    launches, sl_ref = phase_slice(torch, dev, ortho, imgs, ids, pos, tuning)
+    affine_pano = sl_ref["res"].panorama
     torch.cuda.empty_cache()
     fb_launches, k1["fallback_mixed"] = phase_fallback(torch, dev, ortho,
                                                        imgs, pos, tuning)
@@ -1677,6 +1912,12 @@ def main() -> int:
     kn_launches, k2["f32_source"] = phase_knobs(torch, dev, ortho, imgs, ids,
                                                 pos, tuning, affine_pano)
     del affine_pano
+    torch.cuda.empty_cache()
+    dv_sl = phase_devices(torch, dev, "single_line", imgs, ids, tuning,
+                          sl_ref, launches)
+    del sl_ref
+    st_launches, k1["sortie_step"] = phase_sortie_step(torch, dev, imgs,
+                                                       tuning)
     torch.cuda.empty_cache()
     del ortho, imgs, ids, pos
     ml_ortho, ml_imgs, ml_ids, ml_pos = render_multiline(torch, dev)
@@ -1693,9 +1934,13 @@ def main() -> int:
         pr_launches, first = phase_production(
             torch, dev, ml_ortho, ml_imgs, ml_ids, ml_pos, tuning, work)
         torch.cuda.empty_cache()
-        ml_launches = phase_multiline(torch, dev, ml_ortho, ml_imgs, ml_ids,
-                                      ml_pos, tuning, first)
+        ml_launches, ml_ref = phase_multiline(torch, dev, ml_ortho, ml_imgs,
+                                              ml_ids, ml_pos, tuning, first)
         del first
+        dv_ml = phase_devices(torch, dev, "multi_line", ml_imgs, ml_ids,
+                              tuning, ml_ref, ml_launches)
+        tr_launches = phase_trace(torch, dev, ml_imgs, ml_ids, tuning, ml_ref)
+        del ml_ref
         torch.cuda.empty_cache()
         phase_production_cli(ml_ortho, ml_imgs, ml_pos, work)
     finally:
@@ -1703,7 +1948,9 @@ def main() -> int:
     del ml_ortho, ml_imgs
     paths = {"single_line": launches, "multi_line": ml_launches,
              "fallback": fb_launches, "production": pr_launches,
-             "knobs": kn_launches}
+             "knobs": kn_launches, "devices_single_line": dv_sl,
+             "devices_multi_line": dv_ml, "sortie_step": st_launches,
+             "trace": tr_launches}
     k1["launches"] = sum(c["sift_orient_desc"] for c in paths.values())
     k2["launches"] = sum(c["warp_affine"] for c in paths.values())
     k1["launches_by_path"] = {
@@ -1717,7 +1964,8 @@ def main() -> int:
                                   for p, c in paths.items()}
     k1["max_abs_err"] = max(k1["max_abs_err"],
                             k1["global_detect"]["max_abs_err"],
-                            k1["fallback_mixed"]["max_abs_err"])
+                            k1["fallback_mixed"]["max_abs_err"],
+                            k1["sortie_step"]["max_abs_err"])
     for d in (k1, k2):
         d["registers"], d["spill_bytes"] = ptxas[d["source"].split("/")[-1]]
         d["card"] = card

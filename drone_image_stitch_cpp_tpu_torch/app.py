@@ -25,6 +25,14 @@ global stage streams the mosaic's row bands into the incremental JPEG
 encoder when the codec is built (``utils/native``), else the mosaic is
 written after the blend.
 
+The run's device spec resolves to a device list
+(``runtime/device.resolve_devices``: ``cuda`` is every visible card,
+``cuda:N`` one, ``cpu`` the CPU, or a list), the JAX package's mesh over
+all chips of a host (app.py:183-195, 270-295): the pair registration's
+chunks and the host-assembled compose tiles spread over the list, strip
+gi stitches on ``devices[gi % N]``, and the global stage runs on
+``devices[0]``. One device runs the single-device path unchanged.
+
 Not ported: the JAX package's degrade-to-CPU ladder: a fault on the card
 ends the run with exit 1 and a ``[Main] FATAL`` line, never a silent CPU
 re-run; ``--resume`` is the recovery.
@@ -48,7 +56,8 @@ from .ops.warp import remap
 from .pipeline.global_ import stitch_inter_strips_custom
 from .pipeline.strip import stitch_strip
 from .runtime.checkpoint import load_strip_checkpoint, save_strip_checkpoint
-from .runtime.device import describe_device, device_sync, resolve_device
+from .runtime.device import (describe_device, device_sync, resolve_device,
+                             resolve_devices)
 from .runtime.feed import FrameStore, FrameStoreError
 from .runtime.handoff import DeviceStrip, as_host_strips
 from .runtime.loader import load_with_ids, scan_with_ids
@@ -65,7 +74,7 @@ class RunConfig:
     image_type: str = "visible"
     group: str = "minfull"
     output_root: str = "../output"
-    device: str = "cuda"
+    device: object = "cuda"       # cuda (every card), cuda:N, cpu, a list
     save_strips: bool = True      # strips/strip_XX.jpg per flight line
     resume: bool = False          # global stage from the strip checkpoint
     tuning_overrides: dict = field(default_factory=dict)
@@ -131,9 +140,15 @@ def stitch_frames(images: Optional[List[np.ndarray]], ids: List[str],
 
     One flight line: one strip stitch. Several: one strip stitch per line
     (each panorama kept on the device when its canvas is tiled), then the
-    global inter-strip stage. ``store``: a ``FrameStore`` holding the
-    frames (e.g. a streaming one; ``images`` is then None), else one is
-    made from ``images``. ``on_strip(gi, pano, last)``: called after each
+    global inter-strip stage. ``device``: a device spec or list
+    (``runtime/device.resolve_devices``); the frames, grouping and the
+    global stage live on the first device, strip gi stitches on
+    ``devices[gi % N]`` (reading its frames with one device-to-device
+    copy when that is another card), and the pair registration and the
+    host-assembled compose tiles spread over the list. ``store``: a
+    ``FrameStore`` holding the frames on the first device (e.g. a
+    streaming one; ``images`` is then None), else one is made from
+    ``images``. ``on_strip(gi, pano, last)``: called after each
     strip of a multi-line sortie with its cropped panorama (a host array
     or a :class:`DeviceStrip`), ``last`` on the final strip, before the
     global stage. ``row_sink``: passed to the global stage (streamed
@@ -141,7 +156,8 @@ def stitch_frames(images: Optional[List[np.ndarray]], ids: List[str],
     card that is not there, FrameStoreError when a streamed frame does
     not decode, StripStitchError or GlobalStitchError when a stage fails.
     """
-    dev = resolve_device(device)
+    devices = resolve_devices(device)
+    dev = devices[0]
     log = get_logger()
     sync = device_sync(dev)
     if store is None:
@@ -159,7 +175,7 @@ def stitch_frames(images: Optional[List[np.ndarray]], ids: List[str],
         with log.timer("Main", "single-group stitch", sync=sync):
             pano = stitch_strip(
                 None, strip_tuning, stage="Single",
-                range_width_override=tuning.range_width, device=dev,
+                range_width_override=tuning.range_width, device=devices,
                 store=store, indices=flat_idx, info=info)
         return StitchResult(
             panorama=auto_crop_black_border(pano), groups=groups,
@@ -169,14 +185,23 @@ def stitch_frames(images: Optional[List[np.ndarray]], ids: List[str],
 
     strips, strip_kept, strip_tf = [], [], []
     for gi, g in enumerate(groups):
+        # strip gi on devices[gi % N], its registration spread over the
+        # list starting there (app.py:270-295)
+        k = gi % len(devices)
+        own = devices[k:] + devices[:k]
+        s_store, s_idx = store, list(g.indices)
+        if own[0] != store.device:
+            s_store, s_idx = store.subset(s_idx, own[0]), list(
+                range(len(s_idx)))
         info = {}
-        with log.timer(f"Strip{gi}", "stitch", sync=sync):
+        with log.timer(f"Strip{gi}", "stitch", sync=device_sync(own[0])):
             pano = stitch_strip(
                 None, strip_tuning, stage=f"Strip{gi}",
                 range_width_override=tuning.range_width,
-                image_tags=make_strip_tags(gi, g.ids), device=dev,
-                store=store, indices=list(g.indices), info=info,
+                image_tags=make_strip_tags(gi, g.ids), device=own,
+                store=s_store, indices=s_idx, info=info,
                 return_device=True)
+        del s_store
         if not isinstance(pano, DeviceStrip):
             # a one-frame line comes back as the raw frame (composed host
             # strips are cropped already: the check is then O(perimeter))
@@ -190,7 +215,7 @@ def stitch_frames(images: Optional[List[np.ndarray]], ids: List[str],
     ginfo: dict = {}
     with log.timer("Main", "global compose", sync=sync):
         mosaic = stitch_inter_strips_custom(strips, global_tuning(tuning),
-                                            device=dev, info=ginfo,
+                                            device=devices, info=ginfo,
                                             row_sink=row_sink)
     return StitchResult(
         panorama=mosaic, groups=groups, strip_kept=strip_kept,
@@ -276,12 +301,15 @@ def run_stitch_application(cfg: Optional[RunConfig] = None) -> int:
     log = get_logger()
     writer = sink = None
     try:
-        dev = resolve_device(cfg.device)
+        devices = resolve_devices(cfg.device)
+        dev = devices[0]
         tuning = load_stitch_tuning(cfg.image_type)
         if cfg.tuning_overrides:
             tuning = tuning.replace(**cfg.tuning_overrides)
         os.makedirs(cfg.output_dir, exist_ok=True)
         log.log("Main", "device", **describe_device(dev))
+        if len(devices) > 1:
+            log.log("Main", "mesh", devices=len(devices))
         log.log("Main", "tuning", **tuning_as_dict(tuning))
         if jpeg_encoder_available():
             # the mosaic's row bands stream into the incremental encoder
@@ -295,7 +323,7 @@ def run_stitch_application(cfg: Optional[RunConfig] = None) -> int:
                     strips=len(strips))
             with log.timer("Main", "global compose", sync=device_sync(dev)):
                 panorama = stitch_inter_strips_custom(
-                    strips, global_tuning(tuning), device=dev,
+                    strips, global_tuning(tuning), device=devices,
                     row_sink=sink)
         else:
             with log.timer("Main", "scan"):
@@ -340,8 +368,9 @@ def run_stitch_application(cfg: Optional[RunConfig] = None) -> int:
                         cfg.strips_dir, as_host_strips(done)))
 
             try:
-                result = stitch_frames(images, ids, tuning, dev, store=store,
-                                       on_strip=on_strip, row_sink=sink)
+                result = stitch_frames(images, ids, tuning, devices,
+                                       store=store, on_strip=on_strip,
+                                       row_sink=sink)
             except FrameStoreError as e:
                 # an unreadable or mismatched frame: recover with the eager
                 # loader (skip-unreadable, image_loader.cpp:52-59)
@@ -353,7 +382,7 @@ def run_stitch_application(cfg: Optional[RunConfig] = None) -> int:
                     return 1
                 images, ids = eager
                 done.clear()
-                result = stitch_frames(images, ids, tuning, dev,
+                result = stitch_frames(images, ids, tuning, devices,
                                        on_strip=on_strip, row_sink=sink)
             panorama = result.panorama
             if store is not None:

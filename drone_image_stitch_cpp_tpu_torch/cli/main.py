@@ -1,9 +1,10 @@
 """Command-line interface of the PyTorch port.
 
 The JAX CLI's flags that the ported path uses (folder, type, group,
-output root, ``--no-save-strips``, ``--resume``, JSONL log, every
-StitchTuning knob by its field name, e.g. ``--global-sift-features``) plus
-``--device`` (default ``cuda``; ``cuda`` without a visible card is an
+output root, ``--no-save-strips``, ``--resume``, JSONL log,
+``--trace-dir``, every StitchTuning knob by its field name, e.g.
+``--global-sift-features``) plus ``--device`` (default ``cuda``: every
+visible card; ``cuda:N`` one card; ``cuda`` without a visible card is an
 error, never a silent CPU run). The camera calibration is not a flag, as
 in the JAX CLI: pass it through ``RunConfig.tuning_overrides``.
 
@@ -51,9 +52,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="resume the global stage from the strip checkpoint")
     p.add_argument("--device", default="cuda",
-                   help="torch device (cuda, cuda:N or cpu)")
+                   help="cuda (every visible card), cuda:N (one) or cpu")
     p.add_argument("--log-jsonl", default=None,
                    help="structured log sink (JSONL)")
+    p.add_argument("--trace-dir", default=None,
+                   help="torch.profiler Chrome trace output directory")
     defaults = StitchTuning()
     for f in _knob_fields():
         flag = "--" + f.name.replace("_", "-")
@@ -71,7 +74,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     from ..app import RunConfig, run_stitch_application
-    from ..runtime.logging import get_logger
+    from ..runtime.logging import device_trace, get_logger
 
     overrides = {f.name: getattr(args, f.name) for f in _knob_fields()
                  if getattr(args, f.name) is not None}
@@ -82,7 +85,8 @@ def main(argv=None) -> int:
                     output_root=args.output_root, device=args.device,
                     save_strips=not args.no_save_strips, resume=args.resume,
                     tuning_overrides=overrides)
-    return run_stitch_application(cfg)
+    with device_trace(args.trace_dir):
+        return run_stitch_application(cfg)
 
 
 if __name__ == "__main__":

@@ -25,6 +25,7 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..runtime.device import placement
 from .gaussian import collapse_laplacian, gaussian_pyramid, pyr_up
 
 
@@ -240,7 +241,7 @@ FeedTile = Callable[[MultiBandCanvas, int, int, int, int, int],
 
 def mb_compose_tiled(canvas_h: int, canvas_w: int, bands: int,
                      frame_boxes: Sequence[Tuple[float, float, float, float]],
-                     feed_tile: FeedTile, device: torch.device,
+                     feed_tile: FeedTile, device,
                      tile: Optional[int] = None, assemble: str = "host",
                      on_rows: Optional[Callable[[int, int, np.ndarray],
                                                 None]] = None):
@@ -254,10 +255,16 @@ def mb_compose_tiled(canvas_h: int, canvas_w: int, bands: int,
     Returns ``(mosaic, bbox)``. ``assemble="host"``: the mosaic is the
     (canvas_h, canvas_w, 3) uint8 numpy array (one device-to-host copy of
     each tile's core); ``assemble="device"``: every blended core stays on
-    the device in a (CH, CW, 3) uint8 canvas with EXT_SNAP-snapped dims
+    ``device`` in a (CH, CW, 3) uint8 canvas with EXT_SNAP-snapped dims
     (content in [0, canvas_h) x [0, canvas_w), zeros beyond). ``bbox``:
     the exact autocrop box (y0, y1, x0, x1), exclusive ends, from the
     cores' device content flags (None when the canvas is empty).
+
+    ``device``: one device, or (host assembly only; ops/blend.py:262-284
+    of the JAX package) a list of N: tile t blends on ``device[t % N]``
+    and at most N tiles are in flight, each tile's core fetched once N
+    later tiles were queued; the tiles are independent (the halo makes
+    tiling exact), so the mosaic does not depend on N.
 
     ``on_rows(y0, y1, rows)`` (host assembly only): called in increasing y
     once every tile of a tile row has landed (empty tiles included), with
@@ -267,15 +274,17 @@ def mb_compose_tiled(canvas_h: int, canvas_w: int, bands: int,
     if assemble not in ("host", "device"):
         raise ValueError(f"assemble must be 'host' or 'device', got "
                          f"{assemble!r}")
-    if assemble == "device" and on_rows is not None:
-        raise ValueError("assemble='device' does not support on_rows")
+    devices = placement(device)
+    if assemble == "device" and (on_rows is not None or len(devices) > 1):
+        raise ValueError("assemble='device' supports neither on_rows nor "
+                         "a device list")
     bands = tiled_bands(canvas_h, canvas_w, bands, tile)
     tiles, _ = mb_tile_grid(canvas_h, canvas_w, bands, tile)
     g = 1 << bands
     if assemble == "device":
         out = torch.zeros((align_up(canvas_h, max(g, EXT_SNAP)),
                            align_up(canvas_w, max(g, EXT_SNAP)), 3),
-                          dtype=torch.uint8, device=device)
+                          dtype=torch.uint8, device=devices[0])
     else:
         out = np.zeros((canvas_h, canvas_w, 3), np.uint8)
     flags = []
@@ -285,30 +294,44 @@ def mb_compose_tiled(canvas_h: int, canvas_w: int, bands: int,
         left[(t[0], t[1])] = left.get((t[0], t[1]), 0) + 1
     bands_y = sorted(left)
     next_band = 0
-    for cy0, cy1, cx0, cx1, ey0, ey1, ex0, ex1 in tiles:
-        sel = [i for i, (fx0, fy0, fx1, fy1) in enumerate(frame_boxes)
-               if not (fx1 <= ex0 or fx0 >= ex1 or fy1 <= ey0
-                       or fy0 >= ey1)]
-        if sel:                 # an empty tile's rows stay zero
-            eh, ew = ey1 - ey0, ex1 - ex0
-            canvas_t = mb_prepare(eh, ew, bands, device)
-            for i in sel:
-                canvas_t = feed_tile(canvas_t, i, ey0, ex0, eh, ew)
-            win, rows, cols = _blend_core(
-                canvas_t, eh, ew,
-                (cy0 - ey0, cy1 - ey0, cx0 - ex0, cx1 - ex0))
-            del canvas_t
+    pending = []        # blended tiles whose cores are not fetched yet
+
+    def land(cy0, cy1, cx0, cx1, win=None, rows=None, cols=None):
+        nonlocal next_band
+        if win is not None:
             if assemble == "device":
                 out[cy0:cy1, cx0:cx1] = win
             else:
                 out[cy0:cy1, cx0:cx1] = win.cpu().numpy()
-            flags.append((cy0, cx0, rows, cols))
+            flags.append((cy0, cx0, rows.to(devices[0]),
+                          cols.to(devices[0])))
         left[(cy0, cy1)] -= 1
         while (on_rows is not None and next_band < len(bands_y)
                and left[bands_y[next_band]] == 0):
             y0, y1 = bands_y[next_band]
             on_rows(y0, y1, out[y0:y1])
             next_band += 1
+
+    for t_idx, (cy0, cy1, cx0, cx1, ey0, ey1, ex0, ex1) in \
+            enumerate(tiles):
+        sel = [i for i, (fx0, fy0, fx1, fy1) in enumerate(frame_boxes)
+               if not (fx1 <= ex0 or fx0 >= ex1 or fy1 <= ey0
+                       or fy0 >= ey1)]
+        if not sel:             # an empty tile's rows stay zero
+            land(cy0, cy1, cx0, cx1)
+            continue
+        eh, ew = ey1 - ey0, ex1 - ex0
+        canvas_t = mb_prepare(eh, ew, bands,
+                              devices[t_idx % len(devices)])
+        for i in sel:
+            canvas_t = feed_tile(canvas_t, i, ey0, ex0, eh, ew)
+        pending.append((cy0, cy1, cx0, cx1) + _blend_core(
+            canvas_t, eh, ew, (cy0 - ey0, cy1 - ey0, cx0 - ex0, cx1 - ex0)))
+        del canvas_t
+        while len(pending) >= len(devices):
+            land(*pending.pop(0))
+    for entry in pending:
+        land(*entry)
     return out, _bbox_from_flags(flags, canvas_h, canvas_w)
 
 

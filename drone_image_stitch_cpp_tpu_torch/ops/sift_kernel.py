@@ -183,11 +183,14 @@ def _launch(gauss, radius, layer, yf, xf, sigma, true_h, true_w):
     l_, h_, w_ = gauss.shape
     angle = torch.empty((n,), dtype=torch.float32, device=gauss.device)
     desc = torch.empty((n, 128), dtype=torch.float32, device=gauss.device)
-    err = fn(gauss.data_ptr(), l_, h_, w_, radius.data_ptr(),
-             layer.data_ptr(), yf.data_ptr(),
-             xf.data_ptr(), sigma.data_ptr(), true_h.data_ptr(),
-             true_w.data_ptr(), angle.data_ptr(), desc.data_ptr(), n,
-             stream_handle(gauss.device))
+    # the C entry point opts in to its shared memory and launches on the
+    # calling thread's current device: make that the tensors' card
+    with torch.cuda.device(gauss.device):
+        err = fn(gauss.data_ptr(), l_, h_, w_, radius.data_ptr(),
+                 layer.data_ptr(), yf.data_ptr(),
+                 xf.data_ptr(), sigma.data_ptr(), true_h.data_ptr(),
+                 true_w.data_ptr(), angle.data_ptr(), desc.data_ptr(), n,
+                 stream_handle(gauss.device))
     if err != 0:
         raise RuntimeError(f"sift_orient_desc launch failed: cudaError {err}")
     return angle, desc

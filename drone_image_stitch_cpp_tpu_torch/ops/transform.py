@@ -16,6 +16,11 @@ def affine_to_h3(a23: torch.Tensor) -> torch.Tensor:
     return torch.cat([a23, bottom], dim=-2)
 
 
+def compose_affine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The (2, 3) affine equal to applying ``b`` then ``a``."""
+    return (affine_to_h3(a) @ affine_to_h3(b))[..., :2, :]
+
+
 def invert_affine(a23: torch.Tensor) -> torch.Tensor:
     """Invert a (..., 2, 3) affine transform."""
     inv_lin = torch.linalg.inv(a23[..., :, :2])

@@ -151,9 +151,10 @@ def _launch(src: torch.Tensor, nf: int, invs, out_h: int, out_w: int,
     else:
         table, coeffs = None, invs
     mode = () if f32 else (int(content == "nonblack"),)
-    err = fn(src.data_ptr(), h * w * 3, h, w, table, *coeffs, *mode,
-             wimg.data_ptr(), mask.data_ptr(), out_h, out_w, nf,
-             stream_handle(dev))
+    with torch.cuda.device(dev):    # <<<>>> binds to the current device
+        err = fn(src.data_ptr(), h * w * 3, h, w, table, *coeffs, *mode,
+                 wimg.data_ptr(), mask.data_ptr(), out_h, out_w, nf,
+                 stream_handle(dev))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     return wimg, mask

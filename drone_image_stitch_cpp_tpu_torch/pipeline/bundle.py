@@ -6,8 +6,8 @@ similarity model the residuals T_i(p) - T_j(q) are linear in the stacked
 (a, b, tx, ty) parameters, so the adjust is a weighted linear
 least-squares solve of one (4N, 4N) system, gauge-fixed by a strong prior
 pinning frame 0 and a weak pull toward the chain initialisation, with one
-IRLS re-weighting of edges (Cauchy on the per-edge RMS residual). All in
-float32 on Hartley-normalised coordinates.
+IRLS re-weighting of edges (Cauchy on the per-edge RMS residual), on
+Hartley-normalised coordinates.
 """
 
 from __future__ import annotations
@@ -44,14 +44,14 @@ def _jac_blocks(pts: torch.Tensor) -> torch.Tensor:
 def normal_equations(pair_idx: torch.Tensor, pts_a: torch.Tensor,
                      pts_b: torch.Tensor, w: torch.Tensor, n: int):
     """(4N, 4N) AtA and (4N,) Atb for a set of pairs (scatter-add of the
-    per-pair 4x4 blocks)."""
+    per-pair 4x4 blocks), in the dtype of ``w``."""
     ja = _jac_blocks(pts_a)          # (P, K, 2, 4)
     jb = -_jac_blocks(pts_b)
 
     def blk(u, v):
         return torch.einsum("pkra,pkrb,pk->pab", u, v, w)
 
-    ata = torch.zeros((n, 4, n, 4), dtype=torch.float32, device=w.device)
+    ata = torch.zeros((n, 4, n, 4), dtype=w.dtype, device=w.device)
     i_idx = pair_idx[:, 0]
     j_idx = pair_idx[:, 1]
     for (r, c), b in (((i_idx, i_idx), blk(ja, ja)),
@@ -62,14 +62,14 @@ def normal_equations(pair_idx: torch.Tensor, pts_a: torch.Tensor,
         view = ata.permute(0, 2, 1, 3)            # (n, n, 4, 4)
         view.index_put_((r, c), b, accumulate=True)
     return (ata.reshape(n * 4, n * 4),
-            torch.zeros((n * 4,), dtype=torch.float32, device=w.device))
+            torch.zeros((n * 4,), dtype=w.dtype, device=w.device))
 
 
 def solve_with_priors(ata: torch.Tensor, atb: torch.Tensor,
                       init_params: torch.Tensor) -> torch.Tensor:
     """Apply the gauge priors and solve; returns (N, 2, 3) transforms."""
     n = init_params.shape[0]
-    prior_w = torch.full((n,), _INIT_WEIGHT, dtype=torch.float32,
+    prior_w = torch.full((n,), _INIT_WEIGHT, dtype=ata.dtype,
                          device=ata.device)
     prior_w[0] = _PIN_WEIGHT
     prior_diag = prior_w.repeat_interleave(4)
@@ -81,16 +81,28 @@ def solve_with_priors(ata: torch.Tensor, atb: torch.Tensor,
 
 def bundle_adjust_similarity(pair_idx: torch.Tensor, pts_a: torch.Tensor,
                              pts_b: torch.Tensor, w: torch.Tensor,
-                             init_params: torch.Tensor) -> torch.Tensor:
+                             init_params: torch.Tensor,
+                             dtype: torch.dtype = torch.float64
+                             ) -> torch.Tensor:
     """Per-frame similarity transforms from pairwise matches.
 
     pair_idx (P, 2) long; pts_a/pts_b (P, K, 2); w (P, K) match weights;
     init_params (N, 4). Returns (N, 2, 3) frame->reference transforms.
     Coordinates are centred/scaled to O(1) before the system is built
     (raw 4K-pixel coordinates give a condition number ~1e7 in float32)
-    and the result is conjugated back.
+    and the result is conjugated back. The system is built and solved in
+    ``dtype``, by default float64 (the JAX package's is float32): the 1e8
+    pin on frame 0 against per-pair weights of a few hundred gives it a
+    condition number near 1e8, so in float32 the last frames of a
+    12-frame 4K line moved by up to 1.8 px with the summation order alone
+    (the CPU's thread count, or the card against the CPU, on the same
+    matches); ``studies/corridor_gt_rmse.py`` passes float32 to measure
+    what that does to the panorama.
     """
     n = init_params.shape[0]
+    out_dtype = init_params.dtype
+    pts_a, pts_b, w, init_params = (
+        a.to(dtype) for a in (pts_a, pts_b, w, init_params))
     wsum = w.sum().clamp(min=1e-6)
     c = ((pts_a * w[..., None]).sum(dim=(0, 1))
          + (pts_b * w[..., None]).sum(dim=(0, 1))) / (2.0 * wsum)
@@ -136,4 +148,5 @@ def bundle_adjust_similarity(pair_idx: torch.Tensor, pts_a: torch.Tensor,
     an, bn = t_n[:, 0, 0], t_n[:, 1, 0]
     txf = -an * c[0] + bn * c[1] + s * t_n[:, 0, 2] + c[0]
     tyf = -bn * c[0] - an * c[1] + s * t_n[:, 1, 2] + c[1]
-    return affine_from_params(torch.stack([an, bn, txf, tyf], dim=-1))
+    return affine_from_params(torch.stack([an, bn, txf, tyf], dim=-1)
+                              ).to(out_dtype)

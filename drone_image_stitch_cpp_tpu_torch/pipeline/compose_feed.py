@@ -70,9 +70,14 @@ def feed_frame(cv: B.MultiBandCanvas, img: torch.Tensor,
     "strip" or "global" (see the module doc); ``chan_gain``: optional host
     (3,) gains; ``persp`` (strip mode, the perspective warper): warp the
     frame and an all-ones mask with ``warp_perspective`` by the host
-    (3, 3) ``h33`` (compose_feed.py:82-88) instead of K2.
+    (3, 3) ``h33`` (compose_feed.py:82-88) instead of K2. The frame and
+    its surfaces are read on ``cv``'s device (a copy when a tiled compose
+    placed the tile on another card).
     """
-    dev = img.device
+    dev = cv.wacc[0].device
+    img, seam_mask = img.to(dev), seam_mask.to(dev)
+    if gain_m1 is not None:
+        gain_m1 = gain_m1.to(dev)
     content, cthresh = _MODES[mode]
     if persp:
         if mode != "strip":

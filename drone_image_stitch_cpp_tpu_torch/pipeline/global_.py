@@ -21,8 +21,10 @@ Port of ``drone_image_stitch_cpp_tpu/pipeline/global_.py``
 Every strip lives on the device once, as uint8 padded to the common
 512-snapped size: that size sets the align detect's work scale and the
 edge clamp of its work image, so it is kept from the JAX package. The
-JAX package's extra shape-bucket pad of the detect image and its mesh are
-not ported.
+JAX package's extra shape-bucket pad of the detect image is not ported;
+its mesh is a device list here: strips handed over from other cards are
+copied onto the stage's device after their padding on their own card,
+and the tiled blend spreads its tiles over the list.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ from ..ops.color import bgr_to_gray, content_mask
 from ..ops.crop import auto_crop_black_border
 from ..ops.resize import resize_area, scale_for_max_dim
 from ..ops.warp import warp_affine, warp_content_mask
-from ..runtime.device import device_sync, resolve_device
+from ..runtime.device import device_sync, placement, resolve_device
 from ..runtime.handoff import DeviceStrip
 from ..runtime.logging import get_logger
 from . import compose_feed as CF
@@ -268,6 +270,11 @@ def stitch_inter_strips_custom(strips: List, tuning: Optional[StitchTuning]
     contains the exact autocrop box. A sink whose ``begin`` fails is logged
     ("streamed write unavailable") and left unused; the caller then crops
     and writes the returned mosaic.
+
+    ``device`` may be a list of devices (``runtime/device.placement``;
+    the JAX package's mesh, global_.py:358, 608-612): every strip is
+    pulled onto the first, where the stage runs, and a tiled blend
+    spreads its tiles over the list.
     """
     log = get_logger()
     tuning = tuning or StitchTuning()
@@ -280,7 +287,8 @@ def stitch_inter_strips_custom(strips: List, tuning: Optional[StitchTuning]
             raise ValueError("stitch_inter_strips_custom: pass a device for "
                              "host strips")
         device = devs[0]
-    dev = torch.device(device)
+    devices = placement(device)
+    dev = devices[0]
     sync = device_sync(dev)
 
     # ONE padded uint8 device copy per strip, shared by the align detect,
@@ -445,7 +453,7 @@ def stitch_inter_strips_custom(strips: List, tuning: Optional[StitchTuning]
                     log.log(_STAGE, "streamed write unavailable",
                             error=str(err))
             out, bbox = B.mb_compose_tiled(canvas_h, canvas_w, bands,
-                                           frame_boxes, feed_roi, dev,
+                                           frame_boxes, feed_roi, devices,
                                            on_rows=on_rows)
             if on_rows is not None:
                 try:

@@ -1,17 +1,17 @@
 """Batched pairwise registration over a pair schedule.
 
-Port of ``drone_image_stitch_cpp_tpu/pipeline/pairgraph.py`` without the
-device mesh: the banded schedule |i - j| <= range_width
+Port of ``drone_image_stitch_cpp_tpu/pipeline/pairgraph.py``: the banded
+schedule |i - j| <= range_width
 (stitch_robust.cpp:190-197), the grouper's gaps 1..3 graph
 (visual_flight_grouper.cpp:349-377), match + similarity RANSAC for a chunk
-of pairs as one batch, BestOf2Nearest confidence, and the host-side
-component / chain-initialisation helpers.
+of pairs as one batch (chunks spread over a device list), BestOf2Nearest
+confidence, and the host-side component / chain-initialisation helpers.
 """
 
 from __future__ import annotations
 
 import heapq
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -19,6 +19,7 @@ import torch
 from ..ops import match as M
 from ..ops import ransac as R
 from ..ops.features import Features
+from ..runtime.device import placement
 
 
 class PairGraph(NamedTuple):
@@ -62,37 +63,50 @@ def sample_banks(n_pairs: int, n_hyp: int, seed: int) -> torch.Tensor:
 def register_pairs(feats: Features, pairs: List[Tuple[int, int]],
                    ratio: float, thresh: float, n_hyp: int = 1024,
                    chunk: int = 16, seed: int = 0,
-                   banks: Optional[torch.Tensor] = None) -> PairGraph:
+                   banks: Optional[torch.Tensor] = None,
+                   devices: Optional[Sequence[torch.device]] = None
+                   ) -> PairGraph:
     """Match + similarity RANSAC for every (i, j) in ``pairs``.
 
     ``feats``: batched Features (leading frame axis); ``thresh`` is in
     feats.xy units. ``banks``: optional (P, n_hyp, 2) sample integers
     (default :func:`sample_banks` with ``seed``). Pairs run ``chunk`` at a
     time to bound the (chunk, n_hyp, K) residual bank.
+
+    ``devices`` (pairgraph.py:82-121's mesh): chunk c runs on
+    ``devices[c % N]`` and its results come back to ``devices[0]`` in pair
+    order. Each chunk keeps ``chunk`` pairs and each pair its own bank, so
+    every chunk has the single-device shapes and the results do not
+    depend on N. The features live on ``devices[0]`` (default: their
+    device alone).
     """
     p = len(pairs)
     if p == 0:
         raise ValueError("register_pairs: empty pair schedule")
     pa = np.asarray(pairs, np.int64)
-    dev = feats.desc.device
+    devices = placement(devices, feats.desc.device)
+    home = devices[0]
     if banks is None:
         banks = sample_banks(p, n_hyp, seed)
-    banks = banks.to(dev)
+    banks = banks.to(home)
     outs = []
-    for c0 in range(0, p, chunk):
-        ii = torch.from_numpy(pa[c0:c0 + chunk, 0]).to(dev)
-        jj = torch.from_numpy(pa[c0:c0 + chunk, 1]).to(dev)
-        m = M.knn2_ratio(feats.desc[ii], feats.valid[ii], feats.desc[jj],
-                         feats.valid[jj], ratio)
-        src, dst, good = M.gather_correspondences(feats.xy[ii],
-                                                  feats.xy[jj], m)
-        res = R.ransac_similarity(src, dst, good, banks[c0:c0 + chunk],
-                                  thresh)
+    for c, c0 in enumerate(range(0, p, chunk)):
+        dev = devices[c % len(devices)]
+        ii = torch.from_numpy(pa[c0:c0 + chunk, 0]).to(feats.desc.device)
+        jj = torch.from_numpy(pa[c0:c0 + chunk, 1]).to(feats.desc.device)
+        da, va, xa, db, vb, xb = (a.to(dev) for a in (
+            feats.desc[ii], feats.valid[ii], feats.xy[ii], feats.desc[jj],
+            feats.valid[jj], feats.xy[jj]))
+        m = M.knn2_ratio(da, va, db, vb, ratio)
+        src, dst, good = M.gather_correspondences(xa, xb, m)
+        res = R.ransac_similarity(src, dst, good,
+                                  banks[c0:c0 + chunk].to(dev), thresh)
         n_good = good.sum(dim=-1)
         conf = M.pair_confidence(res.n_inliers.to(torch.float32),
                                  n_good.to(torch.float32))
-        outs.append((res.model, n_good, res.n_inliers, conf, res.ok, src,
-                     dst, res.inliers.to(torch.float32)))
+        outs.append(tuple(a.to(home) for a in (
+            res.model, n_good, res.n_inliers, conf, res.ok, src, dst,
+            res.inliers.to(torch.float32))))
     model, n_good, n_inl, conf, ok, src, dst, w = (
         torch.cat([o[f] for o in outs]) for f in range(8))
     return PairGraph(pairs=pa, model=model, n_good=n_good, n_inliers=n_inl,

@@ -47,7 +47,7 @@ from ..ops.resize import resize_area, scale_for_megapixels
 from ..ops.ransac import find_homography
 from ..ops.warp import warp_perspective
 from ..ops.warp_kernel import warp_frame, warp_frames
-from ..runtime.device import device_sync
+from ..runtime.device import device_sync, placement
 from ..runtime.handoff import DeviceStrip
 from ..runtime.logging import get_logger
 from . import compose_feed as CF
@@ -118,22 +118,26 @@ def estimate_strip_transforms(images: Optional[List[np.ndarray]],
                               tuning: StitchTuning,
                               range_width: Optional[int] = None,
                               stage: str = "Strip", seed: int = 0,
-                              device: Optional[torch.device] = None,
-                              store=None,
+                              device=None, store=None,
                               indices: Optional[List[int]] = None,
                               matching_mask: Optional[np.ndarray] = None):
     """Registration: features -> pair graph (banded, all pairs, or the
     pairs ``matching_mask`` marks) -> component -> BA.
 
     Returns (kept_indices, transforms (n_kept, 2, 3) float32 frame->frame0
-    numpy, graph).
+    numpy, graph). ``device``: a device, or a list of them
+    (``runtime/device.placement``; default the store's): the pair
+    registration's chunks spread over the list
+    (:func:`pairgraph.register_pairs`); detect and the bundle adjust run
+    on its first device, where the frames are.
     """
     log = get_logger()
+    devices = placement(device, None if store is None else store.device)
     n = len(images) if images is not None else len(indices)
     rw = range_width if range_width is not None else tuning.range_width
     feats, scale = detect_features(images, tuning.sift_features,
                                    tuning.registration_resol_mpx,
-                                   device=device, store=store,
+                                   device=devices[0], store=store,
                                    indices=indices)
     if matching_mask is not None:
         pairs = [(i, j) for i in range(n) for j in range(i + 1, n)
@@ -145,7 +149,7 @@ def estimate_strip_transforms(images: Optional[List[np.ndarray]],
     if not pairs:
         raise StripStitchError(f"{stage}: empty pair schedule")
     graph = register_pairs(feats, pairs, _LOWE_RATIO, thresh=4.0 / scale,
-                           seed=seed)
+                           seed=seed, devices=devices)
     conf = graph.conf.cpu().numpy()
     ok = graph.ok.cpu().numpy()
     keep = ok & (conf >= tuning.pano_conf_thresh)
@@ -239,7 +243,7 @@ def _axes_from_transforms(transforms: np.ndarray) -> List[str]:
 def compose_strip(images: Optional[List[np.ndarray]],
                   transforms: np.ndarray, tuning: StitchTuning,
                   stage: str = "Strip",
-                  device: Optional[torch.device] = None, store=None,
+                  device=None, store=None,
                   indices: Optional[List[int]] = None,
                   return_device: bool = False):
     """Seam-scale warps + gains + DP seams + multiband blend at
@@ -255,9 +259,15 @@ def compose_strip(images: Optional[List[np.ndarray]],
     area-resized on the device and stay float32, the transforms are
     rescaled, and the seam scale is taken relative to the resized frames.
     ``use_affine_warper=False`` warps through the perspective route.
+    ``device``: a device, or a list of them (``runtime/device.placement``;
+    default the store's): the frames are on the first device; a tiled
+    canvas assembled on the host spreads its tiles over the list
+    (``ops/blend.mb_compose_tiled``), a device-assembled one
+    (``return_device``) stays on the first device.
     """
     log = get_logger()
-    fr = _Frames(images, store, indices, device)
+    devices = placement(device, None if store is None else store.device)
+    fr = _Frames(images, store, indices, devices[0])
     n = fr.n
     h, w = fr.shape[:2]
     sync = device_sync(fr.device)
@@ -364,7 +374,8 @@ def compose_strip(images: Optional[List[np.ndarray]],
                        for b in boxes]
         with log.timer(stage, "tiled blend", sync=sync):
             out, bbox = B.mb_compose_tiled(
-                canvas_h, canvas_w, bands, frame_boxes, feed_roi, fr.device,
+                canvas_h, canvas_w, bands, frame_boxes, feed_roi,
+                fr.device if return_device else devices,
                 assemble="device" if return_device else "host")
         if bbox is None:
             raise StripStitchError(f"{stage}: blended canvas is empty")
@@ -392,7 +403,7 @@ def stitch_strip(images: Optional[List[np.ndarray]],
                  stage: str = "Strip",
                  range_width_override: Optional[int] = None,
                  image_tags: Optional[Sequence[str]] = None,
-                 seed: int = 0, device: Optional[torch.device] = None,
+                 seed: int = 0, device=None,
                  store=None, indices: Optional[List[int]] = None,
                  info: Optional[dict] = None, return_device: bool = False,
                  matching_mask: Optional[np.ndarray] = None):
@@ -410,7 +421,11 @@ def stitch_strip(images: Optional[List[np.ndarray]],
     no per-frame transform) and ``path`` ("joint" or "sequential").
     ``return_device``: a tiled joint panorama comes back as a
     :class:`DeviceStrip`; small canvases and the ladder's mosaic are host
-    arrays.
+    arrays. ``device``: a device, or a list of them
+    (``runtime/device.placement``; default the store's; the JAX package's
+    ``mesh``): the frames are on the first device, the joint path's pair
+    registration and host-assembled tiles spread over the list, and the
+    ladder runs on the first device.
     """
     log = get_logger()
     tuning = tuning or StitchTuning()
@@ -426,20 +441,21 @@ def stitch_strip(images: Optional[List[np.ndarray]],
     if image_tags:
         log.log(stage, "plan", pairs=", ".join(
             f"{a}->{b}" for a, b in zip(image_tags, image_tags[1:])))
-    dev = store.device if store is not None else torch.device(device)
+    devices = placement(device, None if store is None else store.device)
+    dev = devices[0]
     sync = device_sync(dev)
     try:
         with log.timer(stage, "register", sync=sync):
             kept, transforms, _ = estimate_strip_transforms(
                 images, tuning, range_width_override, stage, seed,
-                device=device, store=store, indices=indices,
+                device=devices, store=store, indices=indices,
                 matching_mask=matching_mask)
         if len(kept) < n:
             log.log(stage, "dropped weak frames",
                     dropped=[i for i in range(n) if i not in set(kept)])
         pano = compose_strip(
             None if images is None else [images[i] for i in kept],
-            transforms, tuning, stage, device=device, store=store,
+            transforms, tuning, stage, device=devices, store=store,
             indices=None if indices is None else [indices[i] for i in kept],
             return_device=return_device)
         if info is not None:

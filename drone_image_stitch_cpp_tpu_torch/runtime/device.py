@@ -4,14 +4,15 @@ The JAX package's runtime/device.py picks a backend and degrades to the
 host CPU on accelerator faults. The port does neither: the device is
 named explicitly, ``cuda`` without a visible card is an error, and a
 fault on the card surfaces as an exception (a CPU re-run would hide that
-the card path failed).
+the card path failed). A run's device spec resolves to a device list
+(:func:`resolve_devices`): ``cuda`` is every visible card.
 """
 
 from __future__ import annotations
 
 import shutil
 import subprocess
-from typing import Union
+from typing import List, Optional, Union
 
 import torch
 
@@ -41,6 +42,48 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     elif dev.type != "cpu":
         raise DeviceUnavailableError(f"unsupported device {device!r}")
     return dev
+
+
+def resolve_devices(spec) -> List[torch.device]:
+    """The device list a run places its work on
+    (``parallel/mesh.make_mesh``): ``"cuda"`` is every visible card,
+    ``"cuda:N"`` that card alone, ``"cpu"`` the one CPU device, and a list
+    or tuple names its devices (repeats allowed). Raises
+    DeviceUnavailableError where :func:`resolve_device` does, and for an
+    empty list."""
+    from ..parallel.mesh import make_mesh
+
+    if isinstance(spec, (list, tuple)):
+        if not spec:
+            raise DeviceUnavailableError("empty device list")
+        return [resolve_device(d) for d in spec]
+    dev = torch.device(spec)
+    if dev.type == "cuda" and dev.index is None:
+        resolve_device(dev)         # the error of a machine without a card
+        return make_mesh(platform="cuda")
+    return [resolve_device(dev)]
+
+
+def placement(device, home: Optional[torch.device] = None
+              ) -> List[torch.device]:
+    """The devices of a library call's ``device`` argument: one device,
+    or a list whose first entry is home (the frames live there and the
+    results come back there) and over which the call spreads its pair
+    chunks or compose tiles. None means ``[home]``. Raises ValueError
+    when no device is given, or when ``home`` (the device of a frame
+    store the call reads) is not the first."""
+    if device is None:
+        devs = [] if home is None else [home]
+    elif isinstance(device, (list, tuple)):
+        devs = [torch.device(d) for d in device]
+    else:
+        devs = [torch.device(device)]
+    if not devs:
+        raise ValueError("no device given: pass a device or a store")
+    if home is not None and devs[0] != home:
+        raise ValueError(f"the frames are on {home}, not on the first "
+                         f"device {devs[0]}")
+    return devs
 
 
 def device_sync(device: torch.device):

@@ -160,6 +160,19 @@ class FrameStore:
                               device=self.device)
         return self.frames.index_select(0, idx)
 
+    def subset(self, indices: List[int], device: torch.device
+               ) -> "FrameStore":
+        """Frames ``indices`` as a store of their own on ``device``, made
+        with one device-to-device copy (a strip stitched on another card
+        reads its frames from there, never through the host)."""
+        indices = list(indices)
+        st = FrameStore.__new__(FrameStore)
+        st._init(len(indices), device)
+        st.frames = self.batch(indices).to(st.device)
+        st.images = [self.images[i] for i in indices]
+        st._loaded = set(range(0, len(indices), self.CHUNK))
+        return st
+
     def frame(self, i: int) -> torch.Tensor:
         self._chunk(i)
         return self.frames[i]

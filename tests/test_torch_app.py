@@ -12,6 +12,7 @@ the written mosaic is within 10 of the ground-truth ortho in blurred RMSE
 with a 1.4% scale: stitch_frames on the raw frames scores 5.35 here).
 """
 
+import json
 import os
 import shutil
 
@@ -24,9 +25,10 @@ from torch_port_helpers import small_tunings  # noqa: F401  (torch threads)
 from drone_image_stitch_cpp_tpu.utils.synthetic import render_sortie
 from drone_image_stitch_cpp_tpu_torch.app import (RunConfig,
                                                   run_stitch_application)
-from drone_image_stitch_cpp_tpu_torch.cli.main import build_parser
+from drone_image_stitch_cpp_tpu_torch.cli.main import build_parser, main
 from drone_image_stitch_cpp_tpu_torch.ops import blend as TB
-from drone_image_stitch_cpp_tpu_torch.runtime.logging import get_logger
+from drone_image_stitch_cpp_tpu_torch.runtime.logging import (
+    device_trace, get_logger)
 from drone_image_stitch_cpp_tpu_torch.utils.synthetic import gt_rmse
 
 _OVERRIDES = dict(sift_features=512, strip_sift_features=512,
@@ -177,3 +179,36 @@ def test_cli_flags():
     assert args.no_save_strips and args.resume and args.device == "cpu"
     args = build_parser().parse_args([])
     assert not args.no_save_strips and not args.resume
+    assert args.trace_dir is None and args.device == "cuda"
+
+
+def test_cli_trace_dir_writes_a_chrome_trace(sortie, tmp_path):
+    """``--trace-dir``: the CLI run under ``torch.profiler`` (CPU activity
+    here) writes one Chrome trace that parses; without a directory the
+    hook does nothing."""
+    with device_trace(None):
+        pass
+    with device_trace(""):
+        pass
+    root, _ = sortie
+    one_line = tmp_path / "in"
+    d = one_line / "visible" / "run"
+    os.makedirs(d)
+    for k in range(3):      # the first flight line
+        shutil.copy(os.path.join(root, "visible", "run", f"IMG{k:03d}_x.jpg"),
+                    d)
+    trace = tmp_path / "trace"
+    knobs = [a for k, v in _OVERRIDES.items()
+             for a in ("--" + k.replace("_", "-"), str(v))]
+    rc = main(["--device", "cpu", "--image-folder", str(one_line),
+               "--image-type", "visible", "--group", "run",
+               "--output-root", str(tmp_path / "out"), "--trace-dir",
+               str(trace)] + knobs)
+    assert rc == 0
+    files = os.listdir(trace)
+    assert len(files) == 1 and files[0].startswith("trace-") \
+        and files[0].endswith(".json")
+    with open(trace / files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert len(events) > 100 and any(nm.startswith("aten::") for nm in names)

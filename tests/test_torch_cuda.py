@@ -412,3 +412,85 @@ def test_wrappers_reject_mixed_devices(cuda):
     kp = _keypoints("cpu", n=4)
     with pytest.raises(ValueError):
         SK.orientation_descriptor_flat(_stack(cuda), *kp)
+
+
+def _small_sortie():
+    from drone_image_stitch_cpp_tpu_torch.utils.synthetic import (
+        fractal_ortho, render_sortie)
+    ortho = fractal_ortho(400, 900, seed=0)
+    return render_sortie(ortho, 1, 4, 160, 224, 0.6)
+
+
+@pytest.mark.gpu
+def test_register_pairs_over_device_list_bit_equal(cuda):
+    """Chunks placed over [cuda:0, cuda:0] give the one-device results
+    bit for bit (each chunk keeps the single-device shapes)."""
+    from drone_image_stitch_cpp_tpu_torch.pipeline import pairgraph as P
+    from drone_image_stitch_cpp_tpu_torch.pipeline.registration import (
+        detect_features)
+    imgs, _, _ = _small_sortie()
+    feats, scale = detect_features(imgs, 256, -1.0, device=cuda)
+    pairs = P.banded_pairs(4, 3)
+    one = P.register_pairs(feats, pairs, 0.75, 4.0 / scale, chunk=2)
+    two = P.register_pairs(feats, pairs, 0.75, 4.0 / scale, chunk=2,
+                           devices=[cuda, cuda])
+    assert int(one.ok.sum()) >= 3
+    for a, b in zip(one, two):
+        if isinstance(a, torch.Tensor):
+            assert a.device == b.device and torch.equal(a, b)
+        else:
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_tiled_compose_over_device_list_bit_equal(cuda, monkeypatch):
+    """The host-assembled tiled strip compose with its tiles over
+    [cuda:0, cuda:0] (two tiles in flight) equals the one-device run."""
+    from drone_image_stitch_cpp_tpu_torch.config.tuning import StitchTuning
+    from drone_image_stitch_cpp_tpu_torch.ops import blend as B
+    from drone_image_stitch_cpp_tpu_torch.pipeline.strip import compose_strip
+    imgs, _, pos = _small_sortie()
+    transforms = np.asarray([[[1, 0, x - pos[0][1]], [0, 1, y - pos[0][0]]]
+                             for y, x in pos], np.float32)
+    tt = StitchTuning(blend_bands=3, seam_estimation_resol_mpx=-1.0)
+    monkeypatch.setattr(B, "TILED_THRESHOLD_BYTES", 1)
+    monkeypatch.setattr(B, "TILE", 256)
+    n0 = WK.warp_frame.launches
+    one = compose_strip(imgs, transforms, tt, device=cuda)
+    n1 = WK.warp_frame.launches
+    two = compose_strip(imgs, transforms, tt, device=[cuda, cuda])
+    assert WK.warp_frame.launches - n1 == n1 - n0 > 0
+    np.testing.assert_array_equal(one, two)
+
+
+@pytest.mark.gpu
+def test_kernels_launch_on_their_tensors_card(cuda):
+    """K1 and K2 called on the last card while cuda:0 is the current
+    device equal their plain versions there."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip(f"needs two or more CUDA cards ({count} visible): the "
+                    f"launch on a card other than the current one")
+    other = torch.device("cuda", count - 1)
+    with torch.cuda.device(0):
+        gauss = _stack(other)
+        kp = _keypoints(other)
+        ang_k, desc_k = SK.orientation_descriptor_flat(gauss, *kp)
+        ang_p, desc_p = SK.orientation_descriptor_plain(gauss, *kp)
+        torch.cuda.synchronize(other)
+        assert ang_k.device == other
+        _assert_k1_close(ang_k, desc_k, ang_p, desc_p)
+        g = torch.Generator().manual_seed(2)
+        img = torch.randint(0, 256, (300, 420, 3), generator=g,
+                            dtype=torch.uint8).to(other)
+        a23 = np.asarray([[0.97, -0.2, 14.5], [0.2, 0.97, -30.25]],
+                         np.float32)
+        wk, mk = WK.warp_frame(img, a23, 320, 512)
+        wp, mp = WK.warp_frame_plain(img, WK.inverse_coeffs(a23), 320, 512)
+        assert torch.equal(wk, wp) and torch.equal(mk, mp)
+        frames = torch.stack([img, img.flip(0)])
+        bk, bm = WK.warp_frames(frames, np.stack([a23, a23]), 64, 128)
+        bp, bq = WK.warp_frames_plain(frames, [WK.inverse_coeffs(a23)] * 2,
+                                      64, 128)
+        assert torch.equal(bk, bp) and torch.equal(bm, bq)
+        assert torch.cuda.current_device() == 0

@@ -22,7 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from torch_port_helpers import CPU, n, small_tunings, t
+from torch_port_helpers import CPU, jax_banks, n, small_tunings, t
 
 import drone_image_stitch_cpp_tpu.pipeline.strip as JS
 import drone_image_stitch_cpp_tpu_torch.pipeline.strip as TS
@@ -159,14 +159,6 @@ def test_non_overlapping_pair_dumps_diagnostics(ortho):
                    for r in log._records[n0:])
 
 
-def _jax_banks(seed, n_pairs, n_hyp, m, chunk=16):
-    """The sample integers JAX's register_pairs draws for each pair."""
-    n_keys = -(-n_pairs // chunk) * chunk
-    keys = jax.random.split(jax.random.PRNGKey(seed), n_keys)[:n_pairs]
-    return np.stack([np.asarray(jax.random.randint(
-        k, (n_hyp, m), 0, np.iinfo(np.int32).max)) for k in keys])
-
-
 def test_mixed_size_detect_matches_jax(ortho):
     # three overlapping crops of different sizes; frame 1 sits 96 px right
     # and frame 2 40 px down of frame 0
@@ -185,7 +177,7 @@ def test_mixed_size_detect_matches_jax(ortho):
     gj = JP.register_pairs(fj, pairs, 0.75, thresh=4.0 / sj,
                            kind="similarity", n_hyp=n_hyp, seed=0)
     gt = TP.register_pairs(ft, pairs, 0.75, 4.0 / st, n_hyp=n_hyp,
-                           banks=t(_jax_banks(0, len(pairs), n_hyp, 2)))
+                           banks=t(jax_banks(0, len(pairs), n_hyp)))
     assert n(gt.ok).all() and np.asarray(gj.ok).all()
     mt, mj = n(gt.model), np.asarray(gj.model)
     np.testing.assert_allclose(mt[:, :2, 2], mj[:, :2, 2], atol=0.3)

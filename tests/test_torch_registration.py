@@ -11,12 +11,11 @@ the CPU.
   within 1e-3 (pixel-unit translations, float32).
 """
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import CPU, n, t
+from torch_port_helpers import CPU, jax_banks, n, t
 
 from drone_image_stitch_cpp_tpu.pipeline import pairgraph as JP
 from drone_image_stitch_cpp_tpu.pipeline.registration import (
@@ -68,14 +67,6 @@ def test_store_path_equals_list_path(frames):
         assert torch.equal(a, b)
 
 
-def _jax_banks(seed, n_pairs, n_hyp, chunk=16):
-    """The sample integers JAX's register_pairs draws for each pair."""
-    n_keys = -(-n_pairs // chunk) * chunk
-    keys = jax.random.split(jax.random.PRNGKey(seed), n_keys)[:n_pairs]
-    return np.stack([np.asarray(jax.random.randint(
-        k, (n_hyp, 2), 0, np.iinfo(np.int32).max)) for k in keys])
-
-
 def test_register_pairs_same_banks_match_jax(jax_feats):
     fj, scale = jax_feats
     pairs = JP.banded_pairs(4, 3)
@@ -84,7 +75,7 @@ def test_register_pairs_same_banks_match_jax(jax_feats):
                            kind="similarity", n_hyp=n_hyp, seed=0)
     ft = Features(*(t(np.asarray(a)) for a in fj))
     gt = TP.register_pairs(ft, pairs, 0.75, 4.0 / scale, n_hyp=n_hyp,
-                           banks=t(_jax_banks(0, len(pairs), n_hyp)))
+                           banks=t(jax_banks(0, len(pairs), n_hyp)))
     np.testing.assert_array_equal(gt.pairs, np.asarray(gj.pairs))
     np.testing.assert_array_equal(n(gt.n_good), np.asarray(gj.n_good))
     np.testing.assert_array_equal(n(gt.n_inliers), np.asarray(gj.n_inliers))

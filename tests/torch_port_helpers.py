@@ -8,6 +8,7 @@ runs under several pytest-xdist workers.
 
 import math
 
+import jax
 import numpy as np
 import torch
 
@@ -47,3 +48,13 @@ def n(a):
 def ang_diff(a, b):
     return np.abs(np.mod(a - b + math.pi, 2 * math.pi) - math.pi)
 
+
+
+def jax_banks(seed, n_pairs, n_hyp, m=2, chunk=16):
+    """The (n_pairs, n_hyp, m) sample integers the JAX package's
+    register_pairs draws (its per-pair keys; ``chunk`` is its chunk times
+    the mesh size)."""
+    n_keys = -(-n_pairs // chunk) * chunk
+    keys = jax.random.split(jax.random.PRNGKey(seed), n_keys)[:n_pairs]
+    return np.stack([np.asarray(jax.random.randint(
+        k, (n_hyp, m), 0, np.iinfo(np.int32).max)) for k in keys])
