@@ -98,7 +98,20 @@ Phases (one line each; any failure exits nonzero and prints no result):
      share (the union of the kernel, copy and memset intervals over the
      traced wall) is in (0, 1]; its size, event count, the five device
      operations that took the most time, the traced wall against the
-     untraced pass of phase 5, and the mosaic equal to that pass's.
+     untraced pass of phase 5, and the mosaic equal to that pass's;
+ 12. i420 (run right after phase 4): the corridor from a packed I420
+     frame store (the JAX package's store format for 4:2:0 JPEGs; the
+     packed frames made from the rendered BGR by the full-range JFIF
+     forward transform, as a camera's encoder makes them, since this
+     machine has no raw decoder): app.stitch_frames twice, the second
+     measured with its launch counts set to 0 just before it; the
+     corridor's geometry checks, GT-RMSE within 0.5 of phase 4's, K1 4
+     launches and every K2 launch from its I420 source; wall and peak
+     memory beside phase 4's. K2's I420 source at the compose feed and
+     the 12-frame seam batch, bit-equal to its plain version and timed
+     (library: yuv420_to_bgr + F.grid_sample). The half-resolution store:
+     two corridor JPEGs read at 1/2 and detected with coord_scale=2, the
+     planted offset within 1 px.
 The environment line carries the JPEG codec probe (jpeglib.h, the libjpeg
 the loader sees, g++, cv2 and PIL); the build phase builds the codec from
 native/ beside the kernels and prints its library or the compiler's
@@ -155,6 +168,8 @@ KNOB_PAIR_W = FRAME_W + 1152        # two corridor frames, 0.70 overlap
 CLI_COLS = 6                        # production CLI: frames per line
 FB_FRAMES = 4                       # fallback phase: corridor frames
 FB_SIZE_TOL_PX = 8
+I420_TOL_RMSE = 0.5                 # GT-RMSE against the BGR corridor's
+I420_OPS_PER_PX = 166               # K2's I420 source: 4 taps x 34 + 30
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12              # float32 outside the tensor cores
 
@@ -714,7 +729,8 @@ def phase_slice(torch, dev, ortho, imgs, ids, pos, tuning):
     if k2_split[1] != 1:
         _fail("slice", f"seam warps took {k2_split[1]} batched launches, "
                        f"expected 1")
-    return launches, {"res": res, "wall": wall, "peak": peak}
+    return launches, {"res": res, "wall": wall, "peak": peak, "rmse": rmse,
+                      "stages": stages}
 
 
 def _distorted_frames(torch, dev, ortho, pos, calib):
@@ -1043,6 +1059,243 @@ def phase_k2_f32(torch, dev, fed, imgs, pos, tuning, cs):
     return row
 
 
+def _jfif_i420(bgr: np.ndarray) -> np.ndarray:
+    """(H, W, 3) uint8 BGR -> (H*3/2, W) packed I420 by the full-range
+    JFIF forward transform with 2x2 chroma means (see phase_i420)."""
+    h, w = bgr.shape[:2]
+    b, g, r = (bgr[..., c].astype(np.float32) for c in range(3))
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0
+    cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128.0
+    cb = cb.reshape(h // 2, 2, w // 2, 2).mean(axis=(1, 3))
+    cr = cr.reshape(h // 2, 2, w // 2, 2).mean(axis=(1, 3))
+
+    def u8(p):
+        return np.clip(np.round(p), 0, 255).astype(np.uint8)
+
+    return np.concatenate([u8(y), u8(cb).reshape(h // 4, w),
+                           u8(cr).reshape(h // 4, w)])
+
+
+def _k2_i420_row(torch, dev, label, frames, a23s, oh, ow):
+    """K2's I420 source on ``frames`` ((N, H*3/2, W) packed, one launch;
+    N == 1 is the compose feed's single-frame call) against its plain
+    version (yuv420_to_bgr, then the float warp), bit-equal, and timed as
+    the other K2 rows; the library time is yuv420_to_bgr + F.grid_sample
+    on the same samples."""
+    import torch.nn.functional as F
+    from drone_image_stitch_cpp_tpu_torch.ops import warp_kernel as WK
+    from drone_image_stitch_cpp_tpu_torch.ops.color import yuv420_to_bgr
+    from drone_image_stitch_cpp_tpu_torch.ops.warp import dst_to_src_coords
+    nf = frames.shape[0]
+    h, w = frames.shape[1] * 2 // 3, frames.shape[2]
+    invs = [WK.inverse_coeffs(a) for a in a23s]
+    n0 = WK.warp_frame.i420_launches
+    if nf == 1:
+        def wrapper():
+            return WK.warp_frame(frames[0], a23s[0], oh, ow)
+        bare = (frames[0], 1, invs[0])
+    else:
+        def wrapper():
+            return WK.warp_frames(frames, a23s, oh, ow)
+        table = torch.tensor(invs, dtype=torch.float32, device=dev)
+        bare = (frames, nf, table)
+    wk, mk = wrapper()
+    if WK.warp_frame.i420_launches != n0 + 1:
+        _fail("i420", f"{label}: the I420 source did not count its launch")
+    wk, mk = wk.reshape(nf, oh, ow, 3), mk.reshape(nf, oh, ow)
+    for k in range(nf):
+        wp, mp = WK.warp_frame_plain(frames[k], invs[k], oh, ow)
+        if not (torch.equal(wk[k], wp) and torch.equal(mk[k], mp)):
+            d = float(torch.maximum((wk[k] - wp).abs().max(),
+                                    (mk[k] - mp).abs().max()))
+            _fail("i420", f"{label}: frame {k} not bit-identical to its "
+                          f"plain version (max |d| {d})")
+        del wp, mp
+    covered = float((mk >= 0.5).float().mean())
+    del wk, mk
+    ms = _median_ms(wrapper, torch)
+    device_ms = _device_ms(lambda: WK._launch(*bare, oh, ow), torch)
+    plain_ms = _median_ms(lambda: [WK.warp_frame_plain(frames[k], invs[k],
+                                                       oh, ow)
+                                   for k in range(nf)], torch)
+    grid = torch.stack([torch.stack(
+        [sx / (w - 1) * 2 - 1, sy / (h - 1) * 2 - 1], dim=-1)
+        for sx, sy in (dst_to_src_coords(torch.tensor(
+            inv, dtype=torch.float32, device=dev).reshape(2, 3), oh, ow)
+            for inv in invs)])
+    ones = torch.ones((nf, 1, h, w), device=dev)
+
+    def library():
+        bgr = yuv420_to_bgr(frames).permute(0, 3, 1, 2)
+        return F.grid_sample(torch.cat([bgr, ones], dim=1), grid,
+                             mode="bilinear", padding_mode="zeros",
+                             align_corners=True)
+
+    library_ms = _median_ms(library, torch)
+    del grid, ones
+    src_px = sum(_k2_source_pixels(torch, dev, inv, h, w, oh, ow)
+                 for inv in invs)
+    n_out = nf * oh * ow
+    n_bytes = 1.5 * src_px + 16.0 * n_out
+    bound_ms, bound_by = _bound(n_bytes, I420_OPS_PER_PX * n_out)
+    print(f"[smoke] k2 warp_affine I420 source {label}: {nf} x {h}x{w} "
+          f"packed I420 -> {oh}x{ow}x3 + mask in one launch, coverage "
+          f"{covered:.3f}; bit-identical to plain; wrapper {ms:.4f} ms, "
+          f"device {device_ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"yuv420_to_bgr + grid_sample {library_ms:.4f} ms; bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({n_bytes / 1e6:.1f} MB), share "
+          f"{bound_ms / device_ms:.3f}", flush=True)
+    return {"shape": [nf, h, w, oh, ow], "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share": bound_ms / device_ms, "max_abs_err": 0.0}
+
+
+def phase_i420(torch, dev, ortho, imgs, ids, pos, tuning, bgr):
+    """The I420 ingest wire on the corridor (the JAX package's store
+    format for a drone's 4:2:0 JPEGs). This machine has no libjpeg, so
+    no raw 4:2:0 decode: the packed frames are made here from the rendered
+    BGR with the full-range JFIF forward transform, as a camera's encoder
+    makes them:
+        Y  = .299 R + .587 G + .114 B
+        Cb = -.168736 R - .331264 G + .5 B + 128
+        Cr = .5 R - .418688 G - .081312 B + 128,
+    chroma as 2x2 means, each plane rounded and clipped to [0, 255].
+    app.stitch_frames from FrameStore(packed, fmt="yuv420") runs twice
+    (the second measured, its launch counts set to 0 just before it): the
+    corridor's geometry checks, GT-RMSE within I420_TOL_RMSE of the BGR
+    corridor's (``bgr``: phase 4's result), K1 4 launches and every K2
+    launch from the I420 source; wall and peak memory beside the BGR
+    pass. Then K2's I420 source at the compose feed and the 12-frame seam
+    batch, each bit-equal to its plain version; then the half-resolution
+    store: two corridor frames written as JPEG (cv2), read back with
+    scale_denom=2 (cv2's area resize here) and detected with coord_scale=2:
+    the planted offset within 1 px. Returns (launch counts, the two K2
+    rows)."""
+    import cv2
+    from drone_image_stitch_cpp_tpu_torch.app import stitch_frames
+    from drone_image_stitch_cpp_tpu_torch.ops.blend import align_up
+    from drone_image_stitch_cpp_tpu_torch.ops.resize import (
+        scale_for_megapixels)
+    from drone_image_stitch_cpp_tpu_torch.pipeline.pairgraph import (
+        register_pairs)
+    from drone_image_stitch_cpp_tpu_torch.pipeline.registration import (
+        detect_features)
+    from drone_image_stitch_cpp_tpu_torch.runtime.feed import FrameStore
+    from drone_image_stitch_cpp_tpu_torch.runtime.logging import get_logger
+    from drone_image_stitch_cpp_tpu_torch.utils.synthetic import gt_rmse
+
+    t0 = time.perf_counter()
+    packed = [_jfif_i420(im) for im in imgs]
+    make_s = time.perf_counter() - t0
+    stitch_frames(None, ids, tuning, dev,
+                  store=FrameStore(packed, dev, fmt="yuv420"))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    log = get_logger()
+    mark = len(log._records)
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = stitch_frames(None, ids, tuning, dev,
+                        store=FrameStore(packed, dev, fmt="yuv420"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    stages = ", ".join(f"{r['msg'][:-5]}={r['seconds']}"
+                       for r in log._records[mark:] if "seconds" in r
+                       and r["stage"] in ("Main", "Single"))
+    err = _check_line(res, pos, "i420")
+    gt_h = FRAME_H
+    gt_w = FRAME_W + (len(imgs) - 1) * (pos[1][1] - pos[0][1])
+    pano = res.panorama
+    if abs(pano.shape[0] - gt_h) > SIZE_TOL_PX or \
+            abs(pano.shape[1] - gt_w) > SIZE_TOL_PX:
+        _fail("i420", f"panorama {pano.shape[:2]} vs {(gt_h, gt_w)}")
+    y0, x0 = pos[0]
+    gt = np.clip(ortho[y0:y0 + gt_h, x0:x0 + gt_w], 0, 255).astype(np.uint8)
+    rmse, dy, dx = gt_rmse(pano, gt, device=dev)
+    if not np.isfinite(rmse) or abs(rmse - bgr["rmse"]) > I420_TOL_RMSE:
+        _fail("i420", f"GT-RMSE {rmse} vs the BGR corridor's "
+                      f"{bgr['rmse']} (tolerance {I420_TOL_RMSE})")
+    k2 = counts["warp_affine"]
+    if counts["sift_orient_desc"] != 4 or k2 <= 0 or \
+            counts["warp_affine_i420"] != k2:
+        _fail("i420", f"launches {counts}: K1 4 expected, every K2 launch "
+                      f"from the I420 source")
+    print(f"[smoke] i420 corridor: {len(packed)} frames packed in "
+          f"{make_s:.2f} s; groups {[len(g.indices) for g in res.groups]}, "
+          f"max offset error {err:.4f} px, panorama {pano.shape[0]}x"
+          f"{pano.shape[1]}, GT-RMSE {rmse:.4f} at shift ({dy},{dx}) (BGR "
+          f"corridor {bgr['rmse']:.4f}); wall {wall:.2f} s (BGR "
+          f"{bgr['wall']:.2f} s), peak memory {peak / 2**30:.3f} GiB (BGR "
+          f"{bgr['peak'] / 2**30:.3f} GiB); launches {counts}", flush=True)
+    print(f"[smoke] i420 stages (s): {stages}", flush=True)
+    del res, pano
+
+    # K2's I420 source at the compose feed (phase_k2's window and affine)
+    # and at the seam batch (phase_k2_batch's)
+    dev_packed = torch.from_numpy(np.stack(packed)).to(dev)
+    th = np.radians(2.0)
+    c, s_ = np.cos(th), np.sin(th)
+    a_feed = np.asarray([[c, -s_, 12000.37 - 11904.0], [s_, c, 20.61]],
+                        np.float32)
+    oh, ow = K2_WIN
+    mid = len(packed) // 2
+    feed = _k2_i420_row(torch, dev, "compose feed",
+                        dev_packed[mid:mid + 1], a_feed[None], oh, ow)
+    ys = [p[0] for p in pos]
+    xs = [p[1] for p in pos]
+    ss = scale_for_megapixels(FRAME_H, FRAME_W,
+                              tuning.seam_estimation_resol_mpx)
+    sh = align_up(int(round((max(ys) - min(ys) + FRAME_H) * ss)), 64)
+    sw = align_up(int(round((max(xs) - min(xs) + FRAME_W) * ss)), 64)
+    a23s = np.stack([np.asarray([[ss, 0, ss * (x - min(xs))],
+                                 [0, ss, ss * (y - min(ys))]], np.float32)
+                     for y, x in pos])
+    seam = _k2_i420_row(torch, dev, "seam batch", dev_packed, a23s, sh, sw)
+    del dev_packed
+
+    # the half-resolution store
+    work = tempfile.mkdtemp(prefix="smoke_halfres_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    try:
+        paths = []
+        for k in (0, 1):
+            paths.append(os.path.join(work, f"F{k}.jpg"))
+            cv2.imwrite(paths[-1], imgs[k], [cv2.IMWRITE_JPEG_QUALITY, 95])
+        t0 = time.perf_counter()
+        st = FrameStore.from_paths(paths, dev, scale_denom=2)
+        feats, scale = detect_features(None, tuning.sift_features,
+                                       tuning.registration_resol_mpx,
+                                       store=st, indices=[0, 1],
+                                       coord_scale=2.0)
+        graph = register_pairs(feats, [(0, 1)], 0.75, thresh=4.0 / scale)
+        model = graph.model[0].cpu().numpy()
+        half_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    planted = np.asarray([pos[1][1] - pos[0][1], pos[1][0] - pos[0][0]],
+                         np.float64)
+    half_err = float(np.abs(model[:2, 2] + planted).max())
+    if st.fmt != "bgr" or st.shape0 != (FRAME_H // 2, FRAME_W // 2, 3) or \
+            not bool(graph.ok[0]) or half_err > OFFSET_TOL_PX:
+        _fail("i420", f"half-resolution store: fmt {st.fmt}, shape "
+                      f"{st.shape0}, ok {bool(graph.ok[0])}, model "
+                      f"translation {model[:2, 2].tolist()} vs the planted "
+                      f"{(-planted).tolist()}")
+    print(f"[smoke] i420 half-resolution store: 2 corridor JPEGs read at "
+          f"1/2 ({st.shape0[0]}x{st.shape0[1]}, fmt {st.fmt}), detected "
+          f"with coord_scale=2 at work scale {scale:.4f} of full "
+          f"resolution: translation {np.round(model[:2, 2], 4).tolist()} "
+          f"vs planted {(-planted).tolist()} (error {half_err:.4f} px), "
+          f"{half_s:.2f} s", flush=True)
+    return counts, feed, seam
+
+
+
 def render_multiline(torch, dev):
     """The 3 x 10 boustrophedon sortie: 2160x3840 frames, overlaps 0.70
     along-track and 0.35 side, odd lines right to left."""
@@ -1169,7 +1422,8 @@ def _counts():
     return {"sift_orient_desc": orientation_descriptor_flat.launches,
             "warp_affine": warp_frame.launches + warp_frames.launches,
             "warp_affine_nonblack": warp_frame.nonblack_launches,
-            "warp_affine_f32": warp_frame.f32_launches}
+            "warp_affine_f32": warp_frame.f32_launches,
+            "warp_affine_i420": warp_frame.i420_launches}
 
 
 def _zero_counts():
@@ -1182,6 +1436,7 @@ def _zero_counts():
     warp_frame.launches = 0
     warp_frame.nonblack_launches = 0
     warp_frame.f32_launches = 0
+    warp_frame.i420_launches = 0
     warp_frames.launches = 0
 
 
@@ -1906,6 +2161,9 @@ def main() -> int:
     launches, sl_ref = phase_slice(torch, dev, ortho, imgs, ids, pos, tuning)
     affine_pano = sl_ref["res"].panorama
     torch.cuda.empty_cache()
+    i420_launches, k2["i420_source"], k2["i420_seam_batch"] = phase_i420(
+        torch, dev, ortho, imgs, ids, pos, tuning, sl_ref)
+    torch.cuda.empty_cache()
     fb_launches, k1["fallback_mixed"] = phase_fallback(torch, dev, ortho,
                                                        imgs, pos, tuning)
     torch.cuda.empty_cache()
@@ -1946,7 +2204,8 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     del ml_ortho, ml_imgs
-    paths = {"single_line": launches, "multi_line": ml_launches,
+    paths = {"single_line": launches, "i420": i420_launches,
+             "multi_line": ml_launches,
              "fallback": fb_launches, "production": pr_launches,
              "knobs": kn_launches, "devices_single_line": dv_sl,
              "devices_multi_line": dv_ml, "sortie_step": st_launches,
@@ -1962,6 +2221,8 @@ def main() -> int:
         "production_content_mode": pr_launches["warp_affine_nonblack"]}
     k2["f32_launches_by_path"] = {p: c.get("warp_affine_f32", 0)
                                   for p, c in paths.items()}
+    k2["i420_launches_by_path"] = {p: c.get("warp_affine_i420", 0)
+                                   for p, c in paths.items()}
     k1["max_abs_err"] = max(k1["max_abs_err"],
                             k1["global_detect"]["max_abs_err"],
                             k1["fallback_mixed"]["max_abs_err"],

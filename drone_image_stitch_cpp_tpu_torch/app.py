@@ -11,7 +11,10 @@ stage, and the crop from the blend's device content flags). One group
 takes the single-strip path (stitch_app.cpp:246-260).
 
 Ingest streams by default (``runtime/feed.FrameStore.from_paths``: decode
-on a background thread while grouping runs); a frame that does not decode
+on a background thread while grouping runs, ``fmt="auto"``: a folder of
+4:2:0 JPEGs is stored as their own planes, packed I420, where the JPEG
+codec builds, as the JAX package's store does; BGR elsewhere, as on the
+card machine, which has no libjpeg); a frame that does not decode
 falls back to the eager loader's skip-unreadable path. A ready camera
 calibration for the run's image type (``StitchTuning.calibration``, set
 through ``RunConfig.tuning_overrides``) sends ingest through the eager
@@ -336,9 +339,12 @@ def run_stitch_application(cfg: Optional[RunConfig] = None) -> int:
                 log.log("Main", "calibration not ready; skipping undistort")
             if len(paths) >= 2 and calibrated is None:
                 try:
+                    # fmt="auto": a folder of 4:2:0 JPEGs is stored as its
+                    # own planes (packed I420) where the codec builds
                     store = FrameStore.from_paths(paths, dev)
                     store.shape0    # frame 0 decodes, or FrameStoreError
-                    log.log("Main", "streaming ingest", n=len(paths))
+                    log.log("Main", "streaming ingest", fmt=store.fmt,
+                            n=len(paths))
                 except FrameStoreError as e:
                     log.log("Main", "streaming ingest unavailable",
                             error=str(e))

@@ -17,15 +17,25 @@
 // the tap already reads, so content mode costs no extra memory traffic.
 //
 // The source is templated on its element type: uint8 BGR (the frames as
-// decoded) or float32 BGR (the frames area-resized for compositing below
+// decoded), float32 BGR (the frames area-resized for compositing below
 // full resolution, strip.py:227-239, which the JAX package warps
-// unquantised). Both feed the same arithmetic: a tap's three channels
-// become floats, exactly the values the uint8 path has always used.
+// unquantised) or packed I420 uint8 (the frame store's JPEG planes, the
+// JAX package's yuv420 wire: Y rows [0, H), then U as H/4 rows of width W
+// that ravel the (H/2, W/2) plane, then V the same way; H % 4 == 0,
+// W % 2 == 0). All feed the same arithmetic: a tap's three channels become
+// floats, exactly the values the uint8 path has always used. An I420 tap
+// is converted where it is read, as ops/color.yuv420_to_bgr converts the
+// whole frame: chroma upsampled with libjpeg's triangle filter (0.75/0.25
+// along W, then along H, edges replicated), 128 subtracted, the full-range
+// JFIF matrix, each channel clipped to [0, 255]. Converting in the tap
+// keeps the source at 1.5 bytes a pixel: the float32 BGR of a 4K frame is
+// 99.5 MB, and a 12-frame seam batch would hold 1.19 GB of it.
 //
 // What bounds it on the H100: memory traffic, almost all of it stores. Per
 // output pixel it writes 16 bytes (3 channels + mask, float32) and reads
-// 4 taps x 3 values of source (3 bytes each for uint8, 12 for float32); a
-// 2176x3904 window is ~136 MB written. So each thread produces 4
+// 4 taps x 3 values of source (3 bytes each for uint8, 12 for float32; an
+// I420 tap reads 1 luma byte and 4 bytes of each chroma plane, mostly from
+// L1); a 2176x3904 window is ~136 MB written. So each thread produces 4
 // consecutive output pixels and writes them as three 16-byte stores of BGR
 // (48 B) and one 16-byte store of the mask; a uint8 tap is read as the
 // aligned 32-bit word(s) holding its 3 bytes, a float32 tap as three
@@ -53,6 +63,11 @@ constexpr int kPix = 4;              // output pixels per thread
 
 struct Coeffs {
   float i00, i01, i02, i10, i11, i12;
+};
+
+// Tag type of a packed I420 source (one byte per element).
+struct I420 {
+  uint8_t v;
 };
 
 // The 3 bytes of the pixel at src + off (B in the low byte), read as the
@@ -94,6 +109,59 @@ __device__ __forceinline__ void load_tap(const float* src, size_t pix,
   c[2] = __ldg(p + 2);
 }
 
+// Full-resolution chroma at (x, y) from one (ch, cw) plane: libjpeg's
+// triangle filter along W, then along H (ops/color._fancy_up2), edges
+// replicated. Even x takes its left neighbour, odd x its right one (the
+// same for y). Every value is a multiple of 1/16 below 256, so each step
+// is exact; it is still rounded in the plain version's order.
+__device__ __forceinline__ float fancy_chroma(const uint8_t* p, int cw,
+                                              int ch, int x, int y) {
+  const int cx = x >> 1;
+  const int cy = y >> 1;
+  const int nx = (x & 1) ? min(cx + 1, cw - 1) : max(cx - 1, 0);
+  const int ny = (y & 1) ? min(cy + 1, ch - 1) : max(cy - 1, 0);
+  const uint8_t* r0 = p + (size_t)cy * cw;
+  const uint8_t* r1 = p + (size_t)ny * cw;
+  const float a = __fadd_rn(__fmul_rn(0.75f, (float)__ldg(r0 + cx)),
+                            __fmul_rn(0.25f, (float)__ldg(r0 + nx)));
+  const float b = __fadd_rn(__fmul_rn(0.75f, (float)__ldg(r1 + cx)),
+                            __fmul_rn(0.25f, (float)__ldg(r1 + nx)));
+  return __fadd_rn(__fmul_rn(0.75f, a), __fmul_rn(0.25f, b));
+}
+
+// The in-range tap (x, y) of an h x w frame as three floats (B, G, R).
+__device__ __forceinline__ void tap(const uint8_t* src, int h, int w, int x,
+                                    int y, float* c) {
+  load_tap(src, (size_t)y * w + x, c);
+}
+
+__device__ __forceinline__ void tap(const float* src, int h, int w, int x,
+                                    int y, float* c) {
+  load_tap(src, (size_t)y * w + x, c);
+}
+
+// A packed I420 tap, converted as ops/color.yuv420_to_bgr converts it:
+// r = Y + 1.402 V, g = (Y - 0.344136286 U) - 0.714136286 V,
+// b = Y + 1.772 U (U, V minus 128), each clipped to [0, 255].
+__device__ __forceinline__ void tap(const I420* src, int h, int w, int x,
+                                    int y, float* c) {
+  const uint8_t* yp = reinterpret_cast<const uint8_t*>(src);
+  const int cw = w >> 1;
+  const int ch = h >> 1;
+  const uint8_t* up = yp + (size_t)h * w;
+  const uint8_t* vp = up + (size_t)ch * cw;
+  const float yy = (float)__ldg(yp + (size_t)y * w + x);
+  const float u = __fsub_rn(fancy_chroma(up, cw, ch, x, y), 128.f);
+  const float v = __fsub_rn(fancy_chroma(vp, cw, ch, x, y), 128.f);
+  const float r = __fadd_rn(yy, __fmul_rn(1.402f, v));
+  const float g = __fsub_rn(__fsub_rn(yy, __fmul_rn(0.344136286f, u)),
+                            __fmul_rn(0.714136286f, v));
+  const float b = __fadd_rn(yy, __fmul_rn(1.772f, u));
+  c[0] = fminf(fmaxf(b, 0.f), 255.f);
+  c[1] = fminf(fmaxf(g, 0.f), 255.f);
+  c[2] = fminf(fmaxf(r, 0.f), 255.f);
+}
+
 // The content indicator of a tap: 1 where its gray is above 2, else 0 (an
 // out-of-range tap reads 0 and so is 0 too).
 __device__ __forceinline__ float nonblack(const float* c) {
@@ -127,13 +195,12 @@ __device__ __forceinline__ void warp_pixel(const T* __restrict__ src,
   const bool cx1 = (xi >= -1) & (xi < w - 1);
   const bool ry0 = (yi >= 0) & (yi < h);
   const bool ry1 = (yi >= -1) & (yi < h - 1);
-  const size_t p00 = (size_t)yi * w + xi;
   float t00[3] = {0.f, 0.f, 0.f}, t01[3] = {0.f, 0.f, 0.f};
   float t10[3] = {0.f, 0.f, 0.f}, t11[3] = {0.f, 0.f, 0.f};
-  if (ry0 & cx0) load_tap(src, p00, t00);
-  if (ry0 & cx1) load_tap(src, p00 + 1, t01);
-  if (ry1 & cx0) load_tap(src, p00 + w, t10);
-  if (ry1 & cx1) load_tap(src, p00 + w + 1, t11);
+  if (ry0 & cx0) tap(src, h, w, xi, yi, t00);
+  if (ry0 & cx1) tap(src, h, w, xi + 1, yi, t01);
+  if (ry1 & cx0) tap(src, h, w, xi, yi + 1, t10);
+  if (ry1 & cx1) tap(src, h, w, xi + 1, yi + 1, t11);
 #pragma unroll
   for (int c = 0; c < 3; ++c)
     v[c] = lerp2(t00[c], t01[c], t10[c], t11[c], fx, fy);
@@ -146,7 +213,7 @@ __device__ __forceinline__ void warp_pixel(const T* __restrict__ src,
 }
 
 // grid.x: blocks of kThreads * kPix output pixels; grid.y: frames. Frame n
-// reads src + n * src_stride elements and its coefficients from
+// reads src + n * src_stride elements (h x w the frame's logical size) and its coefficients from
 // table[6n..] (or `one` when table is null), and writes out/mask at
 // n * out_h * out_w.
 template <typename T>
@@ -251,6 +318,20 @@ extern "C" int warp_affine_f32(const float* src, long long src_stride,
                                float i12, float* out, float* mask,
                                int out_h, int out_w, int n, void* stream) {
   return launch(src, src_stride, h, w, table,
+                Coeffs{i00, i01, i02, i10, i11, i12}, 0, out, mask, out_h,
+                out_w, n, stream);
+}
+
+// packed I420 uint8 frames (h x w the logical size, h % 4 == 0, w % 2 ==
+// 0; src_stride in bytes, h * w * 3 / 2 a frame); the mask is always the
+// footprint.
+extern "C" int warp_affine_i420(const uint8_t* src, long long src_stride,
+                                int h, int w, const float* table, float i00,
+                                float i01, float i02, float i10, float i11,
+                                float i12, float* out, float* mask,
+                                int out_h, int out_w, int n, void* stream) {
+  if ((h & 3) || (w & 1)) return (int)cudaErrorInvalidValue;
+  return launch(reinterpret_cast<const I420*>(src), src_stride, h, w, table,
                 Coeffs{i00, i01, i02, i10, i11, i12}, 0, out, mask, out_h,
                 out_w, n, stream);
 }

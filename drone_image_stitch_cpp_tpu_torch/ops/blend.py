@@ -13,8 +13,12 @@ decides and cuts them: the tile geometry, the ``EXT_SNAP`` snap of the
 extended windows and the band downgrade of :func:`tiled_bands` decide the
 mosaic, not only the memory. Each tile's core is cropped on the device
 with its content flags (the reference's fixed-point gray > 1), so the
-caller's autocrop box needs no host gray pass. A whole canvas that would
-not fit the card's free memory raises :class:`CanvasTooLargeError`.
+caller's autocrop box needs no host gray pass. With ``fetch_packed`` a
+host-assembled tile leaves the device as packed video-range I420
+(``ops/color.bgr_to_yuv420``, 1.5 bytes a pixel) and is unpacked with
+``cv2.COLOR_YUV2BGR_I420`` (ops/blend.py:378, 476-501 of the JAX
+package). A whole canvas that would not fit the card's free memory raises
+:class:`CanvasTooLargeError`.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from ..runtime.device import placement
+from .color import bgr_to_yuv420
 from .gaussian import collapse_laplacian, gaussian_pyramid, pyr_up
 
 
@@ -200,14 +205,36 @@ def content_flags(img_u8: torch.Tensor):
 
 
 def _blend_core(canvas: MultiBandCanvas, ext_h: int, ext_w: int,
-                core: Tuple[int, int, int, int]):
+                core: Tuple[int, int, int, int],
+                pack: Optional[Tuple[int, int, int, int]] = None):
     """Blend one tile's pyramid and crop its core (tile-local (y0, y1,
-    x0, x1)): (uint8 core (h, w, 3), row flags (h,), column flags (w,))."""
+    x0, x1)): (uint8 core (h, w, 3), row flags (h,), column flags (w,)).
+    ``pack``: a tile-local window (y0, x0, h, w) holding the core, h % 4
+    == 0 and w % 2 == 0, returned as packed I420 in place of the core (the
+    flags are still the core's, from its BGR pixels)."""
     img, _ = mb_blend(canvas, ext_h, ext_w)
     y0, y1, x0, x1 = core
-    win = clip_u8(img[y0:y1, x0:x1])
-    rows, cols = content_flags(win)
-    return win, rows, cols
+    if pack is None:
+        win = clip_u8(img[y0:y1, x0:x1])
+        rows, cols = content_flags(win)
+        return win, rows, cols
+    py, px, ph, pw = pack
+    win = clip_u8(img[py:py + ph, px:px + pw])
+    rows, cols = content_flags(win[y0 - py:y1 - py, x0 - px:x1 - px])
+    return bgr_to_yuv420(win), rows, cols
+
+
+def _packed_window(core: Tuple[int, int, int, int], ext_h: int, ext_w: int):
+    """The tile-local window the JAX package packs around a tile's core
+    (ops/blend.py:466-474: the core's dims snapped up to 256 and kept in
+    the ext window) as (y0, x0, h, w), or None where its dims break the
+    I420 contract (h % 4, w % 2) and the core is fetched as BGR."""
+    y0, y1, x0, x1 = core
+    ph = min(align_up(y1 - y0, 256), ext_h)
+    pw = min(align_up(x1 - x0, 256), ext_w)
+    if ph % 4 or pw % 2:
+        return None
+    return min(y0, ext_h - ph), min(x0, ext_w - pw), ph, pw
 
 
 def _bbox_from_flags(entries, canvas_h: int, canvas_w: int):
@@ -244,7 +271,8 @@ def mb_compose_tiled(canvas_h: int, canvas_w: int, bands: int,
                      feed_tile: FeedTile, device,
                      tile: Optional[int] = None, assemble: str = "host",
                      on_rows: Optional[Callable[[int, int, np.ndarray],
-                                                None]] = None):
+                                                None]] = None,
+                     fetch_packed: bool = False):
     """Multiband blend streamed through canvas tiles.
 
     ``frame_boxes``: per-frame (x0, y0, x1, y1) canvas-space bounds;
@@ -270,14 +298,21 @@ def mb_compose_tiled(canvas_h: int, canvas_w: int, bands: int,
     once every tile of a tile row has landed (empty tiles included), with
     ``rows`` the finished ``mosaic[y0:y1]`` view, never written again; the
     caller streams the mosaic out while later tile rows still blend.
+
+    ``fetch_packed`` (host assembly only): each tile leaves the device as
+    the packed video-range I420 of the window the JAX package packs around
+    its core (half the bytes of BGR) and is unpacked on the host with
+    ``cv2.COLOR_YUV2BGR_I420``; the 4:2:0 chroma costs up to ~3 gray
+    levels. A window whose dims break the I420 contract is fetched as BGR.
     """
     if assemble not in ("host", "device"):
         raise ValueError(f"assemble must be 'host' or 'device', got "
                          f"{assemble!r}")
     devices = placement(device)
-    if assemble == "device" and (on_rows is not None or len(devices) > 1):
-        raise ValueError("assemble='device' supports neither on_rows nor "
-                         "a device list")
+    if assemble == "device" and (on_rows is not None or len(devices) > 1
+                                 or fetch_packed):
+        raise ValueError("assemble='device' supports neither on_rows, "
+                         "fetch_packed nor a device list")
     bands = tiled_bands(canvas_h, canvas_w, bands, tile)
     tiles, _ = mb_tile_grid(canvas_h, canvas_w, bands, tile)
     g = 1 << bands
@@ -296,11 +331,21 @@ def mb_compose_tiled(canvas_h: int, canvas_w: int, bands: int,
     next_band = 0
     pending = []        # blended tiles whose cores are not fetched yet
 
-    def land(cy0, cy1, cx0, cx1, win=None, rows=None, cols=None):
+    def land(cy0, cy1, cx0, cx1, origin=None, win=None, rows=None,
+             cols=None):
+        """Place a tile's core; ``origin``: the canvas (y, x) of a packed
+        window, which is unpacked on the host and cut to the core."""
         nonlocal next_band
         if win is not None:
             if assemble == "device":
                 out[cy0:cy1, cx0:cx1] = win
+            elif origin is not None:
+                import cv2
+                oy, ox = origin
+                bgr = cv2.cvtColor(win.cpu().numpy(),
+                                   cv2.COLOR_YUV2BGR_I420)
+                out[cy0:cy1, cx0:cx1] = bgr[cy0 - oy:cy1 - oy,
+                                            cx0 - ox:cx1 - ox]
             else:
                 out[cy0:cy1, cx0:cx1] = win.cpu().numpy()
             flags.append((cy0, cx0, rows.to(devices[0]),
@@ -325,8 +370,11 @@ def mb_compose_tiled(canvas_h: int, canvas_w: int, bands: int,
                               devices[t_idx % len(devices)])
         for i in sel:
             canvas_t = feed_tile(canvas_t, i, ey0, ex0, eh, ew)
-        pending.append((cy0, cy1, cx0, cx1) + _blend_core(
-            canvas_t, eh, ew, (cy0 - ey0, cy1 - ey0, cx0 - ex0, cx1 - ex0)))
+        core = (cy0 - ey0, cy1 - ey0, cx0 - ex0, cx1 - ex0)
+        pack = _packed_window(core, eh, ew) if fetch_packed else None
+        origin = None if pack is None else (ey0 + pack[0], ex0 + pack[1])
+        pending.append((cy0, cy1, cx0, cx1, origin) + _blend_core(
+            canvas_t, eh, ew, core, pack))
         del canvas_t
         while len(pending) >= len(devices):
             land(*pending.pop(0))

@@ -12,17 +12,23 @@ frames and writes all three float32 channels and the warped content mask
 of each (BORDER_CONSTANT 0 outside the source). The mask is the warp of
 all-ones (``content="ones"``, the strip compose) or of the source's gray
 > 2 indicator (``content="nonblack"``, the global compose:
-:func:`ops.color.content_mask`). Frames are uint8 (as decoded) or float32
-(area-resized for compositing below full resolution, which the JAX
-package warps unquantised); float32 frames take ``content="ones"`` only,
-as no caller of either package warps float frames in content mode.
+:func:`ops.color.content_mask`). Frames are uint8 BGR (as decoded),
+float32 BGR (area-resized for compositing below full resolution, which the
+JAX package warps unquantised) or packed I420 uint8 (a ``yuv420`` frame
+store's JPEG planes: (H*3/2, W) a frame, H % 4 == 0, W % 2 == 0), which
+the kernel converts tap by tap exactly as :func:`ops.color.yuv420_to_bgr`
+converts the frame (the JAX package feeds its kernel
+``yuv420_to_bgr(frame)``). Float32 and I420 frames take
+``content="ones"`` only, as no caller of either package warps them in
+content mode.
 
 :func:`warp_frame` (one frame) and :func:`warp_frames` (a batch, as the
 JAX package's ``warp_affine_many``) launch the kernel for CUDA tensors and
 run the plain versions for CPU tensors; they never fall back from one to
 the other. Every launch counts in its wrapper's ``launches``; content-
-mode launches also in ``warp_frame.nonblack_launches`` and float32-source
-launches in ``warp_frame.f32_launches`` (both shared by the wrappers).
+mode launches also in ``warp_frame.nonblack_launches``, float32-source
+launches in ``warp_frame.f32_launches`` and I420-source launches in
+``warp_frame.i420_launches`` (all three shared by the wrappers).
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ import numpy as np
 import torch
 
 from ..runtime.kernels import load_kernel, stream_handle
-from .color import content_mask
+from .color import content_mask, yuv420_to_bgr
 from .warp import bilinear_sample, dst_to_src_coords
 
 KERNEL_SOURCE = "warp_affine.cu"
@@ -46,6 +52,7 @@ _TAIL = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
 KERNEL_SIGNATURES = {
     "warp_affine_u8": (ctypes.c_int, _HEAD + [ctypes.c_int] + _TAIL),
     "warp_affine_f32": (ctypes.c_int, _HEAD + _TAIL),
+    "warp_affine_i420": (ctypes.c_int, _HEAD + _TAIL),
 }
 CONTENT_MODES = ("ones", "nonblack")
 SOURCE_DTYPES = (torch.uint8, torch.float32)
@@ -101,12 +108,22 @@ def inverse_coeffs(a23) -> tuple:
             i10, i11, -_r32(i11 * ty + _r32(i10 * tx)))
 
 
+def _is_i420(frames: torch.Tensor) -> bool:
+    """Packed I420 frames end in an even width; BGR frames in their 3
+    channels (the shape checks of :func:`_check` hold either way)."""
+    return frames.dtype == torch.uint8 and frames.shape[-1] != 3
+
+
 def warp_frame_plain(img: torch.Tensor, inv, out_h: int, out_w: int,
                      content: str = "ones"):
-    """Plain PyTorch version of K2 for one uint8 or float32 frame and its
-    :func:`inverse_coeffs`: (warped (out_h, out_w, 3) float32, warped
-    content mask (out_h, out_w) float32: the warp of all-ones, or with
-    ``content="nonblack"`` of :func:`ops.color.content_mask`)."""
+    """Plain PyTorch version of K2 for one uint8 or float32 BGR frame, or
+    a packed I420 frame (converted by :func:`ops.color.yuv420_to_bgr`
+    first), and its :func:`inverse_coeffs`: (warped (out_h, out_w, 3)
+    float32, warped content mask (out_h, out_w) float32: the warp of
+    all-ones, or with ``content="nonblack"`` of
+    :func:`ops.color.content_mask`)."""
+    if _is_i420(img):
+        img = yuv420_to_bgr(img)
     inv23 = torch.tensor(inv, dtype=torch.float32,
                          device=img.device).reshape(2, 3)
     sx, sy = dst_to_src_coords(inv23, out_h, out_w)
@@ -131,16 +148,24 @@ def warp_frames_plain(frames: torch.Tensor, invs, out_h: int,
 
 def _launch(src: torch.Tensor, nf: int, invs, out_h: int, out_w: int,
             content: str = "ones"):
-    """One kernel launch over ``nf`` contiguous (H, W, 3) uint8 or float32
-    frames (``src``: (H, W, 3) for one, (N, H, W, 3) for a batch);
-    ``invs``: one coefficient tuple (passed by value, nf == 1) or a device
-    (N, 6) float32 table. Returns the warped planes, shaped with src's
-    leading dimensions."""
+    """One kernel launch over ``nf`` contiguous frames: (H, W, 3) uint8 or
+    float32 BGR, or (H*3/2, W) packed I420 (``src``: one frame, or a batch
+    with a leading N); ``invs``: one coefficient tuple (passed by value,
+    nf == 1) or a device (N, 6) float32 table. Returns the warped planes,
+    shaped with src's leading dimensions."""
     f32 = src.dtype == torch.float32
-    name = "warp_affine_f32" if f32 else "warp_affine_u8"
+    i420 = _is_i420(src)
+    name = ("warp_affine_f32" if f32 else
+            "warp_affine_i420" if i420 else "warp_affine_u8")
     fn = load_kernel(KERNEL_SOURCE, KERNEL_SIGNATURES).fns[name]
-    lead = src.shape[:-3]
-    h, w = src.shape[-3], src.shape[-2]
+    if i420:
+        lead = src.shape[:-2]
+        h, w = src.shape[-2] * 2 // 3, src.shape[-1]
+        stride = src.shape[-2] * w
+    else:
+        lead = src.shape[:-3]
+        h, w = src.shape[-3], src.shape[-2]
+        stride = h * w * 3
     dev = src.device
     wimg = torch.empty(lead + (out_h, out_w, 3), dtype=torch.float32,
                        device=dev)
@@ -150,9 +175,9 @@ def _launch(src: torch.Tensor, nf: int, invs, out_h: int, out_w: int,
         table, coeffs = invs.data_ptr(), (0.0,) * 6
     else:
         table, coeffs = None, invs
-    mode = () if f32 else (int(content == "nonblack"),)
+    mode = () if f32 or i420 else (int(content == "nonblack"),)
     with torch.cuda.device(dev):    # <<<>>> binds to the current device
-        err = fn(src.data_ptr(), h * w * 3, h, w, table, *coeffs, *mode,
+        err = fn(src.data_ptr(), stride, h, w, table, *coeffs, *mode,
                  wimg.data_ptr(), mask.data_ptr(), out_h, out_w, nf,
                  stream_handle(dev))
     if err != 0:
@@ -162,27 +187,39 @@ def _launch(src: torch.Tensor, nf: int, invs, out_h: int, out_w: int,
 
 def _check(frames: torch.Tensor, ndim: int, out_h: int, out_w: int,
            content: str):
-    if frames.dtype not in SOURCE_DTYPES or frames.ndim != ndim \
+    """``ndim``: the rank of BGR frames here (3 for one, 4 for a batch);
+    packed I420 frames have one dimension less."""
+    lead = "" if ndim == 3 else "N, "
+    i420 = frames.dtype == torch.uint8 and frames.ndim == ndim - 1
+    if i420:
+        rows, w = frames.shape[-2], frames.shape[-1]
+        if rows % 6 or w % 2 or rows == 0:
+            raise ValueError(f"K2's I420 source takes ({lead}H*3/2, W) uint8 "
+                             f"frames with H % 4 == 0 and W % 2 == 0, got "
+                             f"{tuple(frames.shape)}")
+    elif frames.dtype not in SOURCE_DTYPES or frames.ndim != ndim \
             or frames.shape[-1] != 3:
-        shape = "(H, W, 3)" if ndim == 3 else "(N, H, W, 3)"
-        raise ValueError(f"K2 takes {shape} uint8 or float32 frames, got "
+        raise ValueError(f"K2 takes ({lead}H, W, 3) uint8 or float32 BGR or "
+                         f"({lead}H*3/2, W) uint8 I420 frames, got "
                          f"{tuple(frames.shape)} {frames.dtype}")
     if out_h <= 0 or out_w <= 0:
         raise ValueError(f"empty output window {out_h}x{out_w}")
     if content not in CONTENT_MODES:
         raise ValueError(f"content must be one of {CONTENT_MODES}, got "
                          f"{content!r}")
-    if content != "ones" and frames.dtype == torch.float32:
-        raise ValueError(f"content={content!r} takes uint8 frames; float32 "
-                         f"frames warp with content='ones' only")
+    if content != "ones" and (frames.dtype == torch.float32 or i420):
+        raise ValueError(f"content={content!r} takes uint8 BGR frames; "
+                         f"float32 and I420 frames warp with "
+                         f"content='ones' only")
     if frames.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {frames.device}")
 
 
 def warp_frame(img: torch.Tensor, a23, out_h: int, out_w: int,
                content: str = "ones"):
-    """Warp an (H, W, 3) uint8 or float32 BGR frame by the src->dst affine
-    ``a23`` (host (2, 3)) into an (out_h, out_w) window.
+    """Warp an (H, W, 3) uint8 or float32 BGR frame, or an (H*3/2, W)
+    packed I420 frame, by the src->dst affine ``a23`` (host (2, 3)) into
+    an (out_h, out_w) window.
 
     Returns (warped (out_h, out_w, 3) float32, content mask (out_h, out_w)
     float32: the bilinear footprint of the source rectangle, or with
@@ -196,14 +233,15 @@ def warp_frame(img: torch.Tensor, a23, out_h: int, out_w: int,
     if img.device.type == "cpu":
         return warp_frame_plain(img, inv, out_h, out_w, content)
     out = _launch(img.contiguous(), 1, inv, out_h, out_w, content)
-    _count_launch(warp_frame, content, img.dtype)
+    _count_launch(warp_frame, content, img)
     return out
 
 
 def warp_frames(frames: torch.Tensor, a23s, out_h: int, out_w: int,
                 content: str = "ones"):
-    """Warp N same-size (N, H, W, 3) uint8 or float32 frames, each by its
-    src->dst affine (host (N, 2, 3)), into one (out_h, out_w) window size.
+    """Warp N same-size frames ((N, H, W, 3) uint8 or float32 BGR, or
+    (N, H*3/2, W) packed I420), each by its src->dst affine (host
+    (N, 2, 3)), into one (out_h, out_w) window size.
 
     Returns ((N, out_h, out_w, 3), (N, out_h, out_w)) float32, the mask as
     in :func:`warp_frame`. CUDA frames make ONE launch of
@@ -222,23 +260,27 @@ def warp_frames(frames: torch.Tensor, a23s, out_h: int, out_w: int,
         return warp_frames_plain(frames, invs, out_h, out_w, content)
     table = torch.tensor(invs, dtype=torch.float32).to(frames.device)
     out = _launch(frames.contiguous(), nf, table, out_h, out_w, content)
-    _count_launch(warp_frames, content, frames.dtype)
+    _count_launch(warp_frames, content, frames)
     return out
 
 
-def _count_launch(wrapper, content: str, dtype: torch.dtype) -> None:
+def _count_launch(wrapper, content: str, src: torch.Tensor) -> None:
     """One kernel launch by ``wrapper`` (its ``launches``); a content-mode
     launch of either wrapper also counts in the one shared
     ``warp_frame.nonblack_launches``, a float32-source launch in the one
-    shared ``warp_frame.f32_launches``."""
+    shared ``warp_frame.f32_launches``, an I420-source launch in the one
+    shared ``warp_frame.i420_launches``."""
     wrapper.launches += 1
     if content == "nonblack":
         warp_frame.nonblack_launches += 1
-    if dtype == torch.float32:
+    if src.dtype == torch.float32:
         warp_frame.f32_launches += 1
+    if _is_i420(src):
+        warp_frame.i420_launches += 1
 
 
 warp_frame.launches = 0
 warp_frame.nonblack_launches = 0
 warp_frame.f32_launches = 0
+warp_frame.i420_launches = 0
 warp_frames.launches = 0

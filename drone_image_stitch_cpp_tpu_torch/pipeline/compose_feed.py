@@ -1,8 +1,9 @@
 """Per-frame compose feed into the canvas pyramid.
 
 Port of ``drone_image_stitch_cpp_tpu/pipeline/compose_feed.py::
-_feed_body``: warp the frame (uint8, or float32 below full compositing
-resolution) and its content mask into the ROI window (ONE launch of K2,
+_feed_body``: warp the frame (uint8 BGR, packed I420 from a ``yuv420``
+frame store, or float32 below full compositing resolution) and its content
+mask into the ROI window (ONE launch of K2,
 ops/warp_kernel.py; with the perspective warper, ``persp=True``, two
 plain ``ops/warp.warp_perspective`` warps instead, as the JAX package
 never sends those to its Pallas kernel), apply the gains, upsample the
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from ..ops import blend as B
+from ..ops.color import yuv420_to_bgr
 from ..ops.gaussian import gaussian_blur
 from ..ops.warp import warp_perspective
 from ..ops.warp_kernel import warp_frame
@@ -62,10 +64,12 @@ def feed_frame(cv: B.MultiBandCanvas, img: torch.Tensor,
                h33: Optional[np.ndarray] = None) -> B.MultiBandCanvas:
     """Feed one frame's ROI window into ``cv`` (in place).
 
-    ``img``: (H, W, 3) uint8 or float32 device frame; ``seam_mask``:
-    (gh, gw) bool at seam scale; ``t_full``: host (2, 3) frame->window
-    affine; (tlx, tly) the window's canvas offset (in ``cv``) and (gx, gy)
-    its offset on the seam-scale canvas's full-resolution grid;
+    ``img``: (H, W, 3) uint8 or float32 device frame, or an (H*3/2, W)
+    packed I420 one (K2's I420 source; compose_feed.py:77-80);
+    ``seam_mask``: (gh, gw) bool at seam scale; ``t_full``: host (2, 3)
+    frame->window affine; (tlx, tly) the window's canvas offset (in
+    ``cv``) and (gx, gy) its offset on the seam-scale canvas's
+    full-resolution grid;
     ``gain_m1``: optional (gh, gw) block-gain-minus-1 surface; ``mode``:
     "strip" or "global" (see the module doc); ``chan_gain``: optional host
     (3,) gains; ``persp`` (strip mode, the perspective warper): warp the
@@ -82,6 +86,8 @@ def feed_frame(cv: B.MultiBandCanvas, img: torch.Tensor,
     if persp:
         if mode != "strip":
             raise ValueError("the perspective route feeds strip mode only")
+        if img.ndim == 2:
+            img = yuv420_to_bgr(img)
         ones = torch.ones(img.shape[:2], dtype=torch.float32, device=dev)
         wimg = warp_perspective(img, h33, rh, rw)
         cm = warp_perspective(ones, h33, rh, rw)

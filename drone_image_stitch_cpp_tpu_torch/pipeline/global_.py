@@ -253,7 +253,8 @@ def _to_seam(strip_u8: torch.Tensor, t_small: np.ndarray, hp_s: int,
 def stitch_inter_strips_custom(strips: List, tuning: Optional[StitchTuning]
                                = None, seed: int = 0, device=None,
                                info: Optional[dict] = None,
-                               row_sink=None) -> np.ndarray:
+                               row_sink=None,
+                               fetch_packed: bool = False) -> np.ndarray:
     """Compose strip panoramas (host arrays or :class:`DeviceStrip`) into
     one cropped mosaic (reference :386-675) on ``device`` (default: the
     device strips'). ``info``: optional dict that receives ``transforms``
@@ -275,6 +276,12 @@ def stitch_inter_strips_custom(strips: List, tuning: Optional[StitchTuning]
     the JAX package's mesh, global_.py:358, 608-612): every strip is
     pulled onto the first, where the stage runs, and a tiled blend
     spreads its tiles over the list.
+
+    ``fetch_packed``: a tiled blend's tiles leave the device as packed
+    I420 (``ops/blend.mb_compose_tiled``; up to ~3 gray levels of 4:2:0
+    chroma loss). Off by default: the JAX package turns it on
+    (``TM_FETCH_PACKED``, global_.py:612) to halve the bytes over its
+    remote TPU link, which a card on PCIe does not need.
     """
     log = get_logger()
     tuning = tuning or StitchTuning()
@@ -454,7 +461,8 @@ def stitch_inter_strips_custom(strips: List, tuning: Optional[StitchTuning]
                             error=str(err))
             out, bbox = B.mb_compose_tiled(canvas_h, canvas_w, bands,
                                            frame_boxes, feed_roi, devices,
-                                           on_rows=on_rows)
+                                           on_rows=on_rows,
+                                           fetch_packed=fetch_packed)
             if on_rows is not None:
                 try:
                     t0 = time.perf_counter()

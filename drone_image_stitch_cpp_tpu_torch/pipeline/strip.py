@@ -26,6 +26,13 @@ float32 (K2's float32 source), with the transforms rescaled;
 ``use_affine_warper=False`` sends the seam-scale warps and every compose
 feed through the plain perspective warp (``ops/warp.warp_perspective``)
 instead of K2.
+
+A ``yuv420`` frame store's packed I420 frames go to K2's I420 source (one
+batched launch for the seam warps, one launch per compose feed); the
+perspective warper warps their ``ops/color.yuv420_to_bgr`` conversion, and
+compositing below full resolution resizes the store's host BGR frames
+(strip.py:255-260 of the JAX package takes store frames only when
+cs >= 1).
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from ..ops import blend as B
 from ..ops import exposure as E
 from ..ops import match as M
 from ..ops import seam as S
+from ..ops.color import yuv420_to_bgr
 from ..ops.crop import auto_crop_black_border
 from ..ops.resize import resize_area, scale_for_megapixels
 from ..ops.ransac import find_homography
@@ -66,7 +74,9 @@ class StripStitchError(RuntimeError):
 
 class _Frames:
     """Access to a strip's frames: host list (frames may differ in size),
-    device store, or (:meth:`resized`) float32 device frames."""
+    device store (BGR, or packed I420: :meth:`device_frame` and
+    :meth:`device_batch` then serve (H*3/2, W) frames, ``shapes`` the
+    logical (H, W)), or (:meth:`resized`) float32 device frames."""
 
     def __init__(self, images, store, indices, device):
         self.images = images
@@ -89,23 +99,34 @@ class _Frames:
         return self._dev[k]
 
     def device_batch(self) -> torch.Tensor:
-        """All n frames as one (n, H, W, 3) device tensor, for reading
-        only: from a store it may be a view of the store's frames
-        (``FrameStore.batch``), so it must not be written."""
+        """All n frames as one (n, H, W, 3) or (n, H*3/2, W) device
+        tensor, for reading only: from a store it may be a view of the
+        store's frames (``FrameStore.batch``), so it must not be
+        written."""
         if self.store is not None:
             return self.store.batch(self.indices)
         if self.images is None:
             return torch.stack([self._dev[k] for k in range(self.n)])
         return torch.from_numpy(np.stack(self.images)).to(self.device)
 
+    def _bgr_u8(self, k: int) -> torch.Tensor:
+        """Frame k as (H, W, 3) uint8 BGR on the device: a packed store's
+        host BGR frame (``FrameStore.host_frame``, the JPEG decoded as the
+        eager loader decodes it) crosses to the device; any other frame is
+        read where it is."""
+        if self.store is not None and self.store.fmt == "yuv420":
+            return torch.from_numpy(self.store.host_frame(
+                self.indices[k])).to(self.device)
+        return self.device_frame(k)
+
     def resized(self, cs: float) -> "_Frames":
         """The frames area-resized by ``cs`` on the device and kept float32
-        (strip.py:232-235): a store's frames are read on the device, host
-        frames cross once."""
+        (strip.py:232-235): a BGR store's frames are read on the device, a
+        packed store's host BGR frames and host frames cross once."""
         out = _Frames.__new__(_Frames)
         out.images = out.store = out.indices = None
         out.device, out.n = self.device, self.n
-        out._dev = {k: resize_area(self.device_frame(k).to(torch.float32),
+        out._dev = {k: resize_area(self._bgr_u8(k).to(torch.float32),
                                    max(1, int(round(h * cs))),
                                    max(1, int(round(w * cs))))
                     for k, (h, w) in enumerate(self.shapes)}
@@ -218,11 +239,14 @@ def _scale_transform(t33: np.ndarray, s: float) -> np.ndarray:
 
 def _seam_warps_persp(fr: _Frames, t_seam: np.ndarray, sh: int, sw: int):
     """The perspective warper's seam-scale warps (strip.py:60-73): each
-    frame and its all-ones mask by ``warp_perspective``; (images (n, sh,
-    sw, 3), footprints (n, sh, sw))."""
+    frame (packed I420 converted to BGR first) and its all-ones mask by
+    ``warp_perspective``; (images (n, sh, sw, 3), footprints (n, sh,
+    sw))."""
     imgs, masks = [], []
     for k in range(fr.n):
         img = fr.device_frame(k)
+        if img.ndim == 2:
+            img = yuv420_to_bgr(img)
         h33 = np.vstack([t_seam[k], [0.0, 0.0, 1.0]]).astype(np.float32)
         ones = torch.ones(img.shape[:2], dtype=torch.float32,
                           device=img.device)

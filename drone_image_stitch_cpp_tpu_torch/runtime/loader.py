@@ -83,7 +83,21 @@ def _scan(folder: str, exts) -> List[str]:
     return [os.path.join(folder, n) for n in names]
 
 
-def decode_all(paths: List[str]) -> List[Optional[np.ndarray]]:
+def _downscale(img: Optional[np.ndarray], denom: int
+               ) -> Optional[np.ndarray]:
+    """A full decode brought to 1/denom with cv2's area resize, as the JAX
+    package does where libjpeg's DCT scaling is not available
+    (runtime/feed.py:21-35: the same low-pass, a slower route)."""
+    if img is None or denom == 1:
+        return img
+    import cv2
+    return cv2.resize(img, (max(1, img.shape[1] // denom),
+                            max(1, img.shape[0] // denom)),
+                      interpolation=cv2.INTER_AREA)
+
+
+def decode_all(paths: List[str], scale_denom: int = 1
+               ) -> List[Optional[np.ndarray]]:
     """Parallel decode preserving per-file failures as None entries.
 
     The native codec's pthread pool decodes the JPEGs; a file it cannot
@@ -92,6 +106,8 @@ def decode_all(paths: List[str]) -> List[Optional[np.ndarray]]:
     failure keeps the reference's skip-unreadable semantics
     (image_loader.cpp:52-59). With no codec and neither cv2 nor PIL there
     is no decoder at all: that raises with the codec's reason.
+    ``scale_denom`` (1, 2, 4 or 8) decodes at 1/denom resolution: libjpeg's
+    DCT scaling in the codec, else a full decode and cv2's area resize.
     """
     import concurrent.futures as cf
 
@@ -104,13 +120,14 @@ def decode_all(paths: List[str]) -> List[Optional[np.ndarray]]:
     n_threads = min(8, (os.cpu_count() or 1) * 2)
     out: List[Optional[np.ndarray]] = [None] * len(paths)
     if jpeg_codec_error() is None:
-        out = decode_batch_native(list(paths), n_threads=n_threads)
+        out = decode_batch_native(list(paths), n_threads=n_threads,
+                                  scale_denom=scale_denom)
     redo = [i for i, img in enumerate(out) if img is None]
     if redo:
         with cf.ThreadPoolExecutor(max_workers=n_threads) as ex:
             for i, img in zip(redo, ex.map(_decode_bgr,
                                            [paths[i] for i in redo])):
-                out[i] = img
+                out[i] = _downscale(img, scale_denom)
     return out
 
 

@@ -1,17 +1,20 @@
 """ctypes bindings for the native host libraries, built from ``native/``.
 
 A copy of ``drone_image_stitch_cpp_tpu/utils/native.py`` trimmed to the
-JPEG decode, the incremental JPEG encode and the graph-cut min-cut solver
-(``tm_graphcut``, a Boykov-Kolmogorov max-flow). Both libraries are built
-from the repo's sources with the host C++ compiler into ``build/native/``
-at first use, keyed by the sources and flags, so every machine runs the
-same code (no ``-march=native``; the committed ``native/libtmnative.so``
-is not loaded):
+JPEG decode (BGR, BGR at 1/denom by libjpeg's DCT scaling, and the raw
+4:2:0 planes as packed I420), the incremental JPEG encode and the
+graph-cut min-cut solver (``tm_graphcut``, a Boykov-Kolmogorov
+max-flow). Both libraries are built from the repo's sources with the host
+C++ compiler into ``build/native/`` at first use, keyed by the sources and
+flags, so every machine runs the same code (no ``-march=native``; the
+committed ``native/libtmnative.so`` is not loaded):
 
 * the JPEG codec from ``native/decode.cpp`` + ``native/encode.cpp``,
   linked with the system libjpeg. Where there is no compiler or no
   libjpeg, :func:`jpeg_codec_error` gives the compiler's first error line
-  and every codec read or write raises with it;
+  and every codec read or write raises with it, but the raw 4:2:0
+  decodes, which return None there (the frame store's probe then stores
+  BGR);
 * the solver from ``native/graphcut.cpp`` (no libjpeg needed).
 """
 
@@ -125,10 +128,17 @@ def _codec():
                 lib.tm_decode_jpeg.restype = u8p
                 lib.tm_decode_jpeg.argtypes = [ctypes.c_char_p, ip, ip]
                 lib.tm_free.argtypes = [u8p]
-                lib.tm_decode_jpeg_batch.restype = ctypes.c_int
-                lib.tm_decode_jpeg_batch.argtypes = [
-                    ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
-                    ctypes.POINTER(u8p), ip, ip, ctypes.c_int]
+                batch = [ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
+                         ctypes.POINTER(u8p), ip, ip, ctypes.c_int]
+                lib.tm_decode_jpeg_yuv420.restype = u8p
+                lib.tm_decode_jpeg_yuv420.argtypes = [ctypes.c_char_p, ip,
+                                                      ip]
+                for fn, extra in (("tm_decode_jpeg_batch", []),
+                                  ("tm_decode_jpeg_batch_yuv420", []),
+                                  ("tm_decode_jpeg_batch_scaled",
+                                   [ctypes.c_int])):
+                    getattr(lib, fn).restype = ctypes.c_int
+                    getattr(lib, fn).argtypes = batch + extra
                 uptr = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C")
                 lib.tm_jpeg_enc_start.restype = ctypes.c_void_p
                 lib.tm_jpeg_enc_start.argtypes = [
@@ -188,33 +198,103 @@ def decode_image_native(path: str) -> Optional[np.ndarray]:
     return arr
 
 
-def decode_batch_native(paths: List[str], n_threads: int = 4
-                        ) -> List[Optional[np.ndarray]]:
-    """Thread-pool batch decode of JPEG paths (the codec's pthread pool);
-    entries that are not JPEGs or do not decode are None. Raises when the
-    codec is not built."""
-    lib = _require_codec()
+def _batch(lib, name: str, paths: List[str], n_threads: int, rows,
+           extra=()) -> List[Optional[np.ndarray]]:
+    """Run the codec's pthread-pool batch entry ``name`` over ``paths``
+    (JPEGs only); entry i is the uint8 array of shape ``rows(h, w)`` the
+    codec returned for it, or None where it returned none."""
+    n = len(paths)
+    if n == 0:
+        return []
+    c_paths = (ctypes.c_char_p * n)(*[p.encode() for p in paths])
+    bufs = (ctypes.POINTER(ctypes.c_ubyte) * n)()
+    ws = (ctypes.c_int * n)()
+    hs = (ctypes.c_int * n)()
+    getattr(lib, name)(c_paths, n, bufs, ws, hs, n_threads, *extra)
+    out: List[Optional[np.ndarray]] = []
+    try:
+        for i in range(n):
+            out.append(np.ctypeslib.as_array(
+                bufs[i], shape=rows(hs[i], ws[i])).copy()
+                if bufs[i] else None)
+    finally:
+        for i in range(n):
+            if bufs[i]:
+                lib.tm_free(bufs[i])
+    return out
+
+
+def _jpeg_only(paths: List[str], decode) -> List[Optional[np.ndarray]]:
+    """``decode(jpeg_paths)`` over the JPEG entries of ``paths``; None for
+    the others, in order."""
     jpeg = [p.lower().endswith((".jpg", ".jpeg")) for p in paths]
-    todo = [p for p, j in zip(paths, jpeg) if j]
-    got: List[Optional[np.ndarray]] = []
-    if todo:
-        n = len(todo)
-        c_paths = (ctypes.c_char_p * n)(*[p.encode() for p in todo])
-        bufs = (ctypes.POINTER(ctypes.c_ubyte) * n)()
-        ws = (ctypes.c_int * n)()
-        hs = (ctypes.c_int * n)()
-        lib.tm_decode_jpeg_batch(c_paths, n, bufs, ws, hs, n_threads)
-        try:
-            for i in range(n):
-                got.append(np.ctypeslib.as_array(
-                    bufs[i], shape=(hs[i], ws[i], 3)).copy()
-                    if bufs[i] else None)
-        finally:
-            for i in range(n):
-                if bufs[i]:
-                    lib.tm_free(bufs[i])
-    it = iter(got)
+    it = iter(decode([p for p, j in zip(paths, jpeg) if j]))
     return [next(it) if j else None for j in jpeg]
+
+
+def decode_batch_native(paths: List[str], n_threads: int = 4,
+                        scale_denom: int = 1
+                        ) -> List[Optional[np.ndarray]]:
+    """Thread-pool batch decode of JPEG paths to (H, W, 3) uint8 BGR (the
+    codec's pthread pool); entries that are not JPEGs or do not decode are
+    None. ``scale_denom`` in {1, 2, 4, 8} decodes at 1/denom resolution by
+    libjpeg's DCT scaling (``tm_decode_jpeg_batch_scaled``). Raises when
+    the codec is not built."""
+    lib = _require_codec()
+    if scale_denom not in (1, 2, 4, 8):
+        raise ValueError(f"scale_denom must be 1, 2, 4 or 8, got "
+                         f"{scale_denom}")
+
+    def rows(h, w):
+        return (h, w, 3)
+
+    if scale_denom == 1:
+        return _jpeg_only(paths, lambda ps: _batch(
+            lib, "tm_decode_jpeg_batch", ps, n_threads, rows))
+    return _jpeg_only(paths, lambda ps: _batch(
+        lib, "tm_decode_jpeg_batch_scaled", ps, n_threads, rows,
+        (scale_denom,)))
+
+
+def _i420_rows(h, w):
+    return (h * 3 // 2, w)
+
+
+def decode_image_yuv420_native(path: str) -> Optional[np.ndarray]:
+    """Decode one 4:2:0 JPEG to its own planes, packed I420: an
+    (H*3/2, W) uint8 array (Y, then U, then V, each chroma plane raveled
+    into W-wide rows; ``tm_decode_jpeg_yuv420``). None unless ``path`` is
+    a 3-component YCbCr JPEG with 2x2/1x1/1x1 sampling and even
+    dimensions, and None when the codec is not built (the card machine:
+    the store's ``fmt="auto"`` probe then resolves to BGR)."""
+    lib = _codec()
+    if lib is None or not path.lower().endswith((".jpg", ".jpeg")):
+        return None
+    w = ctypes.c_int()
+    h = ctypes.c_int()
+    buf = lib.tm_decode_jpeg_yuv420(path.encode(), ctypes.byref(w),
+                                    ctypes.byref(h))
+    if not buf:
+        return None
+    try:
+        arr = np.ctypeslib.as_array(
+            buf, shape=_i420_rows(h.value, w.value)).copy()
+    finally:
+        lib.tm_free(buf)
+    return arr
+
+
+def decode_batch_yuv420_native(paths: List[str], n_threads: int = 4
+                               ) -> Optional[List[Optional[np.ndarray]]]:
+    """Thread-pool batch of :func:`decode_image_yuv420_native`
+    (``tm_decode_jpeg_batch_yuv420``); entries that are not 4:2:0 JPEGs
+    with even dimensions, or do not decode, are None. None when the codec
+    is not built."""
+    lib = _codec()
+    if lib is None:
+        return None
+    return _jpeg_only(paths, lambda ps: _batch(
+        lib, "tm_decode_jpeg_batch_yuv420", ps, n_threads, _i420_rows))
 
 
 class NativeJpegEncoder:

@@ -85,6 +85,9 @@ def test_app_writes_panorama_strips_and_checkpoint(straight, sortie, ortho):
     assert rc == 0
     msgs = _msgs(recs)
     assert ("Main", "streaming ingest") in msgs
+    # the folder's 4:2:0 JPEGs take the I420 wire, as in the JAX package
+    ingest = [r for r in recs if r["msg"] == "streaming ingest"]
+    assert ingest[0]["fmt"] == "yuv420"
     assert ("GlobalCustom", "streaming mosaic write") in msgs
     assert ("GlobalCustom", "streamed mosaic written") in msgs
     assert ("Main", "strip-save drain done") in msgs

@@ -56,7 +56,7 @@ def _keypoints(dev, n=200, h=96, w=160, seed=1):
 def _launch_counts():
     return (SK.orientation_descriptor_flat.launches, WK.warp_frame.launches,
             WK.warp_frames.launches, WK.warp_frame.nonblack_launches,
-            WK.warp_frame.f32_launches)
+            WK.warp_frame.f32_launches, WK.warp_frame.i420_launches)
 
 
 def test_cpu_calls_are_not_counted_as_launches():
@@ -70,6 +70,9 @@ def test_cpu_calls_are_not_counted_as_launches():
                        np.stack([a23, a23]), 16, 16, content=content)
     WK.warp_frame(torch.zeros((16, 16, 3)), a23, 16, 16)
     WK.warp_frames(torch.zeros((2, 16, 16, 3)), np.stack([a23, a23]), 16, 16)
+    WK.warp_frame(torch.zeros((24, 16), dtype=torch.uint8), a23, 16, 16)
+    WK.warp_frames(torch.zeros((2, 24, 16), dtype=torch.uint8),
+                   np.stack([a23, a23]), 16, 16)
     assert _launch_counts() == before
 
 
@@ -377,6 +380,71 @@ def test_k2_uint8_unchanged_beside_float32(cuda):
     assert torch.equal(wf, wu) and torch.equal(mf, mu)
     with pytest.raises(ValueError):
         WK.warp_frame(img.float(), a23, 32, 32, content="nonblack")
+
+
+def _i420_frames(dev, n=None, h=36, w=54, seed=9):
+    """Random packed I420 frames (N, H*3/2, W) uint8: independent Y, U
+    and V bytes, so every chroma neighbour and clip is exercised."""
+    g = torch.Generator().manual_seed(seed)
+    shape = (h * 3 // 2, w) if n is None else (n, h * 3 // 2, w)
+    return torch.randint(0, 256, shape, generator=g,
+                         dtype=torch.uint8).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_hw", [(1, 1), (3, 5), (7, 4099), (320, 512)])
+def test_k2_i420_bit_equal_to_plain(cuda, out_hw):
+    """K2's I420 source against its plain version (yuv420_to_bgr, then
+    the float warp): windows over all four frame borders (chroma edge
+    replication, odd and even taps), a rotation at canvas coordinates and
+    a scale-down; the launches count as I420 launches."""
+    img = _i420_frames(cuda)
+    oh, ow = out_hw
+    th = math.radians(15.0)
+    n0 = WK.warp_frame.i420_launches
+    for a23 in ([[1.3, 0.05, 40.3], [-0.04, 1.1, 30.7]],
+                [[0.9, 0.05, -2.3], [-0.04, 1.1, 1.7]],
+                [[math.cos(th), -math.sin(th), 12000.5 - 11990.0],
+                 [math.sin(th), math.cos(th), -3.25]],
+                [[0.49, 0.0, 0.37], [0.0, 0.49, 1.61]]):
+        a23 = np.asarray(a23, np.float32)
+        wk, mk = WK.warp_frame(img, a23, oh, ow)
+        wp, mp = WK.warp_frame_plain(img, WK.inverse_coeffs(a23), oh, ow)
+        assert torch.equal(wk, wp) and torch.equal(mk, mp)
+    assert WK.warp_frame.i420_launches == n0 + 4
+
+
+@pytest.mark.gpu
+def test_k2_i420_batched_equals_per_frame_and_plain(cuda):
+    frames = _i420_frames(cuda, n=5, h=120, w=200)
+    a23s = np.stack([np.asarray([[0.3, -0.01 * k, 7.31 * k],
+                                 [0.01 * k, 0.3, 1.17 * k]], np.float32)
+                     for k in range(5)])
+    n0 = (WK.warp_frames.launches, WK.warp_frame.i420_launches)
+    wimgs, masks = WK.warp_frames(frames, a23s, 64, 130)
+    assert (WK.warp_frames.launches, WK.warp_frame.i420_launches) == (
+        n0[0] + 1, n0[1] + 1)
+    wp, mp = WK.warp_frames_plain(
+        frames, [WK.inverse_coeffs(a) for a in a23s], 64, 130)
+    assert torch.equal(wimgs, wp) and torch.equal(masks, mp)
+    for k in (0, 4):
+        wk, mk = WK.warp_frame(frames[k], a23s[k], 64, 130)
+        assert torch.equal(wimgs[k], wk) and torch.equal(masks[k], mk)
+
+
+def test_k2_i420_rejects_what_it_cannot_read():
+    """Packed frames need H % 4 == 0 (H*3/2 rows a multiple of 6) and an
+    even width, and warp in footprint mode only."""
+    a23 = np.asarray([[1, 0, 0.5], [0, 1, 0]], np.float32)
+    for shape in ((27, 16), (24, 15), (0, 16)):
+        with pytest.raises(ValueError):
+            WK.warp_frame(torch.zeros(shape, dtype=torch.uint8), a23, 8, 8)
+    with pytest.raises(ValueError):
+        WK.warp_frame(torch.zeros((24, 16), dtype=torch.uint8), a23, 8, 8,
+                      content="nonblack")
+    with pytest.raises(ValueError):
+        WK.warp_frames(torch.zeros((2, 27, 16), dtype=torch.uint8),
+                       np.stack([a23, a23]), 8, 8)
 
 
 @pytest.mark.gpu

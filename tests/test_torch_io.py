@@ -225,19 +225,24 @@ def jpeg_dir(tmp_path_factory):
 
 
 def test_frame_store_from_paths_equals_eager_loader(jpeg_dir):
+    """The folder's 4:2:0 JPEGs are stored as their own planes (packed
+    I420, as the JAX package's ``fmt="auto"`` store does where the codec
+    builds); the host frames equal the eager loader's bit for bit, the
+    device frames the codec's raw decode."""
     paths, ids = TL.scan_with_ids(jpeg_dir)
     assert ids == ["IMG%03d" % k for k in range(11)]
     store = FrameStore.from_paths(paths, CPU)
+    assert store.fmt == "yuv420"
     assert store.shape0 == (48, 64, 3) and len(store) == 11
     eager = TL.load_with_ids(jpeg_dir)
     assert eager.ids == ids
+    raw = [TN.decode_image_yuv420_native(p) for p in paths]
     for k, img in enumerate(eager.images):
         np.testing.assert_array_equal(store.host_frame(k), img)
-        np.testing.assert_array_equal(store.frame(k).numpy(), img)
+        np.testing.assert_array_equal(store.frame(k).numpy(), raw[k])
     np.testing.assert_array_equal(store.batch([9, 2, 4]).numpy(),
-                                  np.stack([eager.images[i]
-                                            for i in (9, 2, 4)]))
-    ref = FrameStore(eager.images, CPU)
+                                  np.stack([raw[i] for i in (9, 2, 4)]))
+    ref = FrameStore(raw, CPU, fmt="yuv420")
     assert torch.equal(ref.batch(list(range(11))),
                        store.batch(list(range(11))))
 
