@@ -106,10 +106,15 @@ Phases (one line each; any failure exits nonzero and prints no result):
      machine has no raw decoder): app.stitch_frames twice, the second
      measured with its launch counts set to 0 just before it; the
      corridor's geometry checks, GT-RMSE within 0.5 of phase 4's, K1 4
-     launches and every K2 launch from its I420 source; wall and peak
-     memory beside phase 4's. K2's I420 source at the compose feed and
-     the 12-frame seam batch, bit-equal to its plain version and timed
-     (library: yuv420_to_bgr + F.grid_sample). The half-resolution store:
+     launches and every K2 launch from its I420 source, the compose
+     feeds from its staged kernel and the seam batch per tap (the host
+     plan's choices); wall and peak memory beside phase 4's; a third pass
+     with every launch per tap gives the same panorama. K2's I420 source
+     at the compose feed and the 12-frame seam batch: the wrapper and
+     both kernels (the staged one where its box fits a block) bit-equal
+     to the plain version, both kernels timed in turns, with registers
+     and shared memory (library: yuv420_to_bgr + F.grid_sample). The
+     half-resolution store:
      two corridor JPEGs read at 1/2 and detected with coord_scale=2, the
      planted offset within 1 px.
 The environment line carries the JPEG codec probe (jpeglib.h, the libjpeg
@@ -171,6 +176,7 @@ FB_SIZE_TOL_PX = 8
 I420_TOL_RMSE = 0.5                 # GT-RMSE against the BGR corridor's
 I420_OPS_PER_PX = 166               # K2's I420 source: 4 taps x 34 + 30
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
+SMEM_PER_BLOCK = 232448             # H100: shared memory a block can use
 FP32_OPS_PER_S = 67e12              # float32 outside the tensor cores
 
 
@@ -259,9 +265,24 @@ def _codec_probe() -> str:
             f"g++ '{ver}'; cv2 {mods['cv2']}; PIL {mods['PIL']}")
 
 
+def _ptxas_entries(report: str) -> dict:
+    """{entry: registers} from an -Xptxas -v report, K2's entries by the
+    source they read (u8, f32, i420_per_tap, i420_staged)."""
+    names = {"warp_i420_staged_kernel": "i420_staged", "I420": "i420_per_tap",
+             "warp_affine_kernelIhE": "u8", "warp_affine_kernelIfE": "f32"}
+    out = {}
+    for part in report.split("Compiling entry function '")[1:]:
+        entry = part.split("'")[0]
+        regs = re.search(r"Used (\d+) registers", part)
+        key = next((v for k, v in names.items() if k in entry), entry)
+        out[key] = int(regs.group(1)) if regs else -1
+    return out
+
+
 def phase_build() -> dict:
     """Build both kernels, one nvcc each, started together; returns each
-    source's (registers, spill bytes) as ptxas reports them."""
+    source's (registers, spill bytes, {entry: registers}) as ptxas reports
+    them."""
     from drone_image_stitch_cpp_tpu_torch.ops import sift_kernel as SK
     from drone_image_stitch_cpp_tpu_torch.ops import warp_kernel as WK
     from drone_image_stitch_cpp_tpu_torch.runtime.kernels import load_kernels
@@ -292,7 +313,8 @@ def phase_build() -> dict:
                                            k.ptxas)]
         spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill",
                                                k.ptxas))
-        out[m.KERNEL_SOURCE] = (max(regs, default=-1), spill)
+        out[m.KERNEL_SOURCE] = (max(regs, default=-1), spill,
+                                _ptxas_entries(k.ptxas))
         print(f"[smoke] build {m.KERNEL_SOURCE}: nvcc {k.seconds:.2f} s; "
               f"ptxas: {' | '.join(lines)}", flush=True)
     print(f"[smoke] build: both kernels in {time.perf_counter() - t0:.2f} s",
@@ -630,8 +652,8 @@ def phase_k2_batch(torch, dev, imgs, pos, tuning):
             _fail("k2", f"seam batch: frame {k} differs from its plain warp")
     table = torch.tensor(invs, dtype=torch.float32, device=dev)
     ms = _median_ms(lambda: WK.warp_frames(frames, a23s, sh, sw), torch)
-    device_ms = _device_ms(lambda: WK._launch(frames, len(imgs), table, sh,
-                                              sw), torch)
+    device_ms = _device_ms(lambda: WK._launch(frames, len(imgs), invs, sh,
+                                              sw, table=table), torch)
     plain_ms = _median_ms(lambda: WK.warp_frames_plain(frames, invs, sh, sw),
                           torch)
     library_ms, lib = _k2_library(torch, dev, frames, invs, sh, sw)
@@ -1043,8 +1065,8 @@ def phase_k2_f32(torch, dev, fed, imgs, pos, tuning, cs):
             _fail("k2", f"float32 seam batch: frame {k} differs from its "
                         f"plain warp")
     table = torch.tensor(invs, dtype=torch.float32, device=dev)
-    batch_ms = _device_ms(lambda: WK._launch(frames, len(imgs), table, sh,
-                                             sw), torch)
+    batch_ms = _device_ms(lambda: WK._launch(frames, len(imgs), invs, sh,
+                                             sw, table=table), torch)
     src_px = sum(_k2_source_pixels(torch, dev, inv, rh_, rw_, sh, sw)
                  for inv in invs)
     n_out = len(imgs) * sh * sw
@@ -1077,12 +1099,16 @@ def _jfif_i420(bgr: np.ndarray) -> np.ndarray:
                            u8(cr).reshape(h // 4, w)])
 
 
-def _k2_i420_row(torch, dev, label, frames, a23s, oh, ow):
+def _k2_i420_row(torch, dev, label, frames, a23s, oh, ow, regs):
     """K2's I420 source on ``frames`` ((N, H*3/2, W) packed, one launch;
-    N == 1 is the compose feed's single-frame call) against its plain
-    version (yuv420_to_bgr, then the float warp), bit-equal, and timed as
-    the other K2 rows; the library time is yuv420_to_bgr + F.grid_sample
-    on the same samples."""
+    N == 1 is the compose feed's single-frame call) through its wrapper
+    (the kernel the host plan picks) and with each kernel forced, against
+    its plain version (yuv420_to_bgr, then the float warp): each
+    bit-equal, each timed as the other K2 rows, in turns in this call (per
+    tap, staged, staged, per tap; the staged kernel where its box fits a
+    block's shared memory). The library time is yuv420_to_bgr +
+    F.grid_sample on the same samples. ``regs``: ptxas's registers by
+    entry."""
     import torch.nn.functional as F
     from drone_image_stitch_cpp_tpu_torch.ops import warp_kernel as WK
     from drone_image_stitch_cpp_tpu_torch.ops.color import yuv420_to_bgr
@@ -1090,32 +1116,49 @@ def _k2_i420_row(torch, dev, label, frames, a23s, oh, ow):
     nf = frames.shape[0]
     h, w = frames.shape[1] * 2 // 3, frames.shape[2]
     invs = [WK.inverse_coeffs(a) for a in a23s]
-    n0 = WK.warp_frame.i420_launches
+    plan = WK.i420_plan(invs, h, w, oh, ow)
+    box = WK.i420_box(invs, h, w, oh, ow)
+    smem = WK.i420_smem_bytes(box, h, w)
+    n0 = (WK.warp_frame.i420_launches, WK.warp_frame.i420_staged_launches)
     if nf == 1:
         def wrapper():
             return WK.warp_frame(frames[0], a23s[0], oh, ow)
-        bare = (frames[0], 1, invs[0])
+        bare, table = (frames[0], 1, invs[0]), None
     else:
         def wrapper():
             return WK.warp_frames(frames, a23s, oh, ow)
+        bare = (frames, nf, invs)
         table = torch.tensor(invs, dtype=torch.float32, device=dev)
-        bare = (frames, nf, table)
-    wk, mk = wrapper()
-    if WK.warp_frame.i420_launches != n0 + 1:
-        _fail("i420", f"{label}: the I420 source did not count its launch")
-    wk, mk = wk.reshape(nf, oh, ow, 3), mk.reshape(nf, oh, ow)
+    branches = {"per_tap": False}
+    if smem <= SMEM_PER_BLOCK:
+        branches["staged"] = True
+    outs = {"wrapper": wrapper()}
+    if (WK.warp_frame.i420_launches, WK.warp_frame.i420_staged_launches) \
+            != (n0[0] + 1, n0[1] + (plan is not None)):
+        _fail("i420", f"{label}: the I420 source did not count its launch "
+                      f"as its plan ({plan}) says")
+    for name, staged in branches.items():
+        outs[name] = WK._launch(*bare, oh, ow, table=table,
+                                i420_staged=staged)[:2]
     for k in range(nf):
         wp, mp = WK.warp_frame_plain(frames[k], invs[k], oh, ow)
-        if not (torch.equal(wk[k], wp) and torch.equal(mk[k], mp)):
-            d = float(torch.maximum((wk[k] - wp).abs().max(),
-                                    (mk[k] - mp).abs().max()))
-            _fail("i420", f"{label}: frame {k} not bit-identical to its "
-                          f"plain version (max |d| {d})")
+        for name, (wk, mk) in outs.items():
+            wk, mk = wk.reshape(nf, oh, ow, 3)[k], mk.reshape(nf, oh, ow)[k]
+            if not (torch.equal(wk, wp) and torch.equal(mk, mp)):
+                d = float(torch.maximum((wk - wp).abs().max(),
+                                        (mk - mp).abs().max()))
+                _fail("i420", f"{label} {name}: frame {k} not bit-identical "
+                              f"to its plain version (max |d| {d})")
         del wp, mp
-    covered = float((mk >= 0.5).float().mean())
-    del wk, mk
+    covered = float((outs["wrapper"][1] >= 0.5).float().mean())
+    del outs
     ms = _median_ms(wrapper, torch)
-    device_ms = _device_ms(lambda: WK._launch(*bare, oh, ow), torch)
+    times = {name: [] for name in branches}
+    for name in list(branches) + list(branches)[::-1]:
+        times[name].append(_device_ms(lambda: WK._launch(
+            *bare, oh, ow, table=table, i420_staged=branches[name]), torch))
+    device = {name: float(np.mean(t)) for name, t in times.items()}
+    plan_name = "staged" if plan else "per_tap"
     plain_ms = _median_ms(lambda: [WK.warp_frame_plain(frames[k], invs[k],
                                                        oh, ow)
                                    for k in range(nf)], torch)
@@ -1141,18 +1184,42 @@ def _k2_i420_row(torch, dev, label, frames, a23s, oh, ow):
     bound_ms, bound_by = _bound(n_bytes, I420_OPS_PER_PX * n_out)
     print(f"[smoke] k2 warp_affine I420 source {label}: {nf} x {h}x{w} "
           f"packed I420 -> {oh}x{ow}x3 + mask in one launch, coverage "
-          f"{covered:.3f}; bit-identical to plain; wrapper {ms:.4f} ms, "
-          f"device {device_ms:.4f} ms, plain {plain_ms:.3f} ms, "
-          f"yuv420_to_bgr + grid_sample {library_ms:.4f} ms; bound "
-          f"{bound_ms:.4f} ms by {bound_by} ({n_bytes / 1e6:.1f} MB), share "
-          f"{bound_ms / device_ms:.3f}", flush=True)
-    return {"shape": [nf, h, w, oh, ow], "ms": ms, "device_ms": device_ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "share": bound_ms / device_ms, "max_abs_err": 0.0}
+          f"{covered:.3f}; plan {plan_name} (largest tile box {box[0]}x"
+          f"{box[1]} px, {smem} B of shared memory); wrapper and both "
+          f"kernels bit-identical to plain; wrapper {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, yuv420_to_bgr + grid_sample "
+          f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+          f"({n_bytes / 1e6:.1f} MB)", flush=True)
+    row = {"shape": [nf, h, w, oh, ow], "plan": plan_name, "box": list(box),
+           "ms": ms, "device_ms": device[plan_name], "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "share": bound_ms / device[plan_name],
+           "max_abs_err": 0.0}
+    for name in ("per_tap", "staged"):
+        block = smem if name == "staged" else 0
+        if name not in device:
+            row[name] = {"launched": False, "smem_bytes": smem}
+            print(f"[smoke] k2 I420 {label} staged: not launched, its "
+                  f"{box[0]}x{box[1]} box needs {smem} B of shared memory, "
+                  f"above a block's {SMEM_PER_BLOCK}", flush=True)
+            continue
+        row[name] = {"device_ms": device[name], "device_ms_runs": times[name],
+                     "share": bound_ms / device[name],
+                     "registers": regs.get(f"i420_{name}", -1),
+                     "smem_bytes": block}
+        print(f"[smoke] k2 I420 {label} {name}: device {device[name]:.4f} ms "
+              f"(runs {', '.join(f'{t:.4f}' for t in times[name])}), share "
+              f"{bound_ms / device[name]:.3f}, {row[name]['registers']} "
+              f"registers, {block} B of dynamic shared memory a block",
+              flush=True)
+    if "staged" in device:
+        row["staged_speedup"] = device["per_tap"] / device["staged"]
+        print(f"[smoke] k2 I420 {label}: staged {row['staged_speedup']:.2f}x "
+              f"the per-tap kernel's speed", flush=True)
+    return row
 
 
-def phase_i420(torch, dev, ortho, imgs, ids, pos, tuning, bgr):
+def phase_i420(torch, dev, ortho, imgs, ids, pos, tuning, bgr, regs):
     """The I420 ingest wire on the corridor (the JAX package's store
     format for a drone's 4:2:0 JPEGs). This machine has no libjpeg, so
     no raw 4:2:0 decode: the packed frames are made here from the rendered
@@ -1166,15 +1233,21 @@ def phase_i420(torch, dev, ortho, imgs, ids, pos, tuning, bgr):
     (the second measured, its launch counts set to 0 just before it): the
     corridor's geometry checks, GT-RMSE within I420_TOL_RMSE of the BGR
     corridor's (``bgr``: phase 4's result), K1 4 launches and every K2
-    launch from the I420 source; wall and peak memory beside the BGR
-    pass. Then K2's I420 source at the compose feed and the 12-frame seam
-    batch, each bit-equal to its plain version; then the half-resolution
+    launch from the I420 source, every compose feed (warp_frame) from its
+    staged kernel and every seam batch (warp_frames, a 0.12 downscale) per
+    tap, as the host plan says; wall and peak memory beside the BGR pass.
+    A third pass with the plan forced to the per-tap kernel: the same
+    panorama, so the same GT-RMSE. Then K2's I420 source at the compose
+    feed and the 12-frame seam batch, the wrapper and each kernel
+    bit-equal to the plain version (``regs``: ptxas's registers by
+    entry); then the half-resolution
     store: two corridor frames written as JPEG (cv2), read back with
     scale_denom=2 (cv2's area resize here) and detected with coord_scale=2:
     the planted offset within 1 px. Returns (launch counts, the two K2
     rows)."""
     import cv2
     from drone_image_stitch_cpp_tpu_torch.app import stitch_frames
+    from drone_image_stitch_cpp_tpu_torch.ops import warp_kernel as WK
     from drone_image_stitch_cpp_tpu_torch.ops.blend import align_up
     from drone_image_stitch_cpp_tpu_torch.ops.resize import (
         scale_for_megapixels)
@@ -1203,10 +1276,22 @@ def phase_i420(torch, dev, ortho, imgs, ids, pos, tuning, bgr):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _counts()
+    feeds, batches = WK.warp_frame.launches, WK.warp_frames.launches
     peak = torch.cuda.max_memory_allocated(dev)
     stages = ", ".join(f"{r['msg'][:-5]}={r['seconds']}"
                        for r in log._records[mark:] if "seconds" in r
                        and r["stage"] in ("Main", "Single"))
+    # the same pass with every I420 launch per tap
+    plan = WK.i420_plan
+    WK.i420_plan = lambda *a: None
+    try:
+        n0 = WK.warp_frame.i420_staged_launches
+        per_tap = stitch_frames(None, ids, tuning, dev,
+                                store=FrameStore(packed, dev, fmt="yuv420"))
+        if WK.warp_frame.i420_staged_launches != n0:
+            _fail("i420", "the per-tap pass launched the staged kernel")
+    finally:
+        WK.i420_plan = plan
     err = _check_line(res, pos, "i420")
     gt_h = FRAME_H
     gt_w = FRAME_W + (len(imgs) - 1) * (pos[1][1] - pos[0][1])
@@ -1225,6 +1310,15 @@ def phase_i420(torch, dev, ortho, imgs, ids, pos, tuning, bgr):
             counts["warp_affine_i420"] != k2:
         _fail("i420", f"launches {counts}: K1 4 expected, every K2 launch "
                       f"from the I420 source")
+    if feeds <= 0 or counts["warp_affine_i420_staged"] != feeds or \
+            k2 - feeds != batches:
+        _fail("i420", f"launches {counts}: {feeds} compose feeds, all "
+                      f"staged, and {batches} seam batches per tap expected")
+    rmse_pt = gt_rmse(per_tap.panorama, gt, device=dev)[0]
+    if not np.array_equal(per_tap.panorama, pano) or rmse_pt != rmse:
+        _fail("i420", f"the per-tap pass's panorama differs (GT-RMSE "
+                      f"{rmse_pt} vs the staged pass's {rmse})")
+    del per_tap
     print(f"[smoke] i420 corridor: {len(packed)} frames packed in "
           f"{make_s:.2f} s; groups {[len(g.indices) for g in res.groups]}, "
           f"max offset error {err:.4f} px, panorama {pano.shape[0]}x"
@@ -1233,6 +1327,10 @@ def phase_i420(torch, dev, ortho, imgs, ids, pos, tuning, bgr):
           f"{bgr['wall']:.2f} s), peak memory {peak / 2**30:.3f} GiB (BGR "
           f"{bgr['peak'] / 2**30:.3f} GiB); launches {counts}", flush=True)
     print(f"[smoke] i420 stages (s): {stages}", flush=True)
+    print(f"[smoke] i420 kernels: {feeds} compose feeds staged, {batches} "
+          f"seam batch per tap (the plan's choices); the pass with every "
+          f"launch per tap gave the same panorama, GT-RMSE {rmse_pt:.4f}",
+          flush=True)
     del res, pano
 
     # K2's I420 source at the compose feed (phase_k2's window and affine)
@@ -1245,7 +1343,7 @@ def phase_i420(torch, dev, ortho, imgs, ids, pos, tuning, bgr):
     oh, ow = K2_WIN
     mid = len(packed) // 2
     feed = _k2_i420_row(torch, dev, "compose feed",
-                        dev_packed[mid:mid + 1], a_feed[None], oh, ow)
+                        dev_packed[mid:mid + 1], a_feed[None], oh, ow, regs)
     ys = [p[0] for p in pos]
     xs = [p[1] for p in pos]
     ss = scale_for_megapixels(FRAME_H, FRAME_W,
@@ -1255,7 +1353,8 @@ def phase_i420(torch, dev, ortho, imgs, ids, pos, tuning, bgr):
     a23s = np.stack([np.asarray([[ss, 0, ss * (x - min(xs))],
                                  [0, ss, ss * (y - min(ys))]], np.float32)
                      for y, x in pos])
-    seam = _k2_i420_row(torch, dev, "seam batch", dev_packed, a23s, sh, sw)
+    seam = _k2_i420_row(torch, dev, "seam batch", dev_packed, a23s, sh, sw,
+                        regs)
     del dev_packed
 
     # the half-resolution store
@@ -1423,7 +1522,8 @@ def _counts():
             "warp_affine": warp_frame.launches + warp_frames.launches,
             "warp_affine_nonblack": warp_frame.nonblack_launches,
             "warp_affine_f32": warp_frame.f32_launches,
-            "warp_affine_i420": warp_frame.i420_launches}
+            "warp_affine_i420": warp_frame.i420_launches,
+            "warp_affine_i420_staged": warp_frame.i420_staged_launches}
 
 
 def _zero_counts():
@@ -1437,6 +1537,7 @@ def _zero_counts():
     warp_frame.nonblack_launches = 0
     warp_frame.f32_launches = 0
     warp_frame.i420_launches = 0
+    warp_frame.i420_staged_launches = 0
     warp_frames.launches = 0
 
 
@@ -2162,7 +2263,8 @@ def main() -> int:
     affine_pano = sl_ref["res"].panorama
     torch.cuda.empty_cache()
     i420_launches, k2["i420_source"], k2["i420_seam_batch"] = phase_i420(
-        torch, dev, ortho, imgs, ids, pos, tuning, sl_ref)
+        torch, dev, ortho, imgs, ids, pos, tuning, sl_ref,
+        ptxas["warp_affine.cu"][2])
     torch.cuda.empty_cache()
     fb_launches, k1["fallback_mixed"] = phase_fallback(torch, dev, ortho,
                                                        imgs, pos, tuning)
@@ -2228,7 +2330,8 @@ def main() -> int:
                             k1["fallback_mixed"]["max_abs_err"],
                             k1["sortie_step"]["max_abs_err"])
     for d in (k1, k2):
-        d["registers"], d["spill_bytes"] = ptxas[d["source"].split("/")[-1]]
+        d["registers"], d["spill_bytes"], d["registers_by_entry"] = ptxas[
+            d["source"].split("/")[-1]]
         d["card"] = card
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

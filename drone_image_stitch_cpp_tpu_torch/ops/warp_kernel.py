@@ -16,19 +16,25 @@ all-ones (``content="ones"``, the strip compose) or of the source's gray
 float32 BGR (area-resized for compositing below full resolution, which the
 JAX package warps unquantised) or packed I420 uint8 (a ``yuv420`` frame
 store's JPEG planes: (H*3/2, W) a frame, H % 4 == 0, W % 2 == 0), which
-the kernel converts tap by tap exactly as :func:`ops.color.yuv420_to_bgr`
-converts the frame (the JAX package feeds its kernel
+the kernel converts exactly as :func:`ops.color.yuv420_to_bgr` converts
+the frame (the JAX package feeds its kernel
 ``yuv420_to_bgr(frame)``). Float32 and I420 frames take
 ``content="ones"`` only, as no caller of either package warps them in
-content mode.
+content mode. An I420 launch takes one of two kernels, as
+:func:`i420_plan` decides from the host affines: the staged kernel, which
+converts each output tile's source box once in shared memory (the
+compose feed), or the per-tap kernel, which converts each tap where it
+is read (a downscale such as the seam batch, or a strong rotation).
 
 :func:`warp_frame` (one frame) and :func:`warp_frames` (a batch, as the
 JAX package's ``warp_affine_many``) launch the kernel for CUDA tensors and
 run the plain versions for CPU tensors; they never fall back from one to
 the other. Every launch counts in its wrapper's ``launches``; content-
 mode launches also in ``warp_frame.nonblack_launches``, float32-source
-launches in ``warp_frame.f32_launches`` and I420-source launches in
-``warp_frame.i420_launches`` (all three shared by the wrappers).
+launches in ``warp_frame.f32_launches``, I420-source launches in
+``warp_frame.i420_launches`` and those of them that took the staged
+kernel in ``warp_frame.i420_staged_launches`` (all four shared by the
+wrappers).
 """
 
 from __future__ import annotations
@@ -52,11 +58,14 @@ _TAIL = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
 KERNEL_SIGNATURES = {
     "warp_affine_u8": (ctypes.c_int, _HEAD + [ctypes.c_int] + _TAIL),
     "warp_affine_f32": (ctypes.c_int, _HEAD + _TAIL),
-    "warp_affine_i420": (ctypes.c_int, _HEAD + _TAIL),
+    "warp_affine_i420": (ctypes.c_int,
+                         _HEAD + _TAIL[:-1] + [ctypes.c_int] * 3 + _TAIL[-1:]),
 }
 CONTENT_MODES = ("ones", "nonblack")
 SOURCE_DTYPES = (torch.uint8, torch.float32)
-_MAX_FRAMES = 65535          # grid.y of one launch
+_MAX_FRAMES = 65535          # grid.y (grid.z when staged) of one launch
+I420_TILE = (24, 128)        # the staged kernel's output tile: rows, columns
+I420_SMEM_CAP = 96 * 1024    # larger boxes take the per-tap kernel
 _F32 = struct.Struct("f")
 
 
@@ -114,6 +123,64 @@ def _is_i420(frames: torch.Tensor) -> bool:
     return frames.dtype == torch.uint8 and frames.shape[-1] != 3
 
 
+def _row16(n: int) -> int:
+    """Bytes of a staged row of n bytes: whole 16-byte chunks from the
+    aligned one holding its first byte."""
+    return 16 * ((n + 30) >> 4)
+
+
+def i420_smem_bytes(box, h: int, w: int) -> int:
+    """Dynamic shared memory of the staged I420 kernel for source boxes of
+    at most ``box`` = (rows, columns) of an h x w frame, as the kernel's
+    ``StagedLayout`` lays it out: planar float32 B, G, R rows padded one
+    float every 32, then the Y rows and the U and V rows of the chroma box
+    ((box >> 1) + 3 samples each way at most, and the plane)."""
+    bh, bw = box
+    cbh = min((bh >> 1) + 3, h >> 1)
+    cbw = min((bw >> 1) + 3, w >> 1)
+    plane = bh * (bw + ((bw - 1) >> 5))
+    return (16 * ((12 * plane + 15) >> 4) + bh * _row16(bw)
+            + 2 * cbh * _row16(cbw))
+
+
+def i420_box(invs, h: int, w: int, out_h: int, out_w: int):
+    """(rows, columns) that bound the source box of every output tile
+    (:data:`I420_TILE`) of every frame, ``invs`` one :func:`inverse_coeffs`
+    tuple a frame; None when a coordinate is not finite.
+
+    The kernel's box of a tile is [floor(min s), floor(max s) + 1] along
+    each source axis over the tile's corners, clipped to the frame. Its
+    size is at most ceil(max s - min s) + 2, and the corners' computed
+    spread is at most the exact |a| (tile width - 1) + |b| (tile height -
+    1) plus the rounding of each corner's three float32 operations (below
+    3 * 2**-24 of |a| x + |b| y + |c|)."""
+    th, tw = (min(t, n) - 1 for t, n in zip(I420_TILE, (out_h, out_w)))
+    box = [0, 0]
+    for inv in invs:
+        for i, (a, b, c, n) in enumerate(((inv[3], inv[4], inv[5], h),
+                                          (inv[0], inv[1], inv[2], w))):
+            err = 2.0 ** -21 * (abs(a) * (out_w - 1) + abs(b) * (out_h - 1)
+                                + abs(c))
+            spread = abs(a) * tw + abs(b) * th + err
+            if not math.isfinite(spread):
+                return None
+            box[i] = max(box[i], min(math.ceil(spread) + 2, n))
+    return tuple(box)
+
+
+def i420_plan(invs, h: int, w: int, out_h: int, out_w: int):
+    """The staged kernel's launch for packed I420 frames of h x w warped by
+    ``invs`` into an out_h x out_w window: (box rows, box columns, shared
+    memory bytes), or None where that memory would exceed
+    :data:`I420_SMEM_CAP` and the launch takes the per-tap kernel (a
+    downscale such as the seam batch's, or a strong rotation)."""
+    box = i420_box(invs, h, w, out_h, out_w)
+    if box is None:
+        return None
+    smem = i420_smem_bytes(box, h, w)
+    return (*box, smem) if smem <= I420_SMEM_CAP else None
+
+
 def warp_frame_plain(img: torch.Tensor, inv, out_h: int, out_w: int,
                      content: str = "ones"):
     """Plain PyTorch version of K2 for one uint8 or float32 BGR frame, or
@@ -147,12 +214,15 @@ def warp_frames_plain(frames: torch.Tensor, invs, out_h: int,
 
 
 def _launch(src: torch.Tensor, nf: int, invs, out_h: int, out_w: int,
-            content: str = "ones"):
+            content: str = "ones", table=None, i420_staged=None):
     """One kernel launch over ``nf`` contiguous frames: (H, W, 3) uint8 or
     float32 BGR, or (H*3/2, W) packed I420 (``src``: one frame, or a batch
     with a leading N); ``invs``: one coefficient tuple (passed by value,
-    nf == 1) or a device (N, 6) float32 table. Returns the warped planes,
-    shaped with src's leading dimensions."""
+    nf == 1) or a list of nf tuples, read from the device (N, 6) float32
+    ``table`` (made here when None). ``i420_staged`` forces the staged
+    (True) or the per-tap (False) kernel of an I420 source; None takes
+    :func:`i420_plan`'s choice. Returns the warped planes, shaped with
+    src's leading dimensions, and whether the staged kernel ran."""
     f32 = src.dtype == torch.float32
     i420 = _is_i420(src)
     name = ("warp_affine_f32" if f32 else
@@ -171,18 +241,29 @@ def _launch(src: torch.Tensor, nf: int, invs, out_h: int, out_w: int,
                        device=dev)
     mask = torch.empty(lead + (out_h, out_w), dtype=torch.float32,
                        device=dev)
-    if isinstance(invs, torch.Tensor):
-        table, coeffs = invs.data_ptr(), (0.0,) * 6
+    if isinstance(invs, list):
+        if table is None:
+            table = torch.tensor(invs, dtype=torch.float32).to(dev)
+        ptr, coeffs, frame_invs = table.data_ptr(), (0.0,) * 6, invs
     else:
-        table, coeffs = None, invs
+        ptr, coeffs, frame_invs = None, invs, [invs]
     mode = () if f32 or i420 else (int(content == "nonblack"),)
+    plan = None
+    if i420 and i420_staged is None:
+        plan = i420_plan(frame_invs, h, w, out_h, out_w)
+    elif i420 and i420_staged:
+        staged_box = i420_box(frame_invs, h, w, out_h, out_w)
+        if staged_box is None:
+            raise ValueError("no staged box for non-finite coordinates")
+        plan = (*staged_box, i420_smem_bytes(staged_box, h, w))
+    box = (plan or (0, 0, 0)) if i420 else ()
     with torch.cuda.device(dev):    # <<<>>> binds to the current device
-        err = fn(src.data_ptr(), stride, h, w, table, *coeffs, *mode,
-                 wimg.data_ptr(), mask.data_ptr(), out_h, out_w, nf,
+        err = fn(src.data_ptr(), stride, h, w, ptr, *coeffs, *mode,
+                 wimg.data_ptr(), mask.data_ptr(), out_h, out_w, nf, *box,
                  stream_handle(dev))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    return wimg, mask
+    return wimg, mask, plan is not None
 
 
 def _check(frames: torch.Tensor, ndim: int, out_h: int, out_w: int,
@@ -232,9 +313,10 @@ def warp_frame(img: torch.Tensor, a23, out_h: int, out_w: int,
     inv = inverse_coeffs(a23)
     if img.device.type == "cpu":
         return warp_frame_plain(img, inv, out_h, out_w, content)
-    out = _launch(img.contiguous(), 1, inv, out_h, out_w, content)
-    _count_launch(warp_frame, content, img)
-    return out
+    wimg, mask, staged = _launch(img.contiguous(), 1, inv, out_h, out_w,
+                                 content)
+    _count_launch(warp_frame, content, img, staged)
+    return wimg, mask
 
 
 def warp_frames(frames: torch.Tensor, a23s, out_h: int, out_w: int,
@@ -258,18 +340,20 @@ def warp_frames(frames: torch.Tensor, a23s, out_h: int, out_w: int,
     invs = [inverse_coeffs(t) for t in a]
     if frames.device.type == "cpu":
         return warp_frames_plain(frames, invs, out_h, out_w, content)
-    table = torch.tensor(invs, dtype=torch.float32).to(frames.device)
-    out = _launch(frames.contiguous(), nf, table, out_h, out_w, content)
-    _count_launch(warp_frames, content, frames)
-    return out
+    wimg, mask, staged = _launch(frames.contiguous(), nf, invs, out_h,
+                                 out_w, content)
+    _count_launch(warp_frames, content, frames, staged)
+    return wimg, mask
 
 
-def _count_launch(wrapper, content: str, src: torch.Tensor) -> None:
+def _count_launch(wrapper, content: str, src: torch.Tensor,
+                  staged: bool) -> None:
     """One kernel launch by ``wrapper`` (its ``launches``); a content-mode
     launch of either wrapper also counts in the one shared
     ``warp_frame.nonblack_launches``, a float32-source launch in the one
     shared ``warp_frame.f32_launches``, an I420-source launch in the one
-    shared ``warp_frame.i420_launches``."""
+    shared ``warp_frame.i420_launches`` and, when it took the staged
+    kernel, in ``warp_frame.i420_staged_launches``."""
     wrapper.launches += 1
     if content == "nonblack":
         warp_frame.nonblack_launches += 1
@@ -277,10 +361,13 @@ def _count_launch(wrapper, content: str, src: torch.Tensor) -> None:
         warp_frame.f32_launches += 1
     if _is_i420(src):
         warp_frame.i420_launches += 1
+    if staged:
+        warp_frame.i420_staged_launches += 1
 
 
 warp_frame.launches = 0
 warp_frame.nonblack_launches = 0
 warp_frame.f32_launches = 0
 warp_frame.i420_launches = 0
+warp_frame.i420_staged_launches = 0
 warp_frames.launches = 0

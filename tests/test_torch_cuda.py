@@ -56,7 +56,8 @@ def _keypoints(dev, n=200, h=96, w=160, seed=1):
 def _launch_counts():
     return (SK.orientation_descriptor_flat.launches, WK.warp_frame.launches,
             WK.warp_frames.launches, WK.warp_frame.nonblack_launches,
-            WK.warp_frame.f32_launches, WK.warp_frame.i420_launches)
+            WK.warp_frame.f32_launches, WK.warp_frame.i420_launches,
+            WK.warp_frame.i420_staged_launches)
 
 
 def test_cpu_calls_are_not_counted_as_launches():
@@ -391,45 +392,97 @@ def _i420_frames(dev, n=None, h=36, w=54, seed=9):
                          dtype=torch.uint8).to(dev)
 
 
+def _i420_both_branches(frames, a23s, oh, ow):
+    """K2's I420 source on ``frames`` (one packed frame or a batch) through
+    its wrapper and with each kernel forced: all three bit-equal to the
+    plain version. Returns whether the host plan staged the launch."""
+    batched = frames.ndim == 3
+    invs = [WK.inverse_coeffs(a) for a in a23s]
+    h, w = frames.shape[-2] * 2 // 3, frames.shape[-1]
+    plan = WK.i420_plan(invs, h, w, oh, ow)
+    n0 = (WK.warp_frame.i420_launches, WK.warp_frame.i420_staged_launches)
+    if batched:
+        wrapped = WK.warp_frames(frames, a23s, oh, ow)
+        wp, mp = WK.warp_frames_plain(frames, invs, oh, ow)
+    else:
+        wrapped = WK.warp_frame(frames, a23s[0], oh, ow)
+        wp, mp = WK.warp_frame_plain(frames, invs[0], oh, ow)
+    assert (WK.warp_frame.i420_launches,
+            WK.warp_frame.i420_staged_launches) == (n0[0] + 1,
+                                                    n0[1] + (plan is not None))
+    outs = [wrapped]
+    for staged in (True, False):
+        wk, mk, took = WK._launch(frames, len(invs), invs if batched
+                                  else invs[0], oh, ow, i420_staged=staged)
+        assert took == staged
+        outs.append((wk, mk))
+    torch.cuda.synchronize()
+    for wk, mk in outs:
+        assert torch.equal(wk, wp) and torch.equal(mk, mp)
+    return plan is not None
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("out_hw", [(1, 1), (3, 5), (7, 4099), (320, 512)])
 def test_k2_i420_bit_equal_to_plain(cuda, out_hw):
-    """K2's I420 source against its plain version (yuv420_to_bgr, then
-    the float warp): windows over all four frame borders (chroma edge
-    replication, odd and even taps), a rotation at canvas coordinates and
-    a scale-down; the launches count as I420 launches."""
+    """K2's I420 source, staged and per tap, against its plain version
+    (yuv420_to_bgr, then the float warp): windows over all four frame
+    borders (chroma edge replication, odd and even taps), a rotation at
+    canvas coordinates and a scale-down; each wrapper launch counts as an
+    I420 launch, and as a staged one where the host plan says so."""
     img = _i420_frames(cuda)
-    oh, ow = out_hw
     th = math.radians(15.0)
-    n0 = WK.warp_frame.i420_launches
     for a23 in ([[1.3, 0.05, 40.3], [-0.04, 1.1, 30.7]],
                 [[0.9, 0.05, -2.3], [-0.04, 1.1, 1.7]],
                 [[math.cos(th), -math.sin(th), 12000.5 - 11990.0],
                  [math.sin(th), math.cos(th), -3.25]],
                 [[0.49, 0.0, 0.37], [0.0, 0.49, 1.61]]):
-        a23 = np.asarray(a23, np.float32)
-        wk, mk = WK.warp_frame(img, a23, oh, ow)
-        wp, mp = WK.warp_frame_plain(img, WK.inverse_coeffs(a23), oh, ow)
-        assert torch.equal(wk, wp) and torch.equal(mk, mp)
-    assert WK.warp_frame.i420_launches == n0 + 4
+        _i420_both_branches(img, [np.asarray(a23, np.float32)], *out_hw)
 
 
 @pytest.mark.gpu
 def test_k2_i420_batched_equals_per_frame_and_plain(cuda):
+    """A 5-frame batch at scale 0.3: the plan takes the per-tap kernel (a
+    tile's box would need ~300 KB of shared memory)."""
     frames = _i420_frames(cuda, n=5, h=120, w=200)
     a23s = np.stack([np.asarray([[0.3, -0.01 * k, 7.31 * k],
                                  [0.01 * k, 0.3, 1.17 * k]], np.float32)
                      for k in range(5)])
-    n0 = (WK.warp_frames.launches, WK.warp_frame.i420_launches)
+    n0 = (WK.warp_frames.launches, WK.warp_frame.i420_launches,
+          WK.warp_frame.i420_staged_launches)
     wimgs, masks = WK.warp_frames(frames, a23s, 64, 130)
-    assert (WK.warp_frames.launches, WK.warp_frame.i420_launches) == (
-        n0[0] + 1, n0[1] + 1)
+    assert (WK.warp_frames.launches, WK.warp_frame.i420_launches,
+            WK.warp_frame.i420_staged_launches) == (n0[0] + 1, n0[1] + 1,
+                                                    n0[2])
     wp, mp = WK.warp_frames_plain(
         frames, [WK.inverse_coeffs(a) for a in a23s], 64, 130)
     assert torch.equal(wimgs, wp) and torch.equal(masks, mp)
     for k in (0, 4):
         wk, mk = WK.warp_frame(frames[k], a23s[k], 64, 130)
         assert torch.equal(wimgs[k], wk) and torch.equal(masks[k], mk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_hw", [(131, 211), (37, 4099)])
+def test_k2_i420_staged_batch_of_different_affines(cuda, out_hw):
+    """Five near-identity frames, each with its own rotation and offset
+    (each block reads its frame's coefficients; the shared memory is sized
+    for the worst frame): staged by the plan, both kernels bit-equal."""
+    frames = _i420_frames(cuda, n=5, h=120, w=200)
+    a23s = np.stack([np.asarray([[1.0, 0.01 * k, 2.3 * k - 3],
+                                 [-0.01 * k, 1.0, 1.1 * k - 2]], np.float32)
+                     for k in range(5)])
+    assert _i420_both_branches(frames, a23s, *out_hw)
+
+
+@pytest.mark.gpu
+def test_k2_i420_window_outside_the_frame(cuda):
+    """Every tile's box is empty: zeros from both kernels, as plain."""
+    img = _i420_frames(cuda)
+    a23 = np.asarray([[1.0, 0.0, 500.0], [0.0, 1.0, 500.0]], np.float32)
+    assert _i420_both_branches(img, [a23], 40, 60)
+    wk, mk = WK.warp_frame(img, a23, 40, 60)
+    assert not wk.any() and not mk.any()
 
 
 def test_k2_i420_rejects_what_it_cannot_read():
