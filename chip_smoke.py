@@ -57,7 +57,7 @@ Phases (one line each; any failure exits nonzero and prints no result):
      the decoded panorama within GT-RMSE 8, and a --resume run whose
      decoded panorama equals the first; decode, grouping, strip-save
      drain, streamed write and whole-run times, and the children's peak
-     RSS. Where no encoder exists, it prints why.
+     RSS. Where no encoder exists, the phase fails.
   8. knobs, on the corridor's 2160x3840 frames (all 12), each run with the
      launch counts set to 0 just before it and read just after (in the
      order (b), (c), (d), (e), (a)):
@@ -117,6 +117,32 @@ Phases (one line each; any failure exits nonzero and prints no result):
      half-resolution store:
      two corridor JPEGs read at 1/2 and detected with coord_scale=2, the
      planted offset within 1 px.
+ 13. flagship (last, after the multi-line phases have released their
+     frames): the JAX package's headline workload through the port's
+     harness (drone_image_stitch_cpp_tpu_torch/tools): make_sortie
+     renders the 200-frame 10 x 20 boustrophedon sortie of 2160x3840
+     frames (overlaps 0.70 / 0.35, seed 11, JPEG quality 92; never cut)
+     into a work directory under build/ that the phase deletes, then one
+     warm run_ours on cuda:0 (app.run_stitch_application end to end; the
+     mosaic is written by cv2 after the blend where the codec does not
+     build), its launch counts set to 0 just before and read just after.
+     Hard checks: rc 0 and a mosaic on disk; 10 groups of 20 frames
+     (segments [0, 19] ... [180, 199]); 9 global seams, all graph-cut;
+     no strip flipped; the mosaic within 16 px per axis of the band of
+     the JAX package's own flagship mosaics across its commits
+     (14804-14869 x 25716-25775; its record 14859x25775 is one draw at
+     the band's top) and no smaller than the planted footprint (less 8
+     px); GT-RMSE (tools/sortie_bench.gt_rmse, max_dim 6000) at or below
+     49.0, the top of the JAX package's band across its commits; K1, K2
+     and K2's content mode launched. Printed: the render and run walls,
+     the stage split, the graph-cut seams' solver time, each strip's
+     stitch, the global canvas and seam scale, GT-RMSE, peak device
+     memory, the decode thread's busy time, ru_maxrss, the launches and
+     the card. Then each kernel at the shapes only this path gives it,
+     from the ground-truth crop: K1 at the global detect of a 25.7k-px
+     strip (at least 531 valid keypoints), K2 in content mode from that
+     padded strip and K2's seam batch of a 20-frame line, each held
+     against its plain version and timed as the other rows.
 The environment line carries the JPEG codec probe (jpeglib.h, the libjpeg
 the loader sees, g++, cv2 and PIL); the build phase builds the codec from
 native/ beside the kernels and prints its library or the compiler's
@@ -164,6 +190,10 @@ K2_GLOBAL_WIN = (5120, 5120)        # the global compose's tile window
 # the multi-line sortie's line-1 strip (tests/test_torch_global_detect.py
 # holds the port's count to it and this floor under 0.9 of it)
 K1_GLOBAL_MIN_VALID = 1557
+# 0.9 x the 591 the JAX package finds on a 2160x25728 strip of a seed-11
+# fractal ortho, the flagship's strip width (its work image is 232 x 2759;
+# tests/test_torch_global_detect.py holds the port's count to it)
+FLAG_K1_GLOBAL_MIN_VALID = 531
 KNOB_LENS = dict(fx=3000.0, fy=3000.0, cx=(FRAME_W - 1) / 2.0,
                  cy=(FRAME_H - 1) / 2.0,
                  dist=(-0.05, 0.01, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0))
@@ -175,6 +205,16 @@ FB_FRAMES = 4                       # fallback phase: corridor frames
 FB_SIZE_TOL_PX = 8
 I420_TOL_RMSE = 0.5                 # GT-RMSE against the BGR corridor's
 I420_OPS_PER_PX = 166               # K2's I420 source: 4 taps x 34 + 30
+FLAG_ROWS, FLAG_COLS = 10, 20       # the flagship sortie (BENCH_sortie.json)
+FLAG_MOSAIC = (14859, 25775)        # the JAX package's mosaic on it (TPU)
+# the JAX package's flagship mosaics across its commits, (h), (w): one
+# geometry draw each (artifacts/flagship_r*.log, TPU runs); the record
+# above lies at the band's top
+FLAG_MOSAIC_BAND = ((14804, 14869), (25716, 25775))
+FLAG_SIZE_TOL_PX = 16
+# the top of the JAX package's GT-RMSE band across its commits on the
+# flagship, 38.6-49.0 (artifacts/RMSE_attribution_r5.md)
+FLAG_RMSE_MAX = 49.0
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 SMEM_PER_BLOCK = 232448             # H100: shared memory a block can use
 FP32_OPS_PER_S = 67e12              # float32 outside the tensor cores
@@ -1435,15 +1475,15 @@ def _padded_strip(torch, dev, ortho, pos, line):
     return out, (FRAME_H, uw)
 
 
-def phase_k1_global(torch, padded, true_hw, tuning):
+def phase_k1_global(torch, padded, true_hw, tuning, label="global detect",
+                    min_valid=K1_GLOBAL_MIN_VALID):
     """K1 at the global stage's strip detect: one padded strip's work
     image (<= 2800 px wide), the global feature budget, one launch."""
     from drone_image_stitch_cpp_tpu_torch.pipeline.global_ import (
         strip_work_image)
     work = strip_work_image(padded, true_hw)[0]
-    return _k1_check(torch, work[None], "global detect",
-                     tuning.global_sift_features,
-                     min_valid=K1_GLOBAL_MIN_VALID)
+    return _k1_check(torch, work[None], label, tuning.global_sift_features,
+                     min_valid=min_valid)
 
 
 def phase_k2_content(torch, dev, padded):
@@ -1514,31 +1554,15 @@ def phase_k2_content(torch, dev, padded):
 
 
 def _counts():
-    from drone_image_stitch_cpp_tpu_torch.ops.sift_kernel import (
-        orientation_descriptor_flat)
-    from drone_image_stitch_cpp_tpu_torch.ops.warp_kernel import (
-        warp_frame, warp_frames)
-    return {"sift_orient_desc": orientation_descriptor_flat.launches,
-            "warp_affine": warp_frame.launches + warp_frames.launches,
-            "warp_affine_nonblack": warp_frame.nonblack_launches,
-            "warp_affine_f32": warp_frame.f32_launches,
-            "warp_affine_i420": warp_frame.i420_launches,
-            "warp_affine_i420_staged": warp_frame.i420_staged_launches}
+    from drone_image_stitch_cpp_tpu_torch.tools.bench_sortie import (
+        launch_counts)
+    return launch_counts()
 
 
 def _zero_counts():
-    from drone_image_stitch_cpp_tpu_torch.ops.sift_kernel import (
-        orientation_descriptor_flat)
-    from drone_image_stitch_cpp_tpu_torch.ops.warp_kernel import (
-        warp_frame, warp_frames)
-    orientation_descriptor_flat.launches = 0
-    orientation_descriptor_flat.mixed_launches = 0
-    warp_frame.launches = 0
-    warp_frame.nonblack_launches = 0
-    warp_frame.f32_launches = 0
-    warp_frame.i420_launches = 0
-    warp_frame.i420_staged_launches = 0
-    warp_frames.launches = 0
+    from drone_image_stitch_cpp_tpu_torch.tools.bench_sortie import (
+        zero_launch_counts)
+    zero_launch_counts()
 
 
 def phase_multiline(torch, dev, ortho, imgs, ids, pos, tuning, first):
@@ -1952,9 +1976,8 @@ def phase_production_cli(ortho, imgs, pos, work):
     codec = jpeg_codec_error() is None
     has_cv2 = importlib.util.find_spec("cv2") is not None
     if not codec and not has_cv2:
-        print(f"[smoke] production cli: skipped, no JPEG encoder here (codec "
-              f"not built: {jpeg_codec_error()}; no cv2)", flush=True)
-        return
+        _fail("production", f"no JPEG encoder for the CLI run (codec not "
+                            f"built: {jpeg_codec_error()}; no cv2)")
     # the first CLI_COLS frames of each line (along-track), in flight order
     x_min = min(x for _, x in pos)
     step_x = int(FRAME_W * (1 - OVERLAP))
@@ -2021,6 +2044,153 @@ def phase_production_cli(ortho, imgs, pos, work):
           f"(global compose {_rec(recs2, 'global compose done')} s), decoded "
           f"panorama equal, file bytes equal {first == second}; children's "
           f"peak RSS {rss:.2f} GiB", flush=True)
+
+
+def _flagship_kernels(torch, dev, gt, tuning):
+    """Each kernel at the shapes the flagship alone gives it, from the
+    ground-truth crop (the frames' bytes before JPEG): K1 at the global
+    detect of line 1's 25.7k-px strip and K2's content mode from it, as
+    the global stage pads it, and K2's seam batch of line 0's 20 frames.
+    The registration, grouping and compose-feed shapes are the corridor's.
+    Returns ({"global_detect": K1}, {"content_mode": K2, "seam_batch":
+    K2})."""
+    from drone_image_stitch_cpp_tpu_torch.ops.blend import align_up
+    step_y = int(FRAME_H * (1 - ML_OVERLAP_Y))
+    step_x = int(FRAME_W * (1 - OVERLAP))
+    w = gt.shape[1]
+    padded = torch.zeros((align_up(FRAME_H, 512), align_up(w, 512), 3),
+                         dtype=torch.uint8, device=dev)
+    padded[:FRAME_H, :w] = torch.from_numpy(gt[step_y:step_y + FRAME_H]).to(
+        dev)
+    k1 = phase_k1_global(torch, padded, (FRAME_H, w), tuning,
+                         label="flagship global detect",
+                         min_valid=FLAG_K1_GLOBAL_MIN_VALID)
+    content = phase_k2_content(torch, dev, padded)
+    del padded
+    pos = [(0, c * step_x) for c in range(FLAG_COLS)]
+    imgs = [gt[:FRAME_H, x:x + FRAME_W] for _, x in pos]
+    batch = phase_k2_batch(torch, dev, imgs, pos, tuning)
+    return {"global_detect": k1}, {"content_mode": content,
+                                   "seam_batch": batch}
+
+
+def phase_flagship(torch, dev, card, tuning):
+    """The flagship: the 200-frame 10 x 20 sortie of 2160x3840 frames
+    from the port's harness (tools/sortie_bench.make_sortie with the JAX
+    harness's defaults: overlaps 0.70 / 0.35, seed 11, JPEG quality 92)
+    in a work directory under build/ that is deleted at the end, then one
+    run_ours on cuda:0 (the application end to end: streaming ingest,
+    grouping, 10 strips, the global stage, the cv2 write), measured by
+    tools/bench_sortie.measure_run. Hard checks as the module doc lists;
+    then the kernels at this path's own shapes (_flagship_kernels).
+    Returns (the run's launch counts, K1's and K2's rows)."""
+    import resource
+
+    from drone_image_stitch_cpp_tpu_torch.runtime.logging import get_logger
+    from drone_image_stitch_cpp_tpu_torch.tools import bench_sortie as BS
+    from drone_image_stitch_cpp_tpu_torch.tools.sortie_bench import (
+        make_sortie)
+
+    get_logger().verbose = False
+    work = tempfile.mkdtemp(prefix="smoke_flagship_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    try:
+        rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+        t0 = time.perf_counter()
+        try:
+            root, gt_path = make_sortie(work, FLAG_ROWS, FLAG_COLS, FRAME_H,
+                                        FRAME_W, device=dev)
+        except (RuntimeError, OSError) as err:
+            _fail("flagship", f"make_sortie: {err}")
+        render_s = time.perf_counter() - t0
+        gt = np.load(gt_path)
+        torch.cuda.empty_cache()
+        try:
+            # the launch counts are set to 0 just before run_ours and read
+            # just after it
+            run, mosaic, recs = BS.measure_run(root, gt, dev, "warm",
+                                               retries=0)
+        except RuntimeError as err:
+            _fail("flagship", str(err))
+        launches = run["launches"]
+        on_disk = os.path.exists(os.path.join(
+            root, "_ours", "visible", "minfull",
+            "visible_minfull_uav_panorama.jpg"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    def rec(msg, stage="GlobalCustom"):
+        return next((r for r in recs if r["msg"] == msg
+                     and r["stage"] == stage), {})
+
+    if not on_disk:
+        _fail("flagship", "no mosaic on disk")
+    sizes = rec("groups", "Main").get("sizes")
+    segments = rec("strips", "VisualGroup").get("segments")
+    want = [[k * FLAG_COLS, (k + 1) * FLAG_COLS - 1]
+            for k in range(FLAG_ROWS)]
+    if sizes != [FLAG_COLS] * FLAG_ROWS or segments != want:
+        _fail("flagship", f"groups {sizes} (segments {segments}), expected "
+                          f"{FLAG_ROWS} of {FLAG_COLS}: {want}")
+    flips = [r["flipped"] for r in recs if r["stage"] == "GlobalCustom"
+             and r["msg"].endswith(" aligned")]
+    if flips != [False] * (FLAG_ROWS - 1):
+        _fail("flagship", f"strip alignments flipped {flips}")
+    seams = {k: v for k, v in rec("seam methods").items()
+             if k not in ("ts", "stage", "msg")}
+    if len(seams) != FLAG_ROWS - 1 or set(seams.values()) != {"graphcut"}:
+        _fail("flagship", f"global seams {seams}: expected "
+                          f"{FLAG_ROWS - 1}, all graphcut")
+    mh, mw = run["mosaic_hw"]
+    step_y = int(FRAME_H * (1 - ML_OVERLAP_Y))
+    step_x = int(FRAME_W * (1 - OVERLAP))
+    foot = (FRAME_H + (FLAG_ROWS - 1) * step_y,
+            FRAME_W + (FLAG_COLS - 1) * step_x)
+    (h0, h1), (w0, w1) = FLAG_MOSAIC_BAND
+    tol = FLAG_SIZE_TOL_PX
+    if not (h0 - tol <= mh <= h1 + tol and w0 - tol <= mw <= w1 + tol):
+        _fail("flagship", f"mosaic {mh}x{mw} outside the JAX package's "
+                          f"band {h0}-{h1} x {w0}-{w1} +- {tol} px (its "
+                          f"record {FLAG_MOSAIC[0]}x{FLAG_MOSAIC[1]})")
+    if mh < foot[0] - ML_SIZE_TOL_PX or mw < foot[1] - ML_SIZE_TOL_PX:
+        _fail("flagship", f"mosaic {mh}x{mw} smaller than the planted "
+                          f"footprint {foot[0]}x{foot[1]}")
+    rmse = run["gt_rmse"]
+    if not np.isfinite(rmse) or rmse > FLAG_RMSE_MAX:
+        _fail("flagship", f"GT-RMSE {rmse} > {FLAG_RMSE_MAX}")
+    for name in ("sift_orient_desc", "warp_affine", "warp_affine_nonblack"):
+        if launches[name] <= 0:
+            _fail("flagship", f"kernel {name} never launched")
+    canvas, scale = rec("canvas"), rec("seam scale")
+    print(f"[smoke] flagship: {FLAG_ROWS} x {FLAG_COLS} frames {FRAME_H}x"
+          f"{FRAME_W} (overlaps 0.70/0.35, seed 11, JPEG q92) rendered and "
+          f"written in {render_s:.2f} s; run_ours rc 0 in {run['secs']:.2f} "
+          f"s; groups {sizes}, no flip, seams {seams}; global canvas "
+          f"{canvas.get('h')}x{canvas.get('w')} at seam scale "
+          f"{scale.get('scale')}; mosaic {mh}x{mw} (planted footprint "
+          f"{foot[0]}x{foot[1]}; the JAX package's record "
+          f"{FLAG_MOSAIC[0]}x{FLAG_MOSAIC[1]}, its band {h0}-{h1} x "
+          f"{w0}-{w1}), GT-RMSE {rmse:.3f} "
+          f"(max_dim 6000, shift {run['gt_shift']}; the JAX package's "
+          f"band 38.6-49.0)", flush=True)
+    print("[smoke] flagship stages (s): " + ", ".join(
+        f"{k}={v}" for k, v in run["stages"].items()), flush=True)
+    seams_s = rec("seams done").get("seconds")
+    solver = rec("seam solver")
+    print(f"[smoke] flagship graph-cut seams {seams_s} s, of which the "
+          f"min-cut solver {solver.get('solver_seconds')} s in "
+          f"{solver.get('calls')} calls (the rest host set-up)", flush=True)
+    print("[smoke] flagship strip stitches (s): " + ", ".join(
+        f"{r['stage']}={r['seconds']}" for r in recs
+        if r["msg"] == "stitch done"), flush=True)
+    print(f"[smoke] flagship peak device memory {run['peak_device_gib']} GiB "
+          f"(max_memory_allocated); decode thread busy "
+          f"{run['decode_thread_s']} s; ru_maxrss {run['ru_maxrss_gib']} GiB "
+          f"(the process's high-water: {rss0:.3f} GiB before the phase); "
+          f"launches {launches}; card '{card}'", flush=True)
+    del mosaic
+    torch.cuda.empty_cache()
+    return (launches, *_flagship_kernels(torch, dev, gt, tuning))
 
 
 def _synchronize_all(torch) -> None:
@@ -2305,13 +2475,16 @@ def main() -> int:
         phase_production_cli(ml_ortho, ml_imgs, ml_pos, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    del ml_ortho, ml_imgs
+    del ml_ortho, ml_imgs, ml_ids, ml_pos
+    torch.cuda.empty_cache()
+    fl_launches, k1_fl, k2_fl = phase_flagship(torch, dev, card, tuning)
+    k1["flagship"], k2["flagship"] = k1_fl, k2_fl
     paths = {"single_line": launches, "i420": i420_launches,
              "multi_line": ml_launches,
              "fallback": fb_launches, "production": pr_launches,
              "knobs": kn_launches, "devices_single_line": dv_sl,
              "devices_multi_line": dv_ml, "sortie_step": st_launches,
-             "trace": tr_launches}
+             "trace": tr_launches, "flagship": fl_launches}
     k1["launches"] = sum(c["sift_orient_desc"] for c in paths.values())
     k2["launches"] = sum(c["warp_affine"] for c in paths.values())
     k1["launches_by_path"] = {
@@ -2320,7 +2493,8 @@ def main() -> int:
     k2["launches_by_path"] = {
         **{p: c["warp_affine"] for p, c in paths.items()},
         "multi_line_content_mode": ml_launches["warp_affine_nonblack"],
-        "production_content_mode": pr_launches["warp_affine_nonblack"]}
+        "production_content_mode": pr_launches["warp_affine_nonblack"],
+        "flagship_content_mode": fl_launches["warp_affine_nonblack"]}
     k2["f32_launches_by_path"] = {p: c.get("warp_affine_f32", 0)
                                   for p, c in paths.items()}
     k2["i420_launches_by_path"] = {p: c.get("warp_affine_i420", 0)
@@ -2328,7 +2502,8 @@ def main() -> int:
     k1["max_abs_err"] = max(k1["max_abs_err"],
                             k1["global_detect"]["max_abs_err"],
                             k1["fallback_mixed"]["max_abs_err"],
-                            k1["sortie_step"]["max_abs_err"])
+                            k1["sortie_step"]["max_abs_err"],
+                            k1["flagship"]["global_detect"]["max_abs_err"])
     for d in (k1, k2):
         d["registers"], d["spill_bytes"], d["registers_by_entry"] = ptxas[
             d["source"].split("/")[-1]]

@@ -27,6 +27,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -97,16 +98,24 @@ def graphcut_native(cap_src: np.ndarray, cap_snk: np.ndarray,
     """Min-cut labels (1 = source side) on a 4-connected (h, w) grid with
     terminal capacities ``cap_src``/``cap_snk`` (h, w), horizontal edges
     ``cap_h`` (h, w-1) and vertical edges ``cap_v`` (h-1, w); None if no
-    solver library is available (:func:`graphcut_library`)."""
+    solver library is available (:func:`graphcut_library`). The solver's
+    calls and wall seconds add up in ``graphcut_native.calls`` /
+    ``.seconds``."""
     if graphcut_library() is None:
         return None
     h, w = cap_src.shape
     labels = np.zeros((h, w), np.uint8)
-    _GC["fn"](h, w, np.ascontiguousarray(cap_src, np.float32),
-              np.ascontiguousarray(cap_snk, np.float32),
-              np.ascontiguousarray(cap_h, np.float32),
-              np.ascontiguousarray(cap_v, np.float32), labels)
+    args = [np.ascontiguousarray(c, np.float32)
+            for c in (cap_src, cap_snk, cap_h, cap_v)]
+    t0 = time.perf_counter()
+    _GC["fn"](h, w, *args, labels)
+    graphcut_native.seconds += time.perf_counter() - t0
+    graphcut_native.calls += 1
     return labels
+
+
+graphcut_native.calls = 0
+graphcut_native.seconds = 0.0
 
 
 def _codec():
