@@ -49,15 +49,15 @@ Phases (one line each; any failure exits nonzero and prints no result):
      strip stitches, and an in-memory row sink on the global stage (bands
      in order, crop box holding the exact content box); then a resume:
      load_strip_checkpoint + stitch_inter_strips_custom, whose mosaic and
-     bands must equal the straight run's. Then, when this machine can
-     encode JPEGs (the codec built from native/, else cv2), the CLI in
-     child processes on the JPEGs of the sortie's first 6 frames of each
-     line (cut from 10 to keep the smoke's time): rc 0, strip JPEGs and
-     checkpoint written, the streamed write logged when the codec built,
-     the decoded panorama within GT-RMSE 8, and a --resume run whose
-     decoded panorama equals the first; decode, grouping, strip-save
-     drain, streamed write and whole-run times, and the children's peak
-     RSS. Where no encoder exists, the phase fails.
+     bands must equal the straight run's. Then the CLI in child processes
+     on the JPEGs of the sortie's first 6 frames of each line (cut from 10
+     to keep the smoke's time), written by the codec: rc 0, the children's
+     codec route logged, a packed I420 store, strip JPEGs (the codec's)
+     and checkpoint written, the mosaic streamed into the codec's encoder,
+     the decoded panorama within GT-RMSE 8, and a --resume run, streamed
+     too, whose file equals the first byte for byte; decode, grouping,
+     strip-save drain, streamed write and whole-run times, and the
+     children's peak RSS.
   8. knobs, on the corridor's 2160x3840 frames (all 12), each run with the
      launch counts set to 0 just before it and read just after (in the
      order (b), (c), (d), (e), (a)):
@@ -102,8 +102,8 @@ Phases (one line each; any failure exits nonzero and prints no result):
  12. i420 (run right after phase 4): the corridor from a packed I420
      frame store (the JAX package's store format for 4:2:0 JPEGs; the
      packed frames made from the rendered BGR by the full-range JFIF
-     forward transform, as a camera's encoder makes them, since this
-     machine has no raw decoder): app.stitch_frames twice, the second
+     forward transform, as a camera's encoder makes them; the flagship
+     feeds the codec's raw planes): app.stitch_frames twice, the second
      measured with its launch counts set to 0 just before it; the
      corridor's geometry checks, GT-RMSE within 0.5 of phase 4's, K1 4
      launches and every K2 launch from its I420 source, the compose
@@ -115,17 +115,19 @@ Phases (one line each; any failure exits nonzero and prints no result):
      to the plain version, both kernels timed in turns, with registers
      and shared memory (library: yuv420_to_bgr + F.grid_sample). The
      half-resolution store:
-     two corridor JPEGs read at 1/2 and detected with coord_scale=2, the
-     planted offset within 1 px.
+     two corridor JPEGs (the codec's) read at 1/2 by libjpeg's DCT
+     scaling (the store's frames equal to the codec's scaled decode) and
+     detected with coord_scale=2, the planted offset within 1 px.
  13. flagship (last, after the multi-line phases have released their
      frames): the JAX package's headline workload through the port's
      harness (drone_image_stitch_cpp_tpu_torch/tools): make_sortie
      renders the 200-frame 10 x 20 boustrophedon sortie of 2160x3840
      frames (overlaps 0.70 / 0.35, seed 11, JPEG quality 92; never cut)
      into a work directory under build/ that the phase deletes, then one
-     warm run_ours on cuda:0 (app.run_stitch_application end to end; the
-     mosaic is written by cv2 after the blend where the codec does not
-     build), its launch counts set to 0 just before and read just after.
+     warm run_ours on cuda:0 (app.run_stitch_application end to end, the
+     JAX package's production I/O: the 4:2:0 JPEGs stored packed I420
+     through the codec's raw decode, the mosaic streamed into its
+     encoder), its launch counts set to 0 just before and read just after.
      Hard checks: rc 0 and a mosaic on disk; 10 groups of 20 frames
      (segments [0, 19] ... [180, 199]); 9 global seams, all graph-cut;
      no strip flipped; the mosaic within 16 px per axis of the band of
@@ -134,19 +136,29 @@ Phases (one line each; any failure exits nonzero and prints no result):
      the band's top) and no smaller than the planted footprint (less 8
      px); GT-RMSE (tools/sortie_bench.gt_rmse, max_dim 6000) at or below
      49.0, the top of the JAX package's band across its commits; K1, K2
-     and K2's content mode launched. Printed: the render and run walls,
+     and K2's content mode launched; the store yuv420 at 1.5 B a pixel
+     (200 x 12.44 MB) through the codec's route, the mosaic streamed
+     (`[GlobalCustom] streamed mosaic written`) and its file decoding to
+     the mosaic's size; detect reading the store's Y plane; every K2
+     launch of the strips from the I420 source, the compose feeds staged
+     and the seam batches per tap (warp_kernel.i420_plan's choice at
+     these shapes, read from the launch counters). Printed: the render and run walls,
      the stage split, the graph-cut seams' solver time, each strip's
      stitch, the global canvas and seam scale, GT-RMSE, peak device
      memory, the decode thread's busy time, ru_maxrss, the launches and
      the card. Then each kernel at the shapes only this path gives it,
      from the ground-truth crop: K1 at the global detect of a 25.7k-px
      strip (at least 531 valid keypoints), K2 in content mode from that
-     padded strip and K2's seam batch of a 20-frame line, each held
-     against its plain version and timed as the other rows.
+     padded strip and K2's seam batch of a 20-frame line, and K2's I420
+     source on the codec's raw planes of line 0's JPEGs at the compose
+     feed and the 20-frame seam batch, each held against its plain
+     version (K2 bit-equal) and timed as the other rows.
 The environment line carries the JPEG codec probe (jpeglib.h, the libjpeg
-the loader sees, g++, cv2 and PIL); the build phase builds the codec from
-native/ beside the kernels and prints its library or the compiler's
-first error line.
+the loader sees, the libjpeg-turbo in Pillow's wheel, g++, cv2 and PIL);
+the build phase builds the codec from native/ beside the kernels
+(utils/native: the system libjpeg, else Pillow's with the vendored
+headers) and prints its route, library and the libjpeg it links, or fails
+with both routes' errors.
 The line before the last is a JSON object with each kernel's numbers:
 bound_ms is the larger of the bytes the call must move (each input byte
 it needs read once: for K1 the stack pixels that its keypoints' needed
@@ -283,8 +295,11 @@ def phase_environment(torch) -> str:
 
 def _codec_probe() -> str:
     """What this machine offers for JPEG: jpeglib.h, the libjpeg the
-    dynamic loader lists, g++, cv2 and PIL."""
+    dynamic loader lists, the libjpeg-turbo in Pillow's wheel, g++, cv2
+    and PIL."""
     import importlib.util
+
+    from drone_image_stitch_cpp_tpu_torch.utils.native import _pillow_libjpeg
     heads = [d for d in ("/usr/include", "/usr/local/include",
                          "/usr/include/x86_64-linux-gnu")
              if os.path.exists(os.path.join(d, "jpeglib.h"))]
@@ -302,6 +317,7 @@ def _codec_probe() -> str:
     mods = {m: importlib.util.find_spec(m) is not None
             for m in ("cv2", "PIL")}
     return (f"jpeglib.h {heads or 'absent'}; libjpeg {libs or 'absent'}; "
+            f"Pillow's bundled libjpeg {_pillow_libjpeg() or 'absent'}; "
             f"g++ '{ver}'; cv2 {mods['cv2']}; PIL {mods['PIL']}")
 
 
@@ -319,10 +335,23 @@ def _ptxas_entries(report: str) -> dict:
     return out
 
 
+def _linked_libjpeg(path: str) -> str:
+    """The libjpeg that the dynamic loader resolves for the library at
+    ``path`` (its ``ldd`` line)."""
+    try:
+        out = subprocess.run(["ldd", path], capture_output=True, text=True,
+                             timeout=30).stdout
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"ldd failed: {e}"
+    return "; ".join(ln.strip() for ln in out.splitlines()
+                     if "libjpeg" in ln) or "no libjpeg line"
+
+
 def phase_build() -> dict:
-    """Build both kernels, one nvcc each, started together; returns each
-    source's (registers, spill bytes, {entry: registers}) as ptxas reports
-    them."""
+    """Build both kernels, one nvcc each, started together, and the JPEG
+    codec beside them (it must build, by one of its two routes); returns
+    each source's (registers, spill bytes, {entry: registers}) as ptxas
+    reports them."""
     from drone_image_stitch_cpp_tpu_torch.ops import sift_kernel as SK
     from drone_image_stitch_cpp_tpu_torch.ops import warp_kernel as WK
     from drone_image_stitch_cpp_tpu_torch.runtime.kernels import load_kernels
@@ -330,7 +359,7 @@ def phase_build() -> dict:
     import threading
 
     from drone_image_stitch_cpp_tpu_torch.utils.native import (
-        jpeg_codec_error, jpeg_codec_library)
+        jpeg_codec_error, jpeg_codec_library, jpeg_codec_route)
 
     t0 = time.perf_counter()
     # the host JPEG codec (g++) builds beside the nvcc builds
@@ -341,9 +370,13 @@ def phase_build() -> dict:
                           for m in mods})
     codec.join()
     err = jpeg_codec_error()
+    if err is not None:
+        _fail("build", f"the JPEG codec builds by neither route: {err}")
+    lib = jpeg_codec_library()
     print(f"[smoke] build JPEG codec from native/decode.cpp + encode.cpp: "
-          + (f"built {os.path.relpath(jpeg_codec_library())}" if err is None
-             else f"not built: {err}"), flush=True)
+          f"route {jpeg_codec_route()}, built {os.path.relpath(lib)}, "
+          f"linked {_linked_libjpeg(lib)}", flush=True)
+    _codec_vs_cv2_write()
     out = {}
     for m in mods:
         k = built[m.KERNEL_SOURCE]
@@ -360,6 +393,29 @@ def phase_build() -> dict:
     print(f"[smoke] build: both kernels in {time.perf_counter() - t0:.2f} s",
           flush=True)
     return out
+
+
+def _codec_vs_cv2_write():
+    """Print whether app.write_image (the codec at quality 95 with
+    libjpeg's defaults) writes cv2.imwrite's default bytes on this
+    machine, whose cv2 carries its own libjpeg: a reading, not a check."""
+    import cv2
+
+    from drone_image_stitch_cpp_tpu_torch.app import write_image
+    img = cv2.GaussianBlur(np.random.default_rng(11).integers(
+        0, 256, (243, 321, 3), np.uint8), (7, 7), 2.0)
+    with tempfile.TemporaryDirectory() as d:
+        ours, ref = os.path.join(d, "ours.jpg"), os.path.join(d, "cv2.jpg")
+        write_image(ours, img)
+        cv2.imwrite(ref, img)
+        with open(ours, "rb") as f, open(ref, "rb") as g:
+            a, b = f.read(), g.read()
+        diff = np.abs(cv2.imread(ours).astype(np.int16)
+                      - cv2.imread(ref).astype(np.int16)).max()
+    print(f"[smoke] build JPEG codec: write_image vs cv2.imwrite (cv2 "
+          f"{cv2.__version__}) on a 243x321 frame: bytes equal {a == b} "
+          f"({len(a)} vs {len(b)} B), decoded max |diff| {int(diff)}",
+          flush=True)
 
 
 def render_sortie(torch, dev):
@@ -664,25 +720,30 @@ def phase_k2(torch, dev, img):
             "share": bound_ms / device_ms, "wrapper_b2b_ms": b2b_ms}
 
 
-def phase_k2_batch(torch, dev, imgs, pos, tuning):
-    """The batched K2 as the strip compose calls it: every frame of the
-    line into the seam-scale canvas in one launch, each frame bit-equal to
-    its plain warp."""
-    from drone_image_stitch_cpp_tpu_torch.ops import warp_kernel as WK
+def _seam_affines(pos, tuning):
+    """The strip compose's seam-scale warps of a line's frames at ``pos``:
+    (affines (N, 2, 3), canvas rows, canvas columns, seam scale)."""
     from drone_image_stitch_cpp_tpu_torch.ops.blend import align_up
     from drone_image_stitch_cpp_tpu_torch.ops.resize import (
         scale_for_megapixels)
     ys = [p[0] for p in pos]
     xs = [p[1] for p in pos]
-    canvas_h = max(ys) - min(ys) + FRAME_H
-    canvas_w = max(xs) - min(xs) + FRAME_W
     ss = scale_for_megapixels(FRAME_H, FRAME_W,
                               tuning.seam_estimation_resol_mpx)
-    sh = align_up(int(round(canvas_h * ss)), 64)
-    sw = align_up(int(round(canvas_w * ss)), 64)
+    sh = align_up(int(round((max(ys) - min(ys) + FRAME_H) * ss)), 64)
+    sw = align_up(int(round((max(xs) - min(xs) + FRAME_W) * ss)), 64)
     a23s = np.stack([np.asarray([[ss, 0, ss * (x - min(xs))],
                                  [0, ss, ss * (y - min(ys))]], np.float32)
                      for y, x in pos])
+    return a23s, sh, sw, ss
+
+
+def phase_k2_batch(torch, dev, imgs, pos, tuning):
+    """The batched K2 as the strip compose calls it: every frame of the
+    line into the seam-scale canvas in one launch, each frame bit-equal to
+    its plain warp."""
+    from drone_image_stitch_cpp_tpu_torch.ops import warp_kernel as WK
+    a23s, sh, sw, ss = _seam_affines(pos, tuning)
     frames = torch.from_numpy(np.stack(imgs)).to(dev)
     invs = [WK.inverse_coeffs(a) for a in a23s]
     wk, mk = WK.warp_frames(frames, a23s, sh, sw)
@@ -716,10 +777,6 @@ def phase_k2_batch(torch, dev, imgs, pos, tuning):
 
 def phase_slice(torch, dev, ortho, imgs, ids, pos, tuning):
     from drone_image_stitch_cpp_tpu_torch.app import stitch_frames
-    from drone_image_stitch_cpp_tpu_torch.ops.sift_kernel import (
-        orientation_descriptor_flat)
-    from drone_image_stitch_cpp_tpu_torch.ops.warp_kernel import (
-        warp_frame, warp_frames)
     from drone_image_stitch_cpp_tpu_torch.runtime.logging import get_logger
     from drone_image_stitch_cpp_tpu_torch.utils.synthetic import gt_rmse
 
@@ -737,9 +794,9 @@ def phase_slice(torch, dev, ortho, imgs, ids, pos, tuning):
     res = stitch_frames(imgs, ids, tuning, dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"sift_orient_desc": orientation_descriptor_flat.launches,
-                "warp_affine": warp_frame.launches + warp_frames.launches}
-    k2_split = (warp_frame.launches, warp_frames.launches)
+    launches = _counts()
+    k2_split = (launches["warp_affine"] - launches["warp_affine_batched"],
+                launches["warp_affine_batched"])
     peak = torch.cuda.max_memory_allocated(dev)
     tm = log.timings()
     stages = {k: tm.get(v) for k, v in (
@@ -785,8 +842,8 @@ def phase_slice(torch, dev, ortho, imgs, ids, pos, tuning):
           f"(max_memory_allocated), launches {launches} (K2: "
           f"{k2_split[0]} compose feeds + {k2_split[1]} seam batch)",
           flush=True)
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("sift_orient_desc", "warp_affine"):
+        if launches[name] <= 0:
             _fail("slice", f"kernel {name} never launched on the main path")
     if k2_split[1] != 1:
         _fail("slice", f"seam warps took {k2_split[1]} batched launches, "
@@ -1139,6 +1196,15 @@ def _jfif_i420(bgr: np.ndarray) -> np.ndarray:
                            u8(cr).reshape(h // 4, w)])
 
 
+def _feed_affine() -> np.ndarray:
+    """The affine of phase_k2's compose feed (a 2-degree turn into the
+    K2_WIN window), which the I420 rows reuse."""
+    th = np.radians(2.0)
+    c, s_ = np.cos(th), np.sin(th)
+    return np.asarray([[c, -s_, 12000.37 - 11904.0], [s_, c, 20.61]],
+                      np.float32)
+
+
 def _k2_i420_row(torch, dev, label, frames, a23s, oh, ow, regs):
     """K2's I420 source on ``frames`` ((N, H*3/2, W) packed, one launch;
     N == 1 is the compose feed's single-frame call) through its wrapper
@@ -1261,10 +1327,10 @@ def _k2_i420_row(torch, dev, label, frames, a23s, oh, ow, regs):
 
 def phase_i420(torch, dev, ortho, imgs, ids, pos, tuning, bgr, regs):
     """The I420 ingest wire on the corridor (the JAX package's store
-    format for a drone's 4:2:0 JPEGs). This machine has no libjpeg, so
-    no raw 4:2:0 decode: the packed frames are made here from the rendered
-    BGR with the full-range JFIF forward transform, as a camera's encoder
-    makes them:
+    format for a drone's 4:2:0 JPEGs). The packed frames are made here from
+    the rendered BGR with the full-range JFIF forward transform, as a
+    camera's encoder makes them (the flagship phase feeds the store the
+    codec's raw planes of real JPEGs):
         Y  = .299 R + .587 G + .114 B
         Cb = -.168736 R - .331264 G + .5 B + 128
         Cr = .5 R - .418688 G - .081312 B + 128,
@@ -1281,22 +1347,20 @@ def phase_i420(torch, dev, ortho, imgs, ids, pos, tuning, bgr, regs):
     feed and the 12-frame seam batch, the wrapper and each kernel
     bit-equal to the plain version (``regs``: ptxas's registers by
     entry); then the half-resolution
-    store: two corridor frames written as JPEG (cv2), read back with
-    scale_denom=2 (cv2's area resize here) and detected with coord_scale=2:
-    the planted offset within 1 px. Returns (launch counts, the two K2
-    rows)."""
-    import cv2
+    store: two corridor frames written as JPEG by the codec, read back
+    with scale_denom=2 (libjpeg's DCT scaling: the store's frames equal the
+    codec's scaled decode) and detected with coord_scale=2: the planted
+    offset within 1 px. Returns (launch counts, the two K2 rows)."""
     from drone_image_stitch_cpp_tpu_torch.app import stitch_frames
     from drone_image_stitch_cpp_tpu_torch.ops import warp_kernel as WK
-    from drone_image_stitch_cpp_tpu_torch.ops.blend import align_up
-    from drone_image_stitch_cpp_tpu_torch.ops.resize import (
-        scale_for_megapixels)
     from drone_image_stitch_cpp_tpu_torch.pipeline.pairgraph import (
         register_pairs)
     from drone_image_stitch_cpp_tpu_torch.pipeline.registration import (
         detect_features)
     from drone_image_stitch_cpp_tpu_torch.runtime.feed import FrameStore
     from drone_image_stitch_cpp_tpu_torch.runtime.logging import get_logger
+    from drone_image_stitch_cpp_tpu_torch.utils.native import (
+        decode_batch_native, encode_jpeg_native)
     from drone_image_stitch_cpp_tpu_torch.utils.synthetic import gt_rmse
 
     t0 = time.perf_counter()
@@ -1376,23 +1440,12 @@ def phase_i420(torch, dev, ortho, imgs, ids, pos, tuning, bgr, regs):
     # K2's I420 source at the compose feed (phase_k2's window and affine)
     # and at the seam batch (phase_k2_batch's)
     dev_packed = torch.from_numpy(np.stack(packed)).to(dev)
-    th = np.radians(2.0)
-    c, s_ = np.cos(th), np.sin(th)
-    a_feed = np.asarray([[c, -s_, 12000.37 - 11904.0], [s_, c, 20.61]],
-                        np.float32)
     oh, ow = K2_WIN
     mid = len(packed) // 2
     feed = _k2_i420_row(torch, dev, "compose feed",
-                        dev_packed[mid:mid + 1], a_feed[None], oh, ow, regs)
-    ys = [p[0] for p in pos]
-    xs = [p[1] for p in pos]
-    ss = scale_for_megapixels(FRAME_H, FRAME_W,
-                              tuning.seam_estimation_resol_mpx)
-    sh = align_up(int(round((max(ys) - min(ys) + FRAME_H) * ss)), 64)
-    sw = align_up(int(round((max(xs) - min(xs) + FRAME_W) * ss)), 64)
-    a23s = np.stack([np.asarray([[ss, 0, ss * (x - min(xs))],
-                                 [0, ss, ss * (y - min(ys))]], np.float32)
-                     for y, x in pos])
+                        dev_packed[mid:mid + 1], _feed_affine()[None], oh, ow,
+                        regs)
+    a23s, sh, sw, _ = _seam_affines(pos, tuning)
     seam = _k2_i420_row(torch, dev, "seam batch", dev_packed, a23s, sh, sw,
                         regs)
     del dev_packed
@@ -1404,7 +1457,7 @@ def phase_i420(torch, dev, ortho, imgs, ids, pos, tuning, bgr, regs):
         paths = []
         for k in (0, 1):
             paths.append(os.path.join(work, f"F{k}.jpg"))
-            cv2.imwrite(paths[-1], imgs[k], [cv2.IMWRITE_JPEG_QUALITY, 95])
+            encode_jpeg_native(paths[-1], imgs[k], 95)
         t0 = time.perf_counter()
         st = FrameStore.from_paths(paths, dev, scale_denom=2)
         feats, scale = detect_features(None, tuning.sift_features,
@@ -1414,6 +1467,11 @@ def phase_i420(torch, dev, ortho, imgs, ids, pos, tuning, bgr, regs):
         graph = register_pairs(feats, [(0, 1)], 0.75, thresh=4.0 / scale)
         model = graph.model[0].cpu().numpy()
         half_s = time.perf_counter() - t0
+        dct = decode_batch_native(paths, 2, scale_denom=2)
+        if not all(np.array_equal(st.frame(k).cpu().numpy(), dct[k])
+                   for k in (0, 1)):
+            _fail("i420", "the half-resolution store's frames are not the "
+                          "codec's DCT-scaled decode")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     planted = np.asarray([pos[1][1] - pos[0][1], pos[1][0] - pos[0][0]],
@@ -1426,7 +1484,8 @@ def phase_i420(torch, dev, ortho, imgs, ids, pos, tuning, bgr, regs):
                       f"translation {model[:2, 2].tolist()} vs the planted "
                       f"{(-planted).tolist()}")
     print(f"[smoke] i420 half-resolution store: 2 corridor JPEGs read at "
-          f"1/2 ({st.shape0[0]}x{st.shape0[1]}, fmt {st.fmt}), detected "
+          f"1/2 by libjpeg's DCT scaling ({st.shape0[0]}x{st.shape0[1]}, fmt "
+          f"{st.fmt}, equal to the codec's scaled decode), detected "
           f"with coord_scale=2 at work scale {scale:.4f} of full "
           f"resolution: translation {np.round(model[:2, 2], 4).tolist()} "
           f"vs planted {(-planted).tolist()} (error {half_err:.4f} px), "
@@ -1963,21 +2022,17 @@ def _rec(recs, msg, key="seconds"):
 
 
 def phase_production_cli(ortho, imgs, pos, work):
-    """The CLI on the production sortie's JPEGs, then --resume."""
+    """The CLI on the production sortie's JPEGs (written by the codec:
+    4:2:0, so the children store packed I420), then --resume: the strip
+    JPEGs and the streamed mosaic written by the codec (the children log
+    its route), the resumed mosaic streamed too and its file byte-equal to
+    the straight run's."""
     import resource
 
     from drone_image_stitch_cpp_tpu_torch.app import write_image
     from drone_image_stitch_cpp_tpu_torch.runtime.loader import decode_all
-    from drone_image_stitch_cpp_tpu_torch.utils.native import (
-        jpeg_codec_error)
     from drone_image_stitch_cpp_tpu_torch.utils.synthetic import gt_rmse
-    import importlib.util
 
-    codec = jpeg_codec_error() is None
-    has_cv2 = importlib.util.find_spec("cv2") is not None
-    if not codec and not has_cv2:
-        _fail("production", f"no JPEG encoder for the CLI run (codec not "
-                            f"built: {jpeg_codec_error()}; no cv2)")
     # the first CLI_COLS frames of each line (along-track), in flight order
     x_min = min(x for _, x in pos)
     step_x = int(FRAME_W * (1 - OVERLAP))
@@ -2001,10 +2056,13 @@ def phase_production_cli(ortho, imgs, pos, work):
                                    range(ML_ROWS) for e in ("jpg", "npy")])
     if names != sorted(want):
         _fail("production", f"strips/ holds {names}")
+    route = _rec(recs, "codec", "route")
+    fmt = _rec(recs, "streaming ingest", "fmt")
     streamed = _rec(recs, "wrote", "streamed")
-    if codec and not streamed:
-        _fail("production", "the codec built but the mosaic was not "
-                            "streamed")
+    if route is None or fmt != "yuv420" or not streamed:
+        _fail("production", f"the CLI run: codec route {route}, store {fmt}, "
+                            f"streamed {streamed} (the codec's route, a "
+                            f"yuv420 store and a streamed mosaic expected)")
     with open(pano_path, "rb") as f:
         first = f.read()
     pano = decode_all([pano_path])[0]
@@ -2020,40 +2078,39 @@ def phase_production_cli(ortho, imgs, pos, work):
         _fail("production", "the --resume run did not resume")
     with open(pano_path, "rb") as f:
         second = f.read()
-    if not np.array_equal(decode_all([pano_path])[0], pano):
-        _fail("production", "the --resume panorama differs from the "
-                            "straight run's")
+    if second != first or not _rec(recs2, "wrote", "streamed"):
+        _fail("production", "the --resume mosaic was not streamed or its "
+                            "file differs from the straight run's")
     print(f"[smoke] production cli: {ML_ROWS} lines x {CLI_COLS} frames "
           f"{FRAME_H}x{FRAME_W} (each line cut from {ML_COLS} for time), "
-          f"{len(imgs)} frames encoded with "
-          f"{'cv2' if has_cv2 else 'the codec'} in {enc_s:.2f} s; run rc 0 in "
+          f"{len(imgs)} frames encoded by the codec in {enc_s:.2f} s; the "
+          f"children's codec route {route}, store {fmt}; run rc 0 in "
           f"{wall:.2f} s (streaming decode "
           f"{_rec(recs, 'streaming decode', 'decode_seconds')} s of decode "
           f"thread, grouping {_rec(recs, 'grouping done')} s, global compose "
           f"{_rec(recs, 'global compose done')} s, strip-save drain "
-          f"{_rec(recs, 'strip-save drain done')} s, "
-          + (f"streamed write encode "
-             f"{_rec(recs, 'streamed mosaic written', 'encode_seconds')} s, "
-             f"finish wait "
-             f"{_rec(recs, 'streamed mosaic written', 'finish_wait_seconds')}"
-             f" s" if streamed else
-             f"write after the blend {_rec(recs, 'write done')} s (no "
-             f"streamed write)")
-          + f"), panorama {pano.shape[0]}x{pano.shape[1]} GT-RMSE "
+          f"{_rec(recs, 'strip-save drain done')} s, streamed write encode "
+          f"{_rec(recs, 'streamed mosaic written', 'encode_seconds')} s, "
+          f"finish wait "
+          f"{_rec(recs, 'streamed mosaic written', 'finish_wait_seconds')} "
+          f"s), panorama {pano.shape[0]}x{pano.shape[1]} GT-RMSE "
           f"{rmse:.4f} at shift ({dy},{dx}); --resume rc 0 in {wall2:.2f} s "
-          f"(global compose {_rec(recs2, 'global compose done')} s), decoded "
-          f"panorama equal, file bytes equal {first == second}; children's "
+          f"(global compose {_rec(recs2, 'global compose done')} s), "
+          f"streamed, file bytes equal to the straight run's; children's "
           f"peak RSS {rss:.2f} GiB", flush=True)
 
 
-def _flagship_kernels(torch, dev, gt, tuning):
-    """Each kernel at the shapes the flagship alone gives it, from the
-    ground-truth crop (the frames' bytes before JPEG): K1 at the global
+def _flagship_kernels(torch, dev, gt, tuning, planes, regs):
+    """Each kernel at the shapes the flagship alone gives it: from the
+    ground-truth crop (the frames' bytes before JPEG), K1 at the global
     detect of line 1's 25.7k-px strip and K2's content mode from it, as
-    the global stage pads it, and K2's seam batch of line 0's 20 frames.
-    The registration, grouping and compose-feed shapes are the corridor's.
-    Returns ({"global_detect": K1}, {"content_mode": K2, "seam_batch":
-    K2})."""
+    the global stage pads it, and K2's uint8 seam batch of line 0's 20
+    frames; from ``planes``, the codec's raw 4:2:0 planes of line 0's 20
+    JPEGs (packed I420), K2's I420 source at the strip compose feed (one
+    frame into the compose window) and at the 20-frame seam batch
+    (``regs``: ptxas's registers by entry). Returns ({"global_detect":
+    K1}, {"content_mode", "seam_batch", "i420_compose_feed",
+    "i420_seam_batch": K2})."""
     from drone_image_stitch_cpp_tpu_torch.ops.blend import align_up
     step_y = int(FRAME_H * (1 - ML_OVERLAP_Y))
     step_x = int(FRAME_W * (1 - OVERLAP))
@@ -2070,30 +2127,75 @@ def _flagship_kernels(torch, dev, gt, tuning):
     pos = [(0, c * step_x) for c in range(FLAG_COLS)]
     imgs = [gt[:FRAME_H, x:x + FRAME_W] for _, x in pos]
     batch = phase_k2_batch(torch, dev, imgs, pos, tuning)
+    del imgs
+    torch.cuda.empty_cache()
+    frames = torch.from_numpy(np.stack(planes)).to(dev)
+    oh, ow = K2_WIN
+    mid = FLAG_COLS // 2
+    feed = _k2_i420_row(torch, dev, "flagship compose feed (codec planes)",
+                        frames[mid:mid + 1], _feed_affine()[None], oh, ow,
+                        regs)
+    a23s, sh, sw, _ = _seam_affines(pos, tuning)
+    seam = _k2_i420_row(torch, dev, "flagship seam batch (codec planes)",
+                        frames, a23s, sh, sw, regs)
+    del frames
+    torch.cuda.empty_cache()
     return {"global_detect": k1}, {"content_mode": content,
-                                   "seam_batch": batch}
+                                   "seam_batch": batch,
+                                   "i420_compose_feed": feed,
+                                   "i420_seam_batch": seam}
 
 
-def phase_flagship(torch, dev, card, tuning):
+class _Recorder:
+    """Counts the calls of ``module.name`` (``record(args, result)`` sees
+    each) from ``__enter__`` to ``__exit__``, calling through."""
+
+    def __init__(self, module, name, record):
+        self.module, self.name, self.record = module, name, record
+
+    def __enter__(self):
+        self.fn = getattr(self.module, self.name)
+
+        def wrapped(*a, **kw):
+            out = self.fn(*a, **kw)
+            self.record(a, out)
+            return out
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def phase_flagship(torch, dev, card, tuning, regs):
     """The flagship: the 200-frame 10 x 20 sortie of 2160x3840 frames
     from the port's harness (tools/sortie_bench.make_sortie with the JAX
-    harness's defaults: overlaps 0.70 / 0.35, seed 11, JPEG quality 92)
-    in a work directory under build/ that is deleted at the end, then one
-    run_ours on cuda:0 (the application end to end: streaming ingest,
-    grouping, 10 strips, the global stage, the cv2 write), measured by
-    tools/bench_sortie.measure_run. Hard checks as the module doc lists;
-    then the kernels at this path's own shapes (_flagship_kernels).
-    Returns (the run's launch counts, K1's and K2's rows)."""
+    harness's defaults: overlaps 0.70 / 0.35, seed 11, JPEG quality 92,
+    4:2:0) in a work directory under build/ that is deleted at the end,
+    then one run_ours on cuda:0 (the application end to end: streaming
+    ingest into a packed I420 store through the codec's raw decode,
+    grouping and registration on the Y plane, 10 strips fed by K2's I420
+    source, the global stage, the mosaic streamed into the codec's
+    encoder), measured by tools/bench_sortie.measure_run. Hard checks as
+    the module doc lists; then the kernels at this path's own shapes
+    (_flagship_kernels, with the codec's raw planes of line 0's JPEGs;
+    ``regs``: ptxas's registers by entry). Returns (the run's launch
+    counts, K1's and K2's rows)."""
     import resource
 
+    from drone_image_stitch_cpp_tpu_torch.pipeline import registration as R
     from drone_image_stitch_cpp_tpu_torch.runtime.logging import get_logger
     from drone_image_stitch_cpp_tpu_torch.tools import bench_sortie as BS
     from drone_image_stitch_cpp_tpu_torch.tools.sortie_bench import (
         make_sortie)
+    from drone_image_stitch_cpp_tpu_torch.utils.native import (
+        decode_batch_yuv420_native)
 
     get_logger().verbose = False
     work = tempfile.mkdtemp(prefix="smoke_flagship_", dir=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "build"))
+    luma = []
     try:
         rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
         t0 = time.perf_counter()
@@ -2107,15 +2209,21 @@ def phase_flagship(torch, dev, card, tuning):
         torch.cuda.empty_cache()
         try:
             # the launch counts are set to 0 just before run_ours and read
-            # just after it
-            run, mosaic, recs = BS.measure_run(root, gt, dev, "warm",
-                                               retries=0)
+            # just after it; the Y-plane reads are recorded over the same run
+            with _Recorder(R, "yuv420_luma",
+                           lambda a, out: luma.append(tuple(out.shape))):
+                run, mosaic, recs = BS.measure_run(root, gt, dev, "warm",
+                                                   retries=0)
         except RuntimeError as err:
             _fail("flagship", str(err))
         launches = run["launches"]
         on_disk = os.path.exists(os.path.join(
             root, "_ours", "visible", "minfull",
             "visible_minfull_uav_panorama.jpg"))
+        img_dir = os.path.join(root, "visible", "minfull")
+        line0 = sorted(os.listdir(img_dir))[:FLAG_COLS]
+        planes = decode_batch_yuv420_native(
+            [os.path.join(img_dir, n) for n in line0], 8)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2161,6 +2269,37 @@ def phase_flagship(torch, dev, card, tuning):
     for name in ("sift_orient_desc", "warp_affine", "warp_affine_nonblack"):
         if launches[name] <= 0:
             _fail("flagship", f"kernel {name} never launched")
+    # the production I/O: a packed I420 store through the codec, the
+    # mosaic streamed into its encoder and decoding from disk
+    n_frames = FLAG_ROWS * FLAG_COLS
+    store_bytes = n_frames * FRAME_H * 3 // 2 * FRAME_W
+    written = rec("streamed mosaic written")
+    if run["codec_route"] is None or run["store_fmt"] != "yuv420" or \
+            run["store_bytes"] != store_bytes:
+        _fail("flagship", f"store {run['store_fmt']} of {run['store_bytes']}"
+                          f" B through codec route {run['codec_route']}: a "
+                          f"yuv420 store of {store_bytes} B expected")
+    if not run["streamed"] or [written.get("h"), written.get("w")] != \
+            [mh, mw]:
+        _fail("flagship", f"the mosaic was not streamed ({written}) or its "
+                          f"file does not decode to {mh}x{mw}")
+    if len(planes) != FLAG_COLS or any(p is None or p.shape != (
+            FRAME_H * 3 // 2, FRAME_W) for p in planes):
+        _fail("flagship", "line 0's JPEGs do not decode to raw 4:2:0 planes")
+    # K1 on the Y plane; every strip launch of K2 from the I420 source:
+    # compose feeds staged, seam batches per tap
+    by = run["k2_by_source"]
+    feeds = launches["warp_affine"] - launches["warp_affine_batched"] \
+        - by["content"]
+    if not luma or any(sh[-2:] != (FRAME_H, FRAME_W) for sh in luma):
+        _fail("flagship", f"detect read no Y plane of the store ({luma[:4]})")
+    if by["u8"] or by["f32"] or by["i420_staged"] != feeds or \
+            by["i420_per_tap"] != launches["warp_affine_batched"]:
+        _fail("flagship", f"K2 by source {by}, {feeds} compose feeds, "
+                          f"{launches['warp_affine_batched']} seam batches: "
+                          f"every strip launch from the I420 source, the "
+                          f"compose feeds staged and the seam batches per "
+                          f"tap, expected")
     canvas, scale = rec("canvas"), rec("seam scale")
     print(f"[smoke] flagship: {FLAG_ROWS} x {FLAG_COLS} frames {FRAME_H}x"
           f"{FRAME_W} (overlaps 0.70/0.35, seed 11, JPEG q92) rendered and "
@@ -2173,6 +2312,16 @@ def phase_flagship(torch, dev, card, tuning):
           f"{w0}-{w1}), GT-RMSE {rmse:.3f} "
           f"(max_dim 6000, shift {run['gt_shift']}; the JAX package's "
           f"band 38.6-49.0)", flush=True)
+    print(f"[smoke] flagship I/O: codec route {run['codec_route']}; store "
+          f"{run['store_fmt']}, {run['store_bytes']} B ({n_frames} x "
+          f"{store_bytes // n_frames} B, 1.5 B a pixel), decode thread busy "
+          f"{run['decode_thread_s']} s; mosaic streamed into the encoder "
+          f"(encoder {run['encode_s']} s on its thread, finish wait "
+          f"{run['finish_wait_s']} s after the blend), decoded from disk "
+          f"{mh}x{mw}; detect on the Y plane ({len(luma)} reads); K2 by "
+          f"source {by}: {feeds} compose feeds staged, "
+          f"{launches['warp_affine_batched']} seam batches per tap",
+          flush=True)
     print("[smoke] flagship stages (s): " + ", ".join(
         f"{k}={v}" for k, v in run["stages"].items()), flush=True)
     seams_s = rec("seams done").get("seconds")
@@ -2184,13 +2333,13 @@ def phase_flagship(torch, dev, card, tuning):
         f"{r['stage']}={r['seconds']}" for r in recs
         if r["msg"] == "stitch done"), flush=True)
     print(f"[smoke] flagship peak device memory {run['peak_device_gib']} GiB "
-          f"(max_memory_allocated); decode thread busy "
-          f"{run['decode_thread_s']} s; ru_maxrss {run['ru_maxrss_gib']} GiB "
+          f"(max_memory_allocated); ru_maxrss {run['ru_maxrss_gib']} GiB "
           f"(the process's high-water: {rss0:.3f} GiB before the phase); "
           f"launches {launches}; card '{card}'", flush=True)
     del mosaic
     torch.cuda.empty_cache()
-    return (launches, *_flagship_kernels(torch, dev, gt, tuning))
+    return (launches, *_flagship_kernels(torch, dev, gt, tuning, planes,
+                                         regs))
 
 
 def _synchronize_all(torch) -> None:
@@ -2418,6 +2567,8 @@ def main() -> int:
     import drone_image_stitch_cpp_tpu_torch  # noqa: F401  (fp32 policy)
     from drone_image_stitch_cpp_tpu_torch.config.tuning import (
         load_stitch_tuning)
+    from drone_image_stitch_cpp_tpu_torch.tools.bench_sortie import (
+        k2_by_source)
 
     dev = torch.device("cuda", 0)
     card = phase_environment(torch)
@@ -2477,7 +2628,8 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     del ml_ortho, ml_imgs, ml_ids, ml_pos
     torch.cuda.empty_cache()
-    fl_launches, k1_fl, k2_fl = phase_flagship(torch, dev, card, tuning)
+    fl_launches, k1_fl, k2_fl = phase_flagship(torch, dev, card, tuning,
+                                               ptxas["warp_affine.cu"][2])
     k1["flagship"], k2["flagship"] = k1_fl, k2_fl
     paths = {"single_line": launches, "i420": i420_launches,
              "multi_line": ml_launches,
@@ -2495,10 +2647,12 @@ def main() -> int:
         "multi_line_content_mode": ml_launches["warp_affine_nonblack"],
         "production_content_mode": pr_launches["warp_affine_nonblack"],
         "flagship_content_mode": fl_launches["warp_affine_nonblack"]}
-    k2["f32_launches_by_path"] = {p: c.get("warp_affine_f32", 0)
+    k2["f32_launches_by_path"] = {p: c["warp_affine_f32"]
                                   for p, c in paths.items()}
-    k2["i420_launches_by_path"] = {p: c.get("warp_affine_i420", 0)
+    k2["i420_launches_by_path"] = {p: c["warp_affine_i420"]
                                    for p, c in paths.items()}
+    k2["launches_by_source"] = {p: k2_by_source(c)
+                                for p, c in paths.items()}
     k1["max_abs_err"] = max(k1["max_abs_err"],
                             k1["global_detect"]["max_abs_err"],
                             k1["fallback_mixed"]["max_abs_err"],

@@ -11,12 +11,13 @@ stage, and the crop from the blend's device content flags). One group
 takes the single-strip path (stitch_app.cpp:246-260).
 
 Ingest streams by default (``runtime/feed.FrameStore.from_paths``: decode
-on a background thread while grouping runs, ``fmt="auto"``: a folder of
-4:2:0 JPEGs is stored as their own planes, packed I420, where the JPEG
-codec builds, as the JAX package's store does; BGR elsewhere, as on the
-card machine, which has no libjpeg); a frame that does not decode
-falls back to the eager loader's skip-unreadable path. A ready camera
-calibration for the run's image type (``StitchTuning.calibration``, set
+on a background thread while grouping runs, ``RunConfig.ingest_fmt``,
+``"auto"`` by default: a folder of 4:2:0 JPEGs is stored as their own
+planes, packed I420, where the JPEG codec builds (``utils/native``: the
+system libjpeg or the one in Pillow's wheel), as the JAX package's store
+does; BGR elsewhere); a frame that does not decode falls back to the
+eager loader's skip-unreadable path. A ready camera calibration for the
+run's image type (``StitchTuning.calibration``, set
 through ``RunConfig.tuning_overrides``) sends ingest through the eager
 loader instead, and :func:`undistort_frames` undistorts every frame on
 the device before grouping (undistortImagesIfReady, stitch_app.cpp:
@@ -25,8 +26,10 @@ the device before grouping (undistortImagesIfReady, stitch_app.cpp:
 written by a ``BackgroundWriter`` while the device stitches on;
 ``RunConfig.resume`` restarts the global stage from that checkpoint. The
 global stage streams the mosaic's row bands into the incremental JPEG
-encoder when the codec is built (``utils/native``), else the mosaic is
-written after the blend.
+encoder when the codec is built, else the mosaic is written after the
+blend; ``RunConfig.fetch_packed`` sends its tiles to the host as packed
+I420. ``ingest_fmt`` and ``fetch_packed`` are the JAX package's
+``TM_INGEST_FMT`` and ``TM_FETCH_PACKED`` switches, taken as fields.
 
 The run's device spec resolves to a device list
 (``runtime/device.resolve_devices``: ``cuda`` is every visible card,
@@ -66,7 +69,8 @@ from .runtime.handoff import DeviceStrip, as_host_strips
 from .runtime.loader import load_with_ids, scan_with_ids
 from .runtime.logging import get_logger
 from .runtime.writer import BackgroundWriter, StreamedMosaicWriter
-from .utils.native import encode_jpeg_native, jpeg_encoder_available
+from .utils.native import (encode_jpeg_native, jpeg_codec_error,
+                           jpeg_codec_route, jpeg_encoder_available)
 
 
 @dataclass
@@ -81,6 +85,8 @@ class RunConfig:
     save_strips: bool = True      # strips/strip_XX.jpg per flight line
     resume: bool = False          # global stage from the strip checkpoint
     tuning_overrides: dict = field(default_factory=dict)
+    ingest_fmt: str = "auto"      # the frame store's fmt: auto, bgr, yuv420
+    fetch_packed: bool = False    # global tiles leave the card packed I420
 
     @property
     def input_dir(self) -> str:
@@ -138,7 +144,8 @@ def global_tuning(tuning: StitchTuning) -> StitchTuning:
 def stitch_frames(images: Optional[List[np.ndarray]], ids: List[str],
                   tuning: StitchTuning, device, store=None,
                   on_strip: Optional[Callable] = None,
-                  row_sink=None) -> StitchResult:
+                  row_sink=None, fetch_packed: bool = False
+                  ) -> StitchResult:
     """Group and stitch same-size BGR uint8 frames on ``device``.
 
     One flight line: one strip stitch. Several: one strip stitch per line
@@ -154,10 +161,11 @@ def stitch_frames(images: Optional[List[np.ndarray]], ids: List[str],
     ``images``. ``on_strip(gi, pano, last)``: called after each
     strip of a multi-line sortie with its cropped panorama (a host array
     or a :class:`DeviceStrip`), ``last`` on the final strip, before the
-    global stage. ``row_sink``: passed to the global stage (streamed
-    mosaic write). Raises DeviceUnavailableError when ``device`` names a
-    card that is not there, FrameStoreError when a streamed frame does
-    not decode, StripStitchError or GlobalStitchError when a stage fails.
+    global stage. ``row_sink`` and ``fetch_packed``: passed to the global
+    stage (streamed mosaic write; tiles fetched as packed I420). Raises
+    DeviceUnavailableError when ``device`` names a card that is not there,
+    FrameStoreError when a streamed frame does not decode,
+    StripStitchError or GlobalStitchError when a stage fails.
     """
     devices = resolve_devices(device)
     dev = devices[0]
@@ -219,7 +227,8 @@ def stitch_frames(images: Optional[List[np.ndarray]], ids: List[str],
     with log.timer("Main", "global compose", sync=sync):
         mosaic = stitch_inter_strips_custom(strips, global_tuning(tuning),
                                             device=devices, info=ginfo,
-                                            row_sink=row_sink)
+                                            row_sink=row_sink,
+                                            fetch_packed=fetch_packed)
     return StitchResult(
         panorama=mosaic, groups=groups, strip_kept=strip_kept,
         strip_transforms=strip_tf, global_transforms=ginfo["transforms"],
@@ -227,21 +236,21 @@ def stitch_frames(images: Optional[List[np.ndarray]], ids: List[str],
 
 
 def write_image(path: str, img: np.ndarray) -> None:
-    """JPEG/PNG write through cv2 when present, else a JPEG through the
-    codec built from native/ (raising with the codec's reason when it is
-    not built)."""
+    """A JPEG through the codec built from native/ where it builds (at
+    quality 95 with libjpeg's defaults, the settings of cv2's default
+    JPEG write), anything else through cv2; raises when neither can
+    write it."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    if path.lower().endswith((".jpg", ".jpeg")) and jpeg_encoder_available():
+        encode_jpeg_native(path, np.ascontiguousarray(img))
+        return
     try:
         import cv2
     except ImportError:
-        cv2 = None
-    if cv2 is not None:
-        if not cv2.imwrite(path, img):
-            raise RuntimeError(f"failed to write {path}")
-        return
-    if not path.lower().endswith((".jpg", ".jpeg")):
-        raise RuntimeError(f"no encoder for {path} without cv2")
-    encode_jpeg_native(path, np.ascontiguousarray(img))
+        raise RuntimeError(f"no encoder for {path}: no cv2, and the JPEG "
+                           f"codec is unavailable ({jpeg_codec_error()})")
+    if not cv2.imwrite(path, img):
+        raise RuntimeError(f"failed to write {path}")
 
 
 def _save_strip(path: str, pano) -> None:
@@ -311,6 +320,8 @@ def run_stitch_application(cfg: Optional[RunConfig] = None) -> int:
             tuning = tuning.replace(**cfg.tuning_overrides)
         os.makedirs(cfg.output_dir, exist_ok=True)
         log.log("Main", "device", **describe_device(dev))
+        log.log("Main", "codec", route=jpeg_codec_route(),
+                error=jpeg_codec_error())
         if len(devices) > 1:
             log.log("Main", "mesh", devices=len(devices))
         log.log("Main", "tuning", **tuning_as_dict(tuning))
@@ -327,7 +338,7 @@ def run_stitch_application(cfg: Optional[RunConfig] = None) -> int:
             with log.timer("Main", "global compose", sync=device_sync(dev)):
                 panorama = stitch_inter_strips_custom(
                     strips, global_tuning(tuning), device=devices,
-                    row_sink=sink)
+                    row_sink=sink, fetch_packed=cfg.fetch_packed)
         else:
             with log.timer("Main", "scan"):
                 paths, ids = scan_with_ids(cfg.input_dir)
@@ -341,7 +352,8 @@ def run_stitch_application(cfg: Optional[RunConfig] = None) -> int:
                 try:
                     # fmt="auto": a folder of 4:2:0 JPEGs is stored as its
                     # own planes (packed I420) where the codec builds
-                    store = FrameStore.from_paths(paths, dev)
+                    store = FrameStore.from_paths(paths, dev,
+                                                  fmt=cfg.ingest_fmt)
                     store.shape0    # frame 0 decodes, or FrameStoreError
                     log.log("Main", "streaming ingest", fmt=store.fmt,
                             n=len(paths))
@@ -376,7 +388,8 @@ def run_stitch_application(cfg: Optional[RunConfig] = None) -> int:
             try:
                 result = stitch_frames(images, ids, tuning, devices,
                                        store=store, on_strip=on_strip,
-                                       row_sink=sink)
+                                       row_sink=sink,
+                                       fetch_packed=cfg.fetch_packed)
             except FrameStoreError as e:
                 # an unreadable or mismatched frame: recover with the eager
                 # loader (skip-unreadable, image_loader.cpp:52-59)
@@ -389,11 +402,13 @@ def run_stitch_application(cfg: Optional[RunConfig] = None) -> int:
                 images, ids = eager
                 done.clear()
                 result = stitch_frames(images, ids, tuning, devices,
-                                       on_strip=on_strip, row_sink=sink)
+                                       on_strip=on_strip, row_sink=sink,
+                                       fetch_packed=cfg.fetch_packed)
             panorama = result.panorama
             if store is not None:
                 log.log("Main", "streaming decode", n=len(store),
-                        decode_seconds=round(store.decode_seconds, 3))
+                        decode_seconds=round(store.decode_seconds, 3),
+                        fmt=store.fmt, bytes=store.nbytes)
 
         if writer is not None:
             with log.timer("Main", "strip-save drain"):

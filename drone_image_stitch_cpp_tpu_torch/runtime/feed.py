@@ -93,6 +93,7 @@ class FrameStore:
         self._events: list = []
         self._paths: Optional[List[str]] = None
         self.decode_seconds = 0.0   # the decode thread's busy time
+        self.nbytes = 0             # the device frames' bytes, once stored
 
     @classmethod
     def from_paths(cls, paths: Sequence[str], device: torch.device,
@@ -106,7 +107,7 @@ class FrameStore:
         decoder, as the JAX package does (runtime/feed.py:113-123): a
         4:2:0 YCbCr JPEG (drone cameras write them) is stored as its own
         planes, packed I420; anything else, or a machine where the codec
-        does not build (the card machine has no libjpeg), stores BGR.
+        builds by neither route (``utils/native``), stores BGR.
         ``fmt="yuv420"`` raises where the codec does not build;
         ``fmt="bgr"`` always decodes to BGR.
 
@@ -218,6 +219,7 @@ class FrameStore:
         if self.frames is None:
             self.frames = torch.empty((self.n,) + self._stored_shape(),
                                       dtype=torch.uint8, device=self.device)
+            self.nbytes = self.frames.numel()
         for i in range(c0, c1):
             self.frames[i].copy_(torch.from_numpy(
                 np.ascontiguousarray(self.images[i])))
@@ -249,6 +251,7 @@ class FrameStore:
         st = FrameStore.__new__(FrameStore)
         st._init(len(indices), device, self.fmt)
         st.frames = self.batch(indices).to(st.device)
+        st.nbytes = st.frames.numel()
         st.images = [self.images[i] for i in indices]
         if self._paths is not None:
             st._paths = [self._paths[i] for i in indices]

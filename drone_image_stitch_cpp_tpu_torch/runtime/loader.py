@@ -41,8 +41,8 @@ def extract_image_id(filename: str) -> str:
 
 
 def _fallback_decoders() -> bool:
-    """Whether cv2 or PIL can decode here (the card machine may have
-    neither; the JPEG codec built from native/ then decodes alone)."""
+    """Whether cv2 or PIL can decode here (a machine may have neither; the
+    JPEG codec built from native/ then decodes alone)."""
     import importlib.util
     return any(importlib.util.find_spec(m) is not None
                for m in ("cv2", "PIL"))

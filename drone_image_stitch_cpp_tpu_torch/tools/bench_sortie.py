@@ -12,12 +12,15 @@ solver's g++ build at first use); ``secs_ours`` is the median of the warm
 runs (2..N); every run keeps its wall, GT-RMSE (``max_dim=6000``), stage
 split, peak device memory (``torch.cuda.max_memory_allocated`` after
 ``reset_peak_memory_stats``), the process's peak RSS (``ru_maxrss``, a
-high-water mark over the process so far), the decode thread's busy time
-and the K1 / K2 launch counts.
+high-water mark over the process so far), the decode thread's busy time,
+the frame store's format and bytes, whether the mosaic was streamed into
+the encoder (with the encoder's and the finish wait's seconds), the JPEG
+codec's build route, and the K1 / K2 launch counts (K2's also by source).
 
     python -m drone_image_stitch_cpp_tpu_torch.tools.bench_sortie \\
         [--frames-rows 10 --frames-cols 20] [--work DIR] [--runs 4] \\
-        [--device cuda] [--record PATH]
+        [--device cuda] [--ingest-fmt auto|bgr|yuv420] [--fetch-packed] \\
+        [--record PATH]
 
 Nothing is written into the repository's tree but the rendered sortie
 under ``--work`` (default ``build/sortie200``, git-ignored); the JSON goes
@@ -68,10 +71,24 @@ def launch_counts():
     from ..ops.warp_kernel import warp_frame, warp_frames
     return {"sift_orient_desc": orientation_descriptor_flat.launches,
             "warp_affine": warp_frame.launches + warp_frames.launches,
+            "warp_affine_batched": warp_frames.launches,
             "warp_affine_nonblack": warp_frame.nonblack_launches,
             "warp_affine_f32": warp_frame.f32_launches,
             "warp_affine_i420": warp_frame.i420_launches,
             "warp_affine_i420_staged": warp_frame.i420_staged_launches}
+
+
+def k2_by_source(launches):
+    """K2's launches of :func:`launch_counts` by the source they read:
+    uint8 frames, float32 frames, packed I420 by the staged and by the
+    per-tap kernel, and uint8 strips in content mode."""
+    i420 = launches["warp_affine_i420"]
+    staged = launches["warp_affine_i420_staged"]
+    content = launches["warp_affine_nonblack"]
+    f32 = launches["warp_affine_f32"]
+    return {"u8": launches["warp_affine"] - i420 - content - f32,
+            "f32": f32, "i420_staged": staged, "i420_per_tap": i420 - staged,
+            "content": content}
 
 
 def zero_launch_counts():
@@ -107,10 +124,19 @@ def summarize(runs):
                 protocol_version=2)
 
 
-def measure_run(root, gt, device, label, retries=2):
-    """One timed ``run_ours`` with its stage split, GT-RMSE, peak device
-    memory, peak RSS, decode-thread time and launch counts: (run record,
-    mosaic, the run's log records)."""
+def _rec(records, msg, stage="Main"):
+    return next((r for r in records if r["msg"] == msg
+                 and r["stage"] == stage), None)
+
+
+def measure_run(root, gt, device, label, retries=2, ingest_fmt="auto",
+                fetch_packed=False):
+    """One timed ``run_ours`` (``ingest_fmt``, ``fetch_packed``: its
+    ``RunConfig`` fields) with its stage split, GT-RMSE, peak device
+    memory, peak RSS, decode-thread time, the store's format and bytes,
+    the streamed write's encoder and finish-wait seconds (None when the
+    mosaic was written after the blend), the codec's route and launch
+    counts: (run record, mosaic, the run's log records)."""
     import torch
 
     from ..runtime.device import resolve_devices
@@ -119,20 +145,25 @@ def measure_run(root, gt, device, label, retries=2):
     dev = resolve_devices(device)[0]
     cuda = dev.type == "cuda"
     if cuda:
+        # the first CUDA call of a process whose sortie was cached: the
+        # allocator's statistics exist only once the context does
+        torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
     logger = get_logger()
     rec0 = len(logger._records)
     zero_launch_counts()
     secs, mosaic, rc = run_ours(root, os.path.join(root, "_ours"), device,
-                                retries=retries)
+                                retries=retries, ingest_fmt=ingest_fmt,
+                                fetch_packed=fetch_packed)
     launches = launch_counts()
     if rc != 0 or mosaic is None:
         raise RuntimeError(f"[sortie] the port's run failed rc={rc}")
     records = logger._records[rec0:]
     rmse, dx, dy = gt_rmse(mosaic, gt, max_dim=GT_MAX_DIM)
-    decode = [r["decode_seconds"] for r in records
-              if r["msg"] == "streaming decode"]
+    decode = _rec(records, "streaming decode") or {}
+    streamed = _rec(records, "streamed mosaic written", "GlobalCustom")
+    codec = _rec(records, "codec") or {}
     run = dict(label=label, secs=round(secs, 3), gt_rmse=round(rmse, 3),
                gt_shift=[round(dx, 2), round(dy, 2)],
                mosaic_hw=list(mosaic.shape[:2]),
@@ -141,8 +172,14 @@ def measure_run(root, gt, device, label, retries=2):
                                       / 2**30, 3) if cuda else None),
                ru_maxrss_gib=round(resource.getrusage(
                    resource.RUSAGE_SELF).ru_maxrss / 2**20, 3),
-               decode_thread_s=decode[-1] if decode else None,
-               launches=launches)
+               decode_thread_s=decode.get("decode_seconds"),
+               store_fmt=decode.get("fmt"), store_bytes=decode.get("bytes"),
+               streamed=streamed is not None,
+               encode_s=streamed and streamed["encode_seconds"],
+               finish_wait_s=streamed and streamed["finish_wait_seconds"],
+               codec_route=codec.get("route"),
+               ingest_fmt=ingest_fmt, fetch_packed=fetch_packed,
+               launches=launches, k2_by_source=k2_by_source(launches))
     return run, mosaic, records
 
 
@@ -159,6 +196,12 @@ def main(argv=None):
                          "(kernel and solver builds); secs_ours is the "
                          "MEDIAN OF THE WARM runs (2..N). Use --runs >= 4 "
                          "for the protocol (1 cold + >= 3 warm).")
+    ap.add_argument("--ingest-fmt", default="auto",
+                    choices=("auto", "bgr", "yuv420"),
+                    help="the frame store's format (RunConfig.ingest_fmt)")
+    ap.add_argument("--fetch-packed", action="store_true",
+                    help="fetch the global tiles as packed I420 "
+                         "(RunConfig.fetch_packed)")
     ap.add_argument("--record", default=None,
                     help="also write the JSON line to this path")
     args = ap.parse_args(argv)
@@ -174,11 +217,14 @@ def main(argv=None):
     out = {"frames": args.frames_rows * args.frames_cols,
            "frame": f"{FRAME_H}x{FRAME_W}", "overlap": "0.70/0.35",
            "render_s": round(render_s, 3),
-           "device": args.device, "card": card_name_and_power_limit()}
+           "device": args.device, "card": card_name_and_power_limit(),
+           "ingest_fmt": args.ingest_fmt, "fetch_packed": args.fetch_packed}
     runs = []
     for k in range(max(1, args.runs)):
         run, mosaic, _ = measure_run(root, gt, args.device,
-                                     "cold" if k == 0 else "warm")
+                                     "cold" if k == 0 else "warm",
+                                     ingest_fmt=args.ingest_fmt,
+                                     fetch_packed=args.fetch_packed)
         runs.append(run)
         out["mosaic_hw"] = run["mosaic_hw"]
         log(f"[sortie] run {k + 1}/{args.runs} ({run['label']}): "

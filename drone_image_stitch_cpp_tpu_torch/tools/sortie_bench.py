@@ -115,14 +115,19 @@ def make_sortie(root: str, rows: int, cols: int, frame_h: int, frame_w: int,
 # the application's run
 # ---------------------------------------------------------------------------
 
-def run_ours(input_root: str, out_root: str, device, retries: int = 0):
+def run_ours(input_root: str, out_root: str, device, retries: int = 0,
+             ingest_fmt: str = "auto", fetch_packed: bool = False):
     """End-to-end run of the port; returns (seconds, mosaic, rc).
 
     ``device`` is the run's device (``cuda``, ``cuda:N``, ``cpu`` or a
     list; no default). ``retries``: re-attempts after a non-zero exit,
     resuming the global stage from the strip checkpoint (``--resume``) so
     completed strips are not re-stitched. Wall-clock accumulates across
-    attempts.
+    attempts. ``ingest_fmt`` / ``fetch_packed``: the run's
+    ``RunConfig.ingest_fmt`` (the frame store's format: ``auto`` stores a
+    4:2:0 JPEG folder packed I420 where the codec builds) and
+    ``RunConfig.fetch_packed`` (the global tiles leave the card as packed
+    I420), the JAX harness's ``TM_INGEST_FMT`` / ``TM_FETCH_PACKED``.
     """
     cv2 = _cv2()
     from ..app import RunConfig, run_stitch_application
@@ -132,7 +137,8 @@ def run_ours(input_root: str, out_root: str, device, retries: int = 0):
     for attempt in range(retries + 1):
         cfg = RunConfig(image_folder=input_root, image_type="visible",
                         group="minfull", output_root=out_root,
-                        device=device, resume=attempt > 0)
+                        device=device, resume=attempt > 0,
+                        ingest_fmt=ingest_fmt, fetch_packed=fetch_packed)
         rc = run_stitch_application(cfg)
         if rc == 0:
             break

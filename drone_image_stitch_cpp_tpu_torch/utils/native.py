@@ -5,23 +5,34 @@ JPEG decode (BGR, BGR at 1/denom by libjpeg's DCT scaling, and the raw
 4:2:0 planes as packed I420), the incremental JPEG encode and the
 graph-cut min-cut solver (``tm_graphcut``, a Boykov-Kolmogorov
 max-flow). Both libraries are built from the repo's sources with the host
-C++ compiler into ``build/native/`` at first use, keyed by the sources and
-flags, so every machine runs the same code (no ``-march=native``; the
-committed ``native/libtmnative.so`` is not loaded):
+C++ compiler into ``build/native/`` at first use, keyed by the sources,
+flags and (for the codec) the headers and library it was built against,
+so every machine runs the same code (no ``-march=native``; the committed
+``native/libtmnative.so`` is not loaded):
 
-* the JPEG codec from ``native/decode.cpp`` + ``native/encode.cpp``,
-  linked with the system libjpeg. Where there is no compiler or no
-  libjpeg, :func:`jpeg_codec_error` gives the compiler's first error line
-  and every codec read or write raises with it, but the raw 4:2:0
-  decodes, which return None there (the frame store's probe then stores
-  BGR);
+* the JPEG codec from ``native/decode.cpp`` + ``native/encode.cpp``, by
+  the first of two routes that builds and loads (:func:`jpeg_codec_route`):
+
+  - ``system``: the system ``jpeglib.h`` and ``-ljpeg``;
+  - ``pillow``: the jpeg62 headers vendored in ``csrc/libjpeg62/``
+    (libjpeg-turbo 2.1.5) and the libjpeg-turbo that Pillow's wheel
+    bundles (``<site-packages>/pillow.libs/libjpeg-*.so*``, the jpeg62
+    ABI), linked by its path with an rpath to its directory. This is the
+    route of a machine with Pillow but no libjpeg development files.
+
+  Where neither builds, :func:`jpeg_codec_error` names both routes'
+  failures and every codec read or write raises with it, but the raw
+  4:2:0 decodes, which return None there (the frame store's probe then
+  stores BGR);
 * the solver from ``native/graphcut.cpp`` (no libjpeg needed).
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -37,23 +48,43 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 _FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-pthread")
 _LOCK = threading.Lock()
 _GC = {}        # "fn": the typed tm_graphcut, "path": its library
-_CODEC = {}     # "lib": the typed codec library, "error": why there is none
+_CODEC = {}     # "lib": the typed codec library, "path", "route", "error"
+# the jpeg62 headers the pillow route compiles against
+_VENDORED = os.path.join(_ROOT, "drone_image_stitch_cpp_tpu_torch", "csrc",
+                         "libjpeg62")
+_JPEG_HEADERS = ("jpeglib.h", "jconfig.h", "jmorecfg.h", "jerror.h")
+# what the system route's header probe preprocesses
+_SYSTEM_PROBE = ("#include <cstdio>\n#include <jpeglib.h>\n"
+                 "#include <jerror.h>\n")
 
 
-def _build(name: str, sources: Sequence[str], libs: Sequence[str] = ()
+def _cxx() -> Optional[str]:
+    return os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+
+
+def _first_error(stderr: str) -> str:
+    lines = stderr.strip().splitlines() or ["?"]
+    return next((ln for ln in lines if "error" in ln), lines[0]).strip()
+
+
+def _build(name: str, sources: Sequence[str], libs: Sequence[str] = (),
+           cflags: Sequence[str] = (), key: bytes = b""
            ) -> Tuple[Optional[str], Optional[str]]:
     """Build ``native/<sources>`` into build/native/lib<name>-<key>.so
-    (key: the sources' bytes and the flags); returns (path, None), or
-    (None, reason) without a C++ compiler or when the compile fails (the
-    reason is the compiler's first error line)."""
+    (key: the sources' bytes, the flags and libraries, and ``key``: what
+    else the build depends on); returns (path, None), or (None, reason)
+    without a C++ compiler or when the compile fails (the reason is the
+    compiler's first error line)."""
     srcs = [os.path.join(_ROOT, "native", s) for s in sources]
-    cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+    cxx = _cxx()
     if cxx is None:
         return None, "no C++ compiler (g++ or c++) on PATH"
     missing = [s for s in srcs if not os.path.exists(s)]
     if missing:
         return None, f"missing source {missing[0]}"
-    h = hashlib.sha256(" ".join(_FLAGS + tuple(libs)).encode())
+    h = hashlib.sha256(" ".join(_FLAGS + tuple(cflags)
+                                + tuple(libs)).encode())
+    h.update(key)
     for s in srcs:
         with open(s, "rb") as f:
             h.update(f.read())
@@ -63,13 +94,11 @@ def _build(name: str, sources: Sequence[str], libs: Sequence[str] = ()
         os.makedirs(out_dir, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
         os.close(fd)
-        proc = subprocess.run([cxx, *_FLAGS, *srcs, "-o", tmp, *libs],
-                              capture_output=True, text=True)
+        proc = subprocess.run([cxx, *_FLAGS, *cflags, *srcs, "-o", tmp,
+                               *libs], capture_output=True, text=True)
         if proc.returncode != 0:
             os.unlink(tmp)
-            lines = proc.stderr.strip().splitlines() or ["?"]
-            first = next((ln for ln in lines if "error" in ln), lines[0])
-            return None, first.strip()
+            return None, _first_error(proc.stderr)
         os.replace(tmp, path)
     return path, None
 
@@ -118,56 +147,146 @@ graphcut_native.calls = 0
 graphcut_native.seconds = 0.0
 
 
+def _file_key(paths: Sequence[str]) -> bytes:
+    """The bytes of ``paths``, each after its name."""
+    out = b""
+    for p in paths:
+        with open(p, "rb") as f:
+            out += os.path.basename(p).encode() + b"\0" + f.read()
+    return out
+
+
+def _lib_key(path: str) -> bytes:
+    """A linked library's path and size (its bytes are not read)."""
+    return f"{path}:{os.path.getsize(path)}".encode()
+
+
+def _route_system(cxx: str):
+    """Route ``system``: the compiler's own ``jpeglib.h`` and ``-ljpeg``.
+    Returns (cflags, libs, key, route) or raises RuntimeError with why
+    not (the header probe's first error line when there is no
+    ``jpeglib.h``)."""
+    proc = subprocess.run([cxx, "-x", "c++", "-M", "-"], input=_SYSTEM_PROBE,
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(_first_error(proc.stderr))
+    deps = proc.stdout.replace("\\\n", " ").split()
+    heads = sorted({d for d in deps if os.path.basename(d) in _JPEG_HEADERS})
+    lib = subprocess.run([cxx, "-print-file-name=libjpeg.so"],
+                         capture_output=True, text=True).stdout.strip()
+    lib = os.path.realpath(lib) if os.path.isabs(lib) else lib
+    key = b"system\0" + _file_key(heads) + (
+        _lib_key(lib) if os.path.isfile(lib) else lib.encode())
+    return (), ("-ljpeg",), key, "system"
+
+
+def _pillow_libjpeg() -> Optional[str]:
+    """The libjpeg-turbo that Pillow's wheel bundles
+    (``<dir of PIL>/../pillow.libs/libjpeg-*.so*``), or None: no PIL, or a
+    Pillow built from source (no ``pillow.libs/``). PIL is located, not
+    imported."""
+    spec = importlib.util.find_spec("PIL")
+    if spec is None or not spec.origin:
+        return None
+    site = os.path.dirname(os.path.dirname(os.path.abspath(spec.origin)))
+    found = sorted(glob.glob(os.path.join(site, "pillow.libs",
+                                          "libjpeg-*.so*")))
+    return found[0] if found else None
+
+
+def _route_pillow(cxx: str):
+    """Route ``pillow``: the vendored jpeg62 headers and Pillow's bundled
+    libjpeg-turbo, linked by its path with an rpath to its directory.
+    Returns (cflags, libs, key, route) or raises RuntimeError with why
+    not."""
+    lib = _pillow_libjpeg()
+    if lib is None:
+        raise RuntimeError("no libjpeg-*.so* under Pillow's pillow.libs/ "
+                           "(no PIL, or a Pillow built from source)")
+    heads = [os.path.join(_VENDORED, h) for h in _JPEG_HEADERS]
+    key = b"pillow\0" + _file_key(heads) + _lib_key(lib)
+    return (("-I", _VENDORED), (lib, f"-Wl,-rpath,{os.path.dirname(lib)}"),
+            key, f"pillow:{lib}")
+
+
+_ROUTES = {"system": _route_system, "pillow": _route_pillow}
+
+
+def _type_codec(lib) -> None:
+    """Declare the codec's C entry points on a loaded library."""
+    u8p = ctypes.POINTER(ctypes.c_ubyte)
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.tm_decode_jpeg.restype = u8p
+    lib.tm_decode_jpeg.argtypes = [ctypes.c_char_p, ip, ip]
+    lib.tm_free.argtypes = [u8p]
+    batch = [ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
+             ctypes.POINTER(u8p), ip, ip, ctypes.c_int]
+    lib.tm_decode_jpeg_yuv420.restype = u8p
+    lib.tm_decode_jpeg_yuv420.argtypes = [ctypes.c_char_p, ip, ip]
+    for fn, extra in (("tm_decode_jpeg_batch", []),
+                      ("tm_decode_jpeg_batch_yuv420", []),
+                      ("tm_decode_jpeg_batch_scaled", [ctypes.c_int])):
+        getattr(lib, fn).restype = ctypes.c_int
+        getattr(lib, fn).argtypes = batch + extra
+    uptr = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C")
+    lib.tm_jpeg_enc_start.restype = ctypes.c_void_p
+    lib.tm_jpeg_enc_start.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.tm_jpeg_enc_write_bgr.restype = ctypes.c_int
+    lib.tm_jpeg_enc_write_bgr.argtypes = [ctypes.c_void_p, uptr, ctypes.c_int]
+    lib.tm_jpeg_enc_finish.restype = ctypes.c_int
+    lib.tm_jpeg_enc_finish.argtypes = [ctypes.c_void_p]
+    lib.tm_jpeg_enc_abort.restype = None
+    lib.tm_jpeg_enc_abort.argtypes = [ctypes.c_void_p]
+
+
+def _build_codec(routes: Sequence[str] = ("system", "pillow")) -> dict:
+    """Build and load the codec by the first of ``routes`` that works:
+    {"lib", "path", "route", "error"}, with lib, path and route None and
+    error naming every route's failure when none does. A library is
+    loaded under the key of its route, headers and linked library, so a
+    ``build/native/`` entry made on one machine is never loaded against
+    another machine's libjpeg."""
+    cxx = _cxx()
+    if cxx is None:
+        return {"lib": None, "path": None, "route": None,
+                "error": "no C++ compiler (g++ or c++) on PATH"}
+    errors = []
+    for name in routes:
+        try:
+            cflags, libs, key, route = _ROUTES[name](cxx)
+        except RuntimeError as e:
+            errors.append(f"{name}: {e}")
+            continue
+        path, err = _build("tmjpeg", ["decode.cpp", "encode.cpp"], libs,
+                           cflags, key)
+        if path is not None:
+            try:
+                lib = ctypes.CDLL(path)
+            except OSError as e:
+                err = f"{os.path.basename(path)} does not load: {e}"
+            else:
+                _type_codec(lib)
+                return {"lib": lib, "path": path, "route": route,
+                        "error": None}
+        errors.append(f"{name}: {err}")
+    return {"lib": None, "path": None, "route": None,
+            "error": "; ".join(errors)}
+
+
 def _codec():
     """The JPEG codec library (typed once), or None; the reason for None
     is in ``_CODEC["error"]``."""
     with _LOCK:
         if "lib" not in _CODEC:
-            path, err = _build("tmjpeg", ["decode.cpp", "encode.cpp"],
-                               ["-ljpeg"])
-            lib = None
-            if path is not None:
-                try:
-                    lib = ctypes.CDLL(path)
-                except OSError as e:
-                    err = f"{os.path.basename(path)} does not load: {e}"
-            if lib is not None:
-                u8p = ctypes.POINTER(ctypes.c_ubyte)
-                ip = ctypes.POINTER(ctypes.c_int)
-                lib.tm_decode_jpeg.restype = u8p
-                lib.tm_decode_jpeg.argtypes = [ctypes.c_char_p, ip, ip]
-                lib.tm_free.argtypes = [u8p]
-                batch = [ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
-                         ctypes.POINTER(u8p), ip, ip, ctypes.c_int]
-                lib.tm_decode_jpeg_yuv420.restype = u8p
-                lib.tm_decode_jpeg_yuv420.argtypes = [ctypes.c_char_p, ip,
-                                                      ip]
-                for fn, extra in (("tm_decode_jpeg_batch", []),
-                                  ("tm_decode_jpeg_batch_yuv420", []),
-                                  ("tm_decode_jpeg_batch_scaled",
-                                   [ctypes.c_int])):
-                    getattr(lib, fn).restype = ctypes.c_int
-                    getattr(lib, fn).argtypes = batch + extra
-                uptr = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C")
-                lib.tm_jpeg_enc_start.restype = ctypes.c_void_p
-                lib.tm_jpeg_enc_start.argtypes = [
-                    ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
-                lib.tm_jpeg_enc_write_bgr.restype = ctypes.c_int
-                lib.tm_jpeg_enc_write_bgr.argtypes = [
-                    ctypes.c_void_p, uptr, ctypes.c_int]
-                lib.tm_jpeg_enc_finish.restype = ctypes.c_int
-                lib.tm_jpeg_enc_finish.argtypes = [ctypes.c_void_p]
-                lib.tm_jpeg_enc_abort.restype = None
-                lib.tm_jpeg_enc_abort.argtypes = [ctypes.c_void_p]
-            _CODEC["lib"] = lib
-            _CODEC["path"] = path if lib is not None else None
-            _CODEC["error"] = None if lib is not None else err
+            _CODEC.update(_build_codec())
         return _CODEC["lib"]
 
 
 def jpeg_codec_error() -> Optional[str]:
-    """None when the JPEG codec is built and loaded, else why not (the
-    compiler's first error line, e.g. a missing ``jpeglib.h``)."""
+    """None when the JPEG codec is built and loaded, else why not: each
+    route's failure (the compiler's first error line, e.g. a missing
+    ``jpeglib.h``, or no libjpeg in Pillow's wheel)."""
     _codec()
     return _CODEC["error"]
 
@@ -176,6 +295,13 @@ def jpeg_codec_library() -> Optional[str]:
     """Path of the built codec library, or None."""
     _codec()
     return _CODEC["path"]
+
+
+def jpeg_codec_route() -> Optional[str]:
+    """How the codec was built: ``"system"``, ``"pillow:<libjpeg path>"``
+    or None when it was not."""
+    _codec()
+    return _CODEC["route"]
 
 
 def jpeg_encoder_available() -> bool:
@@ -274,8 +400,9 @@ def decode_image_yuv420_native(path: str) -> Optional[np.ndarray]:
     (H*3/2, W) uint8 array (Y, then U, then V, each chroma plane raveled
     into W-wide rows; ``tm_decode_jpeg_yuv420``). None unless ``path`` is
     a 3-component YCbCr JPEG with 2x2/1x1/1x1 sampling and even
-    dimensions, and None when the codec is not built (the card machine:
-    the store's ``fmt="auto"`` probe then resolves to BGR)."""
+    dimensions, and None when the codec is not built (a machine with
+    neither route: the store's ``fmt="auto"`` probe then resolves to
+    BGR)."""
     lib = _codec()
     if lib is None or not path.lower().endswith((".jpg", ".jpeg")):
         return None

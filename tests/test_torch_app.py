@@ -20,15 +20,21 @@ import cv2
 import numpy as np
 import pytest
 
-from torch_port_helpers import small_tunings  # noqa: F401  (torch threads)
+from torch_port_helpers import small_tunings
 
+from drone_image_stitch_cpp_tpu.runtime.feed import FrameStore as JStore
 from drone_image_stitch_cpp_tpu.utils.synthetic import render_sortie
+from drone_image_stitch_cpp_tpu_torch import app as A
 from drone_image_stitch_cpp_tpu_torch.app import (RunConfig,
                                                   run_stitch_application)
 from drone_image_stitch_cpp_tpu_torch.cli.main import build_parser, main
+from drone_image_stitch_cpp_tpu_torch.grouping.flight_grouper import (
+    VisualStripGroup)
+from drone_image_stitch_cpp_tpu_torch.runtime.loader import scan_with_ids
 from drone_image_stitch_cpp_tpu_torch.ops import blend as TB
 from drone_image_stitch_cpp_tpu_torch.runtime.logging import (
     device_trace, get_logger)
+from drone_image_stitch_cpp_tpu_torch.utils.native import _pillow_libjpeg
 from drone_image_stitch_cpp_tpu_torch.utils.synthetic import gt_rmse
 
 _OVERRIDES = dict(sift_features=512, strip_sift_features=512,
@@ -88,6 +94,13 @@ def test_app_writes_panorama_strips_and_checkpoint(straight, sortie, ortho):
     # the folder's 4:2:0 JPEGs take the I420 wire, as in the JAX package
     ingest = [r for r in recs if r["msg"] == "streaming ingest"]
     assert ingest[0]["fmt"] == "yuv420"
+    decode = [r for r in recs if r["msg"] == "streaming decode"]
+    assert decode[0]["fmt"] == "yuv420"
+    assert decode[0]["bytes"] == 6 * 160 * 3 // 2 * 208
+    codec = [r for r in recs if r["msg"] == "codec"]
+    assert len(codec) == 1 and codec[0]["error"] is None
+    assert codec[0]["route"] in ("system", "pillow:" + str(
+        _pillow_libjpeg()))
     assert ("GlobalCustom", "streaming mosaic write") in msgs
     assert ("GlobalCustom", "streamed mosaic written") in msgs
     assert ("Main", "strip-save drain done") in msgs
@@ -123,6 +136,66 @@ def test_resume_is_byte_identical(straight):
     assert ("Main", "grouping done") not in msgs
     with open(cfg.output_path, "rb") as f:
         assert f.read() == data
+
+
+class _Stop(Exception):
+    """Ends a run at a stubbed stage."""
+
+
+@pytest.mark.parametrize("branch", ["stream", "resume"])
+def test_run_config_ingest_fmt_and_fetch_packed_reach_the_stages(
+        straight, sortie, tmp_path, monkeypatch, branch):
+    """``RunConfig.ingest_fmt`` reaches the frame store and
+    ``RunConfig.fetch_packed`` the global stage, on both branches of the
+    run (the stages are stubbed, so this adds no app run): with
+    ``ingest_fmt="bgr"`` the 4:2:0 folder is stored BGR, frame for frame
+    equal to the JAX package's store under ``TM_INGEST_FMT=bgr``."""
+    seen = {}
+
+    def global_stage(strips, tuning, **kw):
+        seen["global"] = kw
+        raise _Stop
+
+    monkeypatch.setattr(A, "stitch_inter_strips_custom", global_stage)
+    if branch == "resume":
+        cfg = RunConfig(**{**straight[0].__dict__, "resume": True,
+                           "fetch_packed": True})
+        rc, recs = _run(cfg)
+        assert rc == 1 and [r["error"] for r in recs
+                            if r["msg"] == "FATAL"] == ["_Stop: "]
+        assert seen["global"]["fetch_packed"] is True
+        return
+
+    root, _ = sortie
+    stitch_frames = A.stitch_frames
+
+    def frames_stage(images, ids, tuning, devices, store=None, **kw):
+        seen.update(store=store, ids=ids, tuning=tuning, **kw)
+        raise _Stop
+
+    monkeypatch.setattr(A, "stitch_frames", frames_stage)
+    rc, recs = _run(_cfg(root, str(tmp_path / "out"), ingest_fmt="bgr",
+                         fetch_packed=True))
+    assert rc == 1 and seen["fetch_packed"] is True
+    assert [r["fmt"] for r in recs if r["msg"] == "streaming ingest"] == [
+        "bgr"]
+    st = seen["store"]
+    monkeypatch.setenv("TM_INGEST_FMT", "bgr")
+    paths, _ = scan_with_ids(os.path.join(root, "visible", "run"))
+    js = JStore.from_paths(paths)
+    js.wait_all()
+    assert st.fmt == js.fmt == "bgr" and len(st) == len(paths) == 6
+    for k in range(len(paths)):
+        np.testing.assert_array_equal(st.frame(k).numpy(), js.images[k])
+    # stitch_frames hands fetch_packed on to the global stage (two
+    # one-frame lines: no strip stitch)
+    ids = seen["ids"]
+    monkeypatch.setattr(A, "group_boustrophedon", lambda *a, **k: [
+        VisualStripGroup([0], [ids[0]]), VisualStripGroup([3], [ids[3]])])
+    with pytest.raises(_Stop):
+        stitch_frames(None, ids, small_tunings()[1], "cpu", store=st,
+                      fetch_packed=True)
+    assert seen["global"]["fetch_packed"] is True
 
 
 @pytest.mark.parametrize("bad", [0, 4])
