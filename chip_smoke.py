@@ -7,6 +7,23 @@ Phases (one line each; any failure exits nonzero and prints no result):
   2. build both CUDA kernels from csrc/ (build/kernels/, keyed by source;
      one nvcc per source, all started together), with ptxas's registers
      and spills;
+ 2a. throughput (on the empty card): the JAX repo's bench.py through its
+     port, drone_image_stitch_cpp_tpu_torch/tools/bench_throughput, at its
+     full sizes (8 gray 2160x3840 crops of synthetic_ortho seed 3, the
+     0.45 MP work size padded to 512x896, 2200 features, 7 pairs of match
+     + similarity RANSAC as one batch, 7 full-4K single-plane warps by the
+     work-resolution models in one launch, models inverted on the card)
+     and its OpenCV baseline on this host's cores. Hard checks: every pair
+     succeeds, each model's translation within 0.5 work px of the planted
+     (-256 s, -64 s), one batch launches K1 once and K2's single-plane
+     form once, its warp stage makes no host sync (sync debug mode). It
+     prints the stage times, the queued x5 time, each stage's
+     synchronising calls, frames/s and vs_baseline. Then K2's single-plane
+     form for one frame and the 7-frame batch on the bench's frames and
+     device models (wrapper and bare launch bit-equal to the plain version;
+     wrapper, device, plain and F.grid_sample times, bound, share) and K1
+     at the bench's detect shape (8 x 2200 keypoints on a (192, 512, 896)
+     stack, at least TP_K1_MIN_VALID valid);
   3. each kernel's wrapper against its plain PyTorch version on the card
      at the shapes the main paths give it: K1 at both detect resolutions
      of a strip and at the global stage's strip detect (two launches
@@ -159,7 +176,9 @@ the build phase builds the codec from native/ beside the kernels
 (utils/native: the system libjpeg, else Pillow's with the vendored
 headers) and prints its route, library and the libjpeg it links, or fails
 with both routes' errors.
-The line before the last is a JSON object with each kernel's numbers:
+The line before the last is a JSON object with each kernel's numbers (K1,
+K2's BGR and I420 forms, K2's single-plane form as its own entry,
+warp_affine_plane, with its launches by path and the throughput run):
 bound_ms is the larger of the bytes the call must move (each input byte
 it needs read once: for K1 the stack pixels that its keypoints' needed
 gradients tap, for K2 the source pixels its taps touch; each output
@@ -230,6 +249,10 @@ FLAG_RMSE_MAX = 49.0
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 SMEM_PER_BLOCK = 232448             # H100: shared memory a block can use
 FP32_OPS_PER_S = 67e12              # float32 outside the tensor cores
+# 0.9 x the 3831 valid keypoints (of 8 x 2200) that the port's
+# select_keypoints finds on the CPU on the throughput benchmark's 8 prepped
+# frames (512 x 896, synthetic_ortho seed 3)
+TP_K1_MIN_VALID = 3447
 
 
 def _fail(phase: str, msg: str) -> None:
@@ -325,6 +348,7 @@ def _ptxas_entries(report: str) -> dict:
     """{entry: registers} from an -Xptxas -v report, K2's entries by the
     source they read (u8, f32, i420_per_tap, i420_staged)."""
     names = {"warp_i420_staged_kernel": "i420_staged", "I420": "i420_per_tap",
+             "warp_plane_kernel": "plane",
              "warp_affine_kernelIhE": "u8", "warp_affine_kernelIfE": "f32"}
     out = {}
     for part in report.split("Compiling entry function '")[1:]:
@@ -416,6 +440,149 @@ def _codec_vs_cv2_write():
           f"{cv2.__version__}) on a 243x321 frame: bytes equal {a == b} "
           f"({len(a)} vs {len(b)} B), decoded max |diff| {int(diff)}",
           flush=True)
+
+
+def _plane_library(torch, planes, table, oh, ow):
+    """F.grid_sample (bilinear, zeros, align_corners=True) on (N, 1, H, W)
+    float32 planes with the single-plane K2's sample grid (built here,
+    outside the timed call): (ms, its (N, 1, oh, ow) output)."""
+    import torch.nn.functional as F
+    from drone_image_stitch_cpp_tpu_torch.ops.warp import dst_to_src_coords
+    n, h, w = planes.shape
+    grids = []
+    for k in range(n):
+        sx, sy = dst_to_src_coords(table[k].reshape(2, 3), oh, ow)
+        grids.append(torch.stack([sx / (w - 1) * 2 - 1,
+                                  sy / (h - 1) * 2 - 1], dim=-1))
+    grid = torch.stack(grids)
+    src = planes[:, None]
+
+    def call():
+        return F.grid_sample(src, grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+
+    out = call()
+    return _median_ms(call, torch), out
+
+
+def _plane_row(torch, dev, label, planes, a23s):
+    """K2's single-plane form at the throughput path's shape: the wrapper
+    with device transforms (as the bench calls it) and the bare launch
+    bit-equal to the plain version on the same table; wrapper, device,
+    plain and F.grid_sample times; the bound (4 B a touched source pixel
+    read, 4 B an output pixel written; 20 operations an output pixel)."""
+    from drone_image_stitch_cpp_tpu_torch.ops import warp_kernel as WK
+    n, h, w = planes.shape
+    table = WK.device_inverse_coeffs(a23s)
+    got = WK.warp_planes(planes, a23s, h, w)
+    bare = WK._launch_planes(planes, table, h, w)
+    plain = WK.warp_planes_plain(planes, table, h, w)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, plain) and torch.equal(bare, plain)):
+        _fail("throughput", f"k2 plane {label}: not bit-equal to the plain "
+                            f"version (max |d| "
+                            f"{float((got - plain).abs().max())})")
+    del got, bare, plain
+    ms = _median_ms(lambda: WK.warp_planes(planes, a23s, h, w), torch)
+    device_ms = _device_ms(lambda: WK._launch_planes(planes, table, h, w),
+                           torch)
+    plain_ms = _median_ms(lambda: WK.warp_planes_plain(planes, table, h, w),
+                          torch)
+    library_ms, lib = _plane_library(torch, planes, table, h, w)
+    lib_err = float((lib[:, 0] - WK._launch_planes(planes, table, h,
+                                                   w)).abs().max())
+    del lib
+    src_px = sum(_k2_source_pixels(torch, dev, inv, h, w, h, w)
+                 for inv in table.tolist())
+    n_out = n * h * w
+    n_bytes = 4.0 * src_px + 4.0 * n_out
+    bound_ms, bound_by = _bound(n_bytes, 20.0 * n_out)
+    print(f"[smoke] k2 warp_affine_plane_f32 {label}: {n} x {h}x{w} f32 -> "
+          f"{h}x{w} (no mask), device transforms; bit-identical to plain; "
+          f"wrapper {ms:.4f} ms, device {device_ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, grid_sample {library_ms:.4f} ms (max |d| "
+          f"{lib_err:.3g}); bound {bound_ms:.4f} ms by {bound_by} "
+          f"({n_bytes / 1e6:.1f} MB), share {bound_ms / device_ms:.3f}",
+          flush=True)
+    return {"shape": [n, h, w], "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "share": bound_ms / device_ms,
+            "device_ms": device_ms, "bytes": n_bytes}
+
+
+def phase_throughput(torch, dev):
+    """The JAX repo's bench.py through its port, tools/bench_throughput, at
+    its full sizes (8 frames of 2160x3840, 2200 features, 7 full-4K
+    warps), on the empty card; then K1 at the bench's detect shape and
+    K2's single-plane form for one frame and the 7-frame batch, each
+    against its plain version. Returns (launch counts of the bench's run,
+    the K1 row, the single-plane kernel's entry)."""
+    from drone_image_stitch_cpp_tpu_torch.tools import bench_throughput as BT
+
+    t0 = time.perf_counter()
+    frames = BT.make_frames()
+    print(f"[smoke] throughput: {len(frames)} gray frames {FRAME_H}x"
+          f"{FRAME_W} (synthetic_ortho seed 3) made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    _zero_counts()
+    t0 = time.perf_counter()
+    r = BT.bench_torch(frames, dev)
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    fps_cpu = BT.bench_opencv(frames)
+    planted = np.asarray([-256.0, -64.0]) * r["scale"]
+    err = np.abs(r["models"][:, :2, 2] - planted).max(axis=1)
+    st, sy = r["stages_ms"], r["syncs"]
+    print(f"[smoke] throughput: {r['fps']:.3f} frames/s, vs_baseline "
+          f"{r['fps'] / fps_cpu:.3f} (OpenCV on {os.cpu_count()} cores "
+          f"{fps_cpu:.3f} frames/s); stages ms: prep {st['prep']:.3f}, "
+          f"detect(+prep) {st['detect']:.3f}, register {st['register']:.3f}"
+          f", warp x{len(frames) - 1} {st['warp']:.3f}, total "
+          f"{st['total']:.3f}, queued x{BT.PIPE_REPS} {st['queued']:.3f} a "
+          f"batch; synchronising calls of one batch {sy}; work "
+          f"{r['work_hw']} padded {r['padded_hw']} scale {r['scale']:.4f}; "
+          f"n_good {r['n_good'].tolist()}, inliers "
+          f"{r['n_inliers'].tolist()}; translation error vs the planted "
+          f"({planted[0]:.3f}, {planted[1]:.3f}) work px: max "
+          f"{err.max():.4f}; launches per batch {r['launches']}, in the "
+          f"run K1 {launches['sift_orient_desc']} K2 plane "
+          f"{launches['warp_affine_plane']}; useful-FLOP estimate "
+          f"{r['gflop']:.1f} GFLOP; bench wall {wall:.1f} s", flush=True)
+    if not r["ok"].all():
+        _fail("throughput", f"pairs failed: ok {r['ok'].tolist()}")
+    if err.max() > 0.5:
+        _fail("throughput", f"translation error {err.tolist()} work px "
+                            f"(need <= 0.5)")
+    if r["launches"] != {"sift_orient_desc": 1, "warp_affine_plane": 1}:
+        _fail("throughput", f"launches of one batch {r['launches']} (need "
+                            f"K1 1 and the single-plane K2 1)")
+    if sy["warp"] != 0:
+        _fail("throughput", f"the warp stage synchronised {sy['warp']} "
+                            f"times (need 0)")
+    fdev = torch.from_numpy(np.stack(frames)).to(dev)
+    a23s = torch.from_numpy(r["models"][:, :2, :].copy()).to(dev)
+    one = _plane_row(torch, dev, "one frame", fdev[1:2], a23s[:1])
+    batch = _plane_row(torch, dev, f"{len(frames) - 1}-frame batch",
+                       fdev[1:], a23s)
+    gray = BT.prep(fdev, BT.work_geometry(FRAME_H, FRAME_W))
+    del fdev
+    k1 = _k1_check(torch, gray, "throughput", BT.SIFT_FEATURES,
+                   min_valid=TP_K1_MIN_VALID)
+    del gray
+    torch.cuda.empty_cache()
+    plane = {"name": "warp_affine_plane", "route": "cuda",
+             "source": "drone_image_stitch_cpp_tpu_torch/csrc/warp_affine.cu",
+             "replaces": "drone_image_stitch_cpp_tpu/ops/pallas_warp.py:234",
+             "entry": "warp_affine_plane_f32, for warp_affine_traced "
+                      "(pallas_warp.py:323) and warp_affine_many (:287)",
+             **{k: batch[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms",
+                                      "share", "device_ms", "shape")},
+             "one_frame": one,
+             "throughput": {"fps": r["fps"], "vs_baseline": r["fps"] / fps_cpu,
+                            "opencv_fps": fps_cpu, "stages_ms": st,
+                            "syncs": sy, "cores": os.cpu_count()}}
+    return launches, k1, plane
 
 
 def render_sortie(torch, dev):
@@ -2573,9 +2740,11 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = phase_environment(torch)
     ptxas = phase_build()
+    tp_launches, k1_tp, plane = phase_throughput(torch, dev)
     tuning = load_stitch_tuning("visible")
     ortho, imgs, ids, pos = render_sortie(torch, dev)
     k1 = phase_k1(torch, dev, imgs, tuning)
+    k1["throughput"] = k1_tp
     k2 = phase_k2(torch, dev, imgs[len(imgs) // 2])
     k2["seam_batch"] = phase_k2_batch(torch, dev, imgs, pos, tuning)
     torch.cuda.empty_cache()
@@ -2631,7 +2800,8 @@ def main() -> int:
     fl_launches, k1_fl, k2_fl = phase_flagship(torch, dev, card, tuning,
                                                ptxas["warp_affine.cu"][2])
     k1["flagship"], k2["flagship"] = k1_fl, k2_fl
-    paths = {"single_line": launches, "i420": i420_launches,
+    paths = {"throughput": tp_launches, "single_line": launches,
+             "i420": i420_launches,
              "multi_line": ml_launches,
              "fallback": fb_launches, "production": pr_launches,
              "knobs": kn_launches, "devices_single_line": dv_sl,
@@ -2639,6 +2809,9 @@ def main() -> int:
              "trace": tr_launches, "flagship": fl_launches}
     k1["launches"] = sum(c["sift_orient_desc"] for c in paths.values())
     k2["launches"] = sum(c["warp_affine"] for c in paths.values())
+    plane["launches"] = sum(c["warp_affine_plane"] for c in paths.values())
+    plane["launches_by_path"] = {p: c["warp_affine_plane"]
+                                 for p, c in paths.items()}
     k1["launches_by_path"] = {
         **{p: c["sift_orient_desc"] for p, c in paths.items()},
         "fallback_mixed_size": fb_launches["sift_orient_desc_mixed"]}
@@ -2657,8 +2830,9 @@ def main() -> int:
                             k1["global_detect"]["max_abs_err"],
                             k1["fallback_mixed"]["max_abs_err"],
                             k1["sortie_step"]["max_abs_err"],
+                            k1["throughput"]["max_abs_err"],
                             k1["flagship"]["global_detect"]["max_abs_err"])
-    for d in (k1, k2):
+    for d in (k1, k2, plane):
         d["registers"], d["spill_bytes"], d["registers_by_entry"] = ptxas[
             d["source"].split("/")[-1]]
         d["card"] = card
@@ -2669,7 +2843,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {**{k: d[k] for k in order},
          **{k: v for k, v in d.items() if k not in order}}
-        for d in (k1, k2)]}))
+        for d in (k1, k2, plane)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

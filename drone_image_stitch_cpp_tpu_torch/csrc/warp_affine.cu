@@ -76,6 +76,17 @@
 // ((b*0.114f) + (g*0.587f)) + (r*0.299f) with the same rounding, the plain
 // version's ops/color.content_mask, so no pixel crosses 2.0 differently.
 //
+// One more form reads a single float32 plane and writes it with no mask
+// (warp_affine_plane_f32: the JAX package's warp_affine_traced,
+// pallas_warp.py:323, which bench.py:111 runs on 7 full-4K gray frames of
+// each batch, and its batched warp_affine_many, :287). Its coefficients
+// always come from a device table, so a transform computed on the card
+// (RANSAC's models, inverted there: ops/warp_kernel.device_inverse_coeffs)
+// reaches the kernel with no host round trip. It writes 4 B and reads about
+// 4 B of touched source a pixel, so it is bound by memory traffic too: each
+// thread warps 4 consecutive pixels (the same taps and rounding as
+// warp_pixel) and writes them as one 16-byte store.
+//
 // Plain C interface for ctypes; each entry returns the cudaGetLastError()
 // code.
 
@@ -249,6 +260,38 @@ __device__ __forceinline__ float src_coord(float a, float b, float c, int x,
                    c);
 }
 
+// The bilinear taps of output pixel (x, y) in an h x w source: the top-left
+// tap (xi, yi), the weights fx and fy, and which of the four taps lie in
+// the source (the others read the constant-0 border).
+struct Bilinear {
+  int xi, yi;
+  float fx, fy;
+  bool in00, in01, in10, in11;
+};
+
+__device__ __forceinline__ Bilinear bilinear_at(const Coeffs& k, int h, int w,
+                                                int x, int y) {
+  const float sx = src_coord(k.i00, k.i01, k.i02, x, y);
+  const float sy = src_coord(k.i10, k.i11, k.i12, x, y);
+  const float x0 = floorf(sx);
+  const float y0 = floorf(sy);
+  Bilinear b;
+  b.fx = __fsub_rn(sx, x0);
+  b.fy = __fsub_rn(sy, y0);
+  // saturating conversion; out-of-range taps fail the bounds tests below
+  b.xi = (int)fmaxf(fminf(x0, 2.0e9f), -2.0e9f);
+  b.yi = (int)fmaxf(fminf(y0, 2.0e9f), -2.0e9f);
+  const bool cx0 = (b.xi >= 0) & (b.xi < w);
+  const bool cx1 = (b.xi >= -1) & (b.xi < w - 1);
+  const bool ry0 = (b.yi >= 0) & (b.yi < h);
+  const bool ry1 = (b.yi >= -1) & (b.yi < h - 1);
+  b.in00 = ry0 & cx0;
+  b.in01 = ry0 & cx1;
+  b.in10 = ry1 & cx0;
+  b.in11 = ry1 & cx1;
+  return b;
+}
+
 // One output pixel (x, y): BGR into v[0..2], the warped mask into *m (the
 // footprint, or with `content` the warped gray > 2 indicator).
 template <typename T>
@@ -256,38 +299,36 @@ __device__ __forceinline__ void warp_pixel(const T* __restrict__ src,
                                            int h, int w, const Coeffs& k,
                                            bool content, int x, int y,
                                            float* v, float* m) {
-  const float xf = (float)x;
-  const float yf = (float)y;
-  const float sx = __fadd_rn(__fadd_rn(__fmul_rn(k.i00, xf),
-                                       __fmul_rn(k.i01, yf)), k.i02);
-  const float sy = __fadd_rn(__fadd_rn(__fmul_rn(k.i10, xf),
-                                       __fmul_rn(k.i11, yf)), k.i12);
-  const float x0 = floorf(sx);
-  const float y0 = floorf(sy);
-  const float fx = __fsub_rn(sx, x0);
-  const float fy = __fsub_rn(sy, y0);
-  // saturating conversion; out-of-range taps fail the bounds tests below
-  const int xi = (int)fmaxf(fminf(x0, 2.0e9f), -2.0e9f);
-  const int yi = (int)fmaxf(fminf(y0, 2.0e9f), -2.0e9f);
-  const bool cx0 = (xi >= 0) & (xi < w);
-  const bool cx1 = (xi >= -1) & (xi < w - 1);
-  const bool ry0 = (yi >= 0) & (yi < h);
-  const bool ry1 = (yi >= -1) & (yi < h - 1);
+  const Bilinear b = bilinear_at(k, h, w, x, y);
   float t00[3] = {0.f, 0.f, 0.f}, t01[3] = {0.f, 0.f, 0.f};
   float t10[3] = {0.f, 0.f, 0.f}, t11[3] = {0.f, 0.f, 0.f};
-  if (ry0 & cx0) tap(src, h, w, xi, yi, t00);
-  if (ry0 & cx1) tap(src, h, w, xi + 1, yi, t01);
-  if (ry1 & cx0) tap(src, h, w, xi, yi + 1, t10);
-  if (ry1 & cx1) tap(src, h, w, xi + 1, yi + 1, t11);
+  if (b.in00) tap(src, h, w, b.xi, b.yi, t00);
+  if (b.in01) tap(src, h, w, b.xi + 1, b.yi, t01);
+  if (b.in10) tap(src, h, w, b.xi, b.yi + 1, t10);
+  if (b.in11) tap(src, h, w, b.xi + 1, b.yi + 1, t11);
 #pragma unroll
   for (int c = 0; c < 3; ++c)
-    v[c] = lerp2(t00[c], t01[c], t10[c], t11[c], fx, fy);
+    v[c] = lerp2(t00[c], t01[c], t10[c], t11[c], b.fx, b.fy);
   if (content)
     *m = lerp2(nonblack(t00), nonblack(t01), nonblack(t10), nonblack(t11),
-               fx, fy);
+               b.fx, b.fy);
   else
-    *m = lerp2((ry0 & cx0) ? 1.f : 0.f, (ry0 & cx1) ? 1.f : 0.f,
-               (ry1 & cx0) ? 1.f : 0.f, (ry1 & cx1) ? 1.f : 0.f, fx, fy);
+    *m = lerp2(b.in00 ? 1.f : 0.f, b.in01 ? 1.f : 0.f, b.in10 ? 1.f : 0.f,
+               b.in11 ? 1.f : 0.f, b.fx, b.fy);
+}
+
+// One output pixel (x, y) of a single float32 plane: the same taps and
+// rounding as warp_pixel, no mask.
+__device__ __forceinline__ float plane_pixel(const float* __restrict__ src,
+                                             int h, int w, const Coeffs& k,
+                                             int x, int y) {
+  const Bilinear b = bilinear_at(k, h, w, x, y);
+  const long long i00 = (long long)b.yi * w + b.xi;   // read only in range
+  const float t00 = b.in00 ? __ldg(src + i00) : 0.f;
+  const float t01 = b.in01 ? __ldg(src + (i00 + 1)) : 0.f;
+  const float t10 = b.in10 ? __ldg(src + (i00 + w)) : 0.f;
+  const float t11 = b.in11 ? __ldg(src + (i00 + w + 1)) : 0.f;
+  return lerp2(t00, t01, t10, t11, b.fx, b.fy);
 }
 
 // A thread's kPix consecutive output pixels i .. i + kPix - 1 of a run of
@@ -363,6 +404,43 @@ warp_affine_kernel(const T* __restrict__ src, size_t src_stride, int h,
     }
   }
   store_pixels(fout, fmask, v, m, p0, total);
+}
+
+// grid.x: blocks of kThreads * kPix output pixels; grid.y: frames. Frame n
+// reads the (h, w) float32 plane at src + n * src_stride and its
+// coefficients from table[6n..], and writes out at n * out_h * out_w; a
+// thread's 4 pixels go out as one 16-byte store where aligned.
+__global__ void __launch_bounds__(kThreads)
+warp_plane_kernel(const float* __restrict__ src, size_t src_stride, int h,
+                  int w, const float* __restrict__ table,
+                  float* __restrict__ out, int out_h, int out_w) {
+  const size_t total = (size_t)out_h * out_w;
+  const size_t p0 = ((size_t)blockIdx.x * kThreads + threadIdx.x) * kPix;
+  if (p0 >= total) return;
+  const int n = blockIdx.y;
+  const float* t = table + 6 * n;
+  const Coeffs k{t[0], t[1], t[2], t[3], t[4], t[5]};
+  const float* frame = src + (size_t)n * src_stride;
+  float* fout = out + (size_t)n * total + p0;
+
+  float v[kPix];
+  int x = (int)(p0 % out_w);
+  int y = (int)(p0 / out_w);
+#pragma unroll
+  for (int j = 0; j < kPix; ++j) {
+    v[j] = p0 + j < total ? plane_pixel(frame, h, w, k, x, y) : 0.f;
+    if (++x == out_w) {           // the next pixel starts a new row
+      x = 0;
+      ++y;
+    }
+  }
+  if (p0 + kPix <= total && ((uintptr_t)fout & 15) == 0) {
+    *reinterpret_cast<float4*>(fout) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kPix; ++j)
+      if (p0 + j < total) fout[j] = v[j];
+  }
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -654,4 +732,23 @@ extern "C" int warp_affine_i420(const uint8_t* src, long long src_stride,
                   table, k, 0, out, mask, out_h, out_w, n, stream);
   return launch_staged(src, src_stride, h, w, table, k, out, mask, out_h,
                        out_w, n, box_h, box_w, smem_bytes, stream);
+}
+
+// n single float32 planes of h x w (src_stride floats apart; the JAX
+// package's warp_affine_traced / warp_affine_many form) with their dst->src
+// coefficients in the device (n, 6) float32 table; out: (n, out_h, out_w)
+// float32, no mask.
+extern "C" int warp_affine_plane_f32(const float* src, long long src_stride,
+                                     int h, int w, const float* table,
+                                     float* out, int out_h, int out_w, int n,
+                                     void* stream) {
+  const size_t total = (size_t)out_h * out_w;
+  if (total == 0 || n <= 0) return 0;
+  if (table == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t threads = (total + kPix - 1) / kPix;
+  const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads),
+                  (unsigned)n);
+  warp_plane_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      src, (size_t)src_stride, h, w, table, out, out_h, out_w);
+  return (int)cudaGetLastError();
 }

@@ -29,8 +29,14 @@ is read (a downscale such as the seam batch, or a strong rotation).
 :func:`warp_frame` (one frame) and :func:`warp_frames` (a batch, as the
 JAX package's ``warp_affine_many``) launch the kernel for CUDA tensors and
 run the plain versions for CPU tensors; they never fall back from one to
-the other. Every launch counts in its wrapper's ``launches``; content-
-mode launches also in ``warp_frame.nonblack_launches``, float32-source
+the other. :func:`warp_planes` warps single float32 planes with no mask
+(the JAX package's ``warp_affine_traced`` and ``warp_affine_many``: the
+throughput benchmark's 4K gray warps), its transforms given as a tensor
+and inverted where they lie (:func:`device_inverse_coeffs`), so a model
+computed on the card reaches the kernel with no host round trip; its
+launches count in ``warp_planes.launches`` alone. Every launch counts in
+its wrapper's ``launches``; content-mode launches also in
+``warp_frame.nonblack_launches``, float32-source
 launches in ``warp_frame.f32_launches``, I420-source launches in
 ``warp_frame.i420_launches`` and those of them that took the staged
 kernel in ``warp_frame.i420_staged_launches`` (all four shared by the
@@ -60,6 +66,8 @@ KERNEL_SIGNATURES = {
     "warp_affine_f32": (ctypes.c_int, _HEAD + _TAIL),
     "warp_affine_i420": (ctypes.c_int,
                          _HEAD + _TAIL[:-1] + [ctypes.c_int] * 3 + _TAIL[-1:]),
+    "warp_affine_plane_f32": (ctypes.c_int, _HEAD[:5] + [ctypes.c_void_p]
+                              + _TAIL[2:]),
 }
 CONTENT_MODES = ("ones", "nonblack")
 SOURCE_DTYPES = (torch.uint8, torch.float32)
@@ -115,6 +123,39 @@ def inverse_coeffs(a23) -> tuple:
     (i00, i10), (i01, i11) = cols
     return (i00, i01, -_r32(i01 * ty + _r32(i00 * tx)),
             i10, i11, -_r32(i11 * ty + _r32(i10 * tx)))
+
+
+def device_inverse_coeffs(a23s: torch.Tensor) -> torch.Tensor:
+    """(N, 6) float32 table of the dst->src coefficients of (N, 2, 3)
+    src->dst affines, computed where ``a23s`` lies, with no host round
+    trip (``torch.linalg.inv`` on a card checks its result on the host).
+
+    The steps of :func:`inverse_coeffs` on tensors: each is taken in
+    float64 from float32 values and rounded to float32 where that function
+    rounds, so a row equals :func:`inverse_coeffs` of the same affine bit
+    for bit, on the CPU and on a card. It cannot raise on a singular
+    affine without a sync: that row is not finite, and so is its warp."""
+    a = a23s.reshape(-1, 2, 3).to(torch.float32).to(torch.float64)
+
+    def r32(v):
+        return v.to(torch.float32).to(torch.float64)
+
+    (a_, b_, tx), (c_, d_, ty) = a[:, 0].unbind(-1), a[:, 1].unbind(-1)
+    swap = c_.abs() > a_.abs()
+    p, q = torch.where(swap, c_, a_), torch.where(swap, d_, b_)
+    r, s = torch.where(swap, a_, c_), torch.where(swap, b_, d_)
+    rp = r32(torch.reciprocal(p))
+    low = r32(r * rp)
+    ru = r32(torch.reciprocal(r32(s - r32(low * q))))
+    sw = swap.to(torch.float64)
+    cols = []
+    for y1, y2 in ((1.0 - sw, sw), (sw, 1.0 - sw)):   # columns e1, e2
+        x2 = r32(r32(y2 - r32(low * y1)) * ru)
+        cols.append((r32(r32(y1 - q * x2) * rp), x2))
+    (i00, i10), (i01, i11) = cols
+    return torch.stack([i00, i01, -r32(i01 * ty + r32(i00 * tx)),
+                        i10, i11, -r32(i11 * ty + r32(i10 * tx))],
+                       dim=-1).to(torch.float32)
 
 
 def _is_i420(frames: torch.Tensor) -> bool:
@@ -371,3 +412,85 @@ warp_frame.f32_launches = 0
 warp_frame.i420_launches = 0
 warp_frame.i420_staged_launches = 0
 warp_frames.launches = 0
+
+
+def warp_planes_plain(frames: torch.Tensor, table: torch.Tensor,
+                      out_h: int, out_w: int) -> torch.Tensor:
+    """Plain version of K2's single-plane form: frame n of the (N, H, W)
+    float32 ``frames`` warped by row n of the (N, 6) coefficient ``table``
+    (:func:`inverse_coeffs` / :func:`device_inverse_coeffs`), read on the
+    frames' device: (N, out_h, out_w) float32, constant-0 border."""
+    outs = []
+    for n, f in enumerate(frames):
+        sx, sy = dst_to_src_coords(table[n].reshape(2, 3), out_h, out_w)
+        outs.append(bilinear_sample(f, sx, sy))
+    return torch.stack(outs)
+
+
+def _launch_planes(src: torch.Tensor, table: torch.Tensor, out_h: int,
+                   out_w: int) -> torch.Tensor:
+    """One launch of the single-plane kernel over the contiguous (N, H, W)
+    float32 ``src`` with the device (N, 6) ``table``."""
+    fn = load_kernel(KERNEL_SOURCE,
+                     KERNEL_SIGNATURES).fns["warp_affine_plane_f32"]
+    n, h, w = src.shape
+    out = torch.empty((n, out_h, out_w), dtype=torch.float32,
+                      device=src.device)
+    with torch.cuda.device(src.device):
+        err = fn(src.data_ptr(), h * w, h, w, table.data_ptr(),
+                 out.data_ptr(), out_h, out_w, n, stream_handle(src.device))
+    if err != 0:
+        raise RuntimeError(f"warp_affine_plane_f32 launch failed: cudaError "
+                           f"{err}")
+    return out
+
+
+def warp_planes(frames: torch.Tensor, a23s, out_h: int,
+                out_w: int) -> torch.Tensor:
+    """Warp N single float32 planes ((N, H, W)), each by its src->dst
+    affine, into one (out_h, out_w) window: (N, out_h, out_w) float32,
+    constant-0 border, no mask. The JAX package's ``warp_affine_traced``
+    (one plane, a traced transform; ``bench.py:111``) and
+    ``warp_affine_many`` (a batch, host transforms).
+
+    ``a23s``: a (N, 2, 3) tensor, inverted where it lies by
+    :func:`device_inverse_coeffs` (a model computed on the card never
+    comes to the host), or a host (N, 2, 3) array, inverted by
+    :func:`inverse_coeffs`; both give the same table. CUDA frames make
+    ONE launch of ``csrc/warp_affine.cu``'s ``warp_affine_plane_f32``
+    (counted in ``warp_planes.launches``); CPU frames run
+    :func:`warp_planes_plain`.
+    """
+    if frames.dtype != torch.float32 or frames.ndim != 3:
+        raise ValueError(f"warp_planes takes (N, H, W) float32 planes, got "
+                         f"{tuple(frames.shape)} {frames.dtype}")
+    if out_h <= 0 or out_w <= 0:
+        raise ValueError(f"empty output window {out_h}x{out_w}")
+    dev = frames.device
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    nf = frames.shape[0]
+    if isinstance(a23s, torch.Tensor):
+        if a23s.ndim != 3 or tuple(a23s.shape[1:]) != (2, 3):
+            raise ValueError(f"a23s must be (N, 2, 3), got "
+                             f"{tuple(a23s.shape)}")
+        na = a23s.shape[0]
+    else:
+        a23s = np.asarray(a23s, np.float32).reshape(-1, 2, 3)
+        na = a23s.shape[0]
+    if na != nf or not 0 < nf <= _MAX_FRAMES:
+        raise ValueError(f"{nf} planes with {na} affines (need "
+                         f"1..{_MAX_FRAMES} of each)")
+    if isinstance(a23s, torch.Tensor):
+        table = device_inverse_coeffs(a23s.to(dev))
+    else:
+        table = torch.tensor([inverse_coeffs(t) for t in a23s],
+                             dtype=torch.float32).to(dev)
+    if dev.type == "cpu":
+        return warp_planes_plain(frames, table, out_h, out_w)
+    out = _launch_planes(frames.contiguous(), table, out_h, out_w)
+    warp_planes.launches += 1
+    return out
+
+
+warp_planes.launches = 0

@@ -66,10 +66,12 @@ def stage_split(records):
 def launch_counts():
     """The kernel wrappers' launch counters since the last
     :func:`zero_launch_counts`: K1, K2 (single and batched), and K2's
-    content-mode, float32, I420 and staged-I420 launches among them."""
+    content-mode, float32, I420 and staged-I420 launches among them; K2's
+    single-plane form (``warp_planes``) apart, as it is no BGR warp."""
     from ..ops.sift_kernel import orientation_descriptor_flat
-    from ..ops.warp_kernel import warp_frame, warp_frames
+    from ..ops.warp_kernel import warp_frame, warp_frames, warp_planes
     return {"sift_orient_desc": orientation_descriptor_flat.launches,
+            "warp_affine_plane": warp_planes.launches,
             "warp_affine": warp_frame.launches + warp_frames.launches,
             "warp_affine_batched": warp_frames.launches,
             "warp_affine_nonblack": warp_frame.nonblack_launches,
@@ -95,8 +97,9 @@ def zero_launch_counts():
     """Set every launch counter of both kernel wrappers to 0 (K1's
     mixed-size count too)."""
     from ..ops.sift_kernel import orientation_descriptor_flat
-    from ..ops.warp_kernel import warp_frame, warp_frames
+    from ..ops.warp_kernel import warp_frame, warp_frames, warp_planes
     orientation_descriptor_flat.launches = 0
+    warp_planes.launches = 0
     orientation_descriptor_flat.mixed_launches = 0
     for name in ("launches", "nonblack_launches", "f32_launches",
                  "i420_launches", "i420_staged_launches"):

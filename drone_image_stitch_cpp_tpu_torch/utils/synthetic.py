@@ -3,8 +3,10 @@
 Counterpart of ``drone_image_stitch_cpp_tpu/utils/synthetic.py`` for
 machines that have numpy and torch but no cv2: ``fractal_ortho`` upsamples
 its noise octaves with torch's bicubic interpolation (the same a = -0.75
-Keys kernel with half-pixel centres as cv2.INTER_CUBIC), ``render_sortie``
-is the JAX package's crop renderer, and ``gt_rmse`` scores a panorama
+Keys kernel with half-pixel centres as cv2.INTER_CUBIC),
+``synthetic_ortho`` is the JAX package's textured ortho (numpy and scipy,
+byte-equal), ``render_sortie`` is the JAX package's crop renderer, and
+``gt_rmse`` scores a panorama
 against the ortho after a 9-tap sigma-2 Gaussian with REFLECT_101
 borders (cv2.GaussianBlur((9, 9), 2.0)).
 """
@@ -54,6 +56,48 @@ def fractal_ortho(h: int, w: int, seed: int = 0,
         img[y:y + 512] += r.normal(0, 3.0, (min(512, h - y), w, 3)).astype(
             np.float32)
     return np.clip(img, 0, 255, out=img)
+
+
+def synthetic_ortho(h=768, w=1024, seed=0):
+    """A textured 'ground truth ortho' image with structure at many scales
+    (uint8-range float32 (h, w, 3)): the JAX package's generator, numpy
+    and scipy only, so the same seed gives the same bytes. The throughput
+    benchmark crops its frames from it (``tools/bench_throughput``). Its
+    sin/cos base is periodic (~230 px): use :func:`fractal_ortho` for
+    sorties. Raises ImportError without scipy, whose band-limited texture
+    is part of the image."""
+    from scipy.ndimage import gaussian_filter
+
+    r = np.random.default_rng(seed)
+    img = np.zeros((h, w, 3), np.float32)
+    # low-frequency base
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    for c in range(3):
+        img[..., c] = (
+            96 + 60 * np.sin(xx / (37 + 11 * c)) * np.cos(yy / (29 + 7 * c)))
+    # mid-frequency blobs
+    for _ in range(400):
+        cy, cx = r.integers(0, h), r.integers(0, w)
+        rad = int(r.integers(4, 24))
+        col = r.uniform(0, 255, 3).astype(np.float32)
+        y0, y1 = max(0, cy - rad), min(h, cy + rad)
+        x0, x1 = max(0, cx - rad), min(w, cx + rad)
+        py, px = np.mgrid[y0:y1, x0:x1]
+        m = ((py - cy) ** 2 + (px - cx) ** 2) <= rad * rad
+        img[y0:y1, x0:x1][m] = 0.5 * img[y0:y1, x0:x1][m] + 0.5 * col
+    # sharp-cornered rectangles: strong DoG extrema at SIFT scales
+    for _ in range(600):
+        cy, cx = int(r.integers(0, h)), int(r.integers(0, w))
+        rh_, rw_ = int(r.integers(3, 14)), int(r.integers(3, 14))
+        col = r.uniform(0, 255, 3).astype(np.float32)
+        y0, y1 = max(0, cy - rh_), min(h, cy + rh_)
+        x0, x1 = max(0, cx - rw_), min(w, cx + rw_)
+        img[y0:y1, x0:x1] = 0.35 * img[y0:y1, x0:x1] + 0.65 * col
+    # band-limited texture that survives sigma~1.6 blur
+    bl = gaussian_filter(r.normal(0, 1.0, (h, w)), 2.5) * 55.0
+    img += bl[..., None].astype(np.float32)
+    img += r.normal(0, 4.0, (h, w, 3)).astype(np.float32)
+    return np.clip(img, 0, 255).astype(np.float32)
 
 
 def render_sortie(ortho, rows, cols, frame_h=160, frame_w=208,

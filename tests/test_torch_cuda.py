@@ -57,7 +57,7 @@ def _launch_counts():
     return (SK.orientation_descriptor_flat.launches, WK.warp_frame.launches,
             WK.warp_frames.launches, WK.warp_frame.nonblack_launches,
             WK.warp_frame.f32_launches, WK.warp_frame.i420_launches,
-            WK.warp_frame.i420_staged_launches)
+            WK.warp_frame.i420_staged_launches, WK.warp_planes.launches)
 
 
 def test_cpu_calls_are_not_counted_as_launches():
@@ -74,6 +74,9 @@ def test_cpu_calls_are_not_counted_as_launches():
     WK.warp_frame(torch.zeros((24, 16), dtype=torch.uint8), a23, 16, 16)
     WK.warp_frames(torch.zeros((2, 24, 16), dtype=torch.uint8),
                    np.stack([a23, a23]), 16, 16)
+    WK.warp_planes(torch.zeros((2, 16, 16)), np.stack([a23, a23]), 16, 16)
+    WK.warp_planes(torch.zeros((2, 16, 16)), torch.from_numpy(
+        np.stack([a23, a23])), 16, 16)
     assert _launch_counts() == before
 
 
@@ -498,6 +501,88 @@ def test_k2_i420_rejects_what_it_cannot_read():
     with pytest.raises(ValueError):
         WK.warp_frames(torch.zeros((2, 27, 16), dtype=torch.uint8),
                        np.stack([a23, a23]), 8, 8)
+
+
+_PLANE_AFFINES = (
+    [[0.99987453, -4.4592799e-04, -59.63], [4.4592799e-04, 0.99987453,
+                                           -14.9]],
+    [[0.9, 0.05, -2.3], [-0.04, 1.1, 1.7]],
+    [[math.cos(0.26), -math.sin(0.26), 12000.5 - 11990.0],
+     [math.sin(0.26), math.cos(0.26), -3.25]],
+    [[0.49, 0.0, 0.37], [0.0, 0.49, 1.61]],
+    [[1, 0, 500.25], [0, 1, 0]],
+    [[1, 0, -3.0e9], [0, 1, 3.0e9]])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_hw", [(1, 1), (3, 5), (7, 4099), (320, 512)])
+def test_k2_plane_bit_equal_to_plain(cuda, out_hw):
+    """K2's single-plane form against its plain version, the transforms
+    given on the card (inverted there) and on the host (inverse_coeffs):
+    both bit-equal to the plain warp of the same table, output sizes whose
+    pixel count is not a multiple of 4, the bench's translation, a
+    rotation at canvas coordinates, a scale-down and windows outside the
+    frame; each call is one counted launch."""
+    planes = _float_frames(cuda, n=2)[..., 0].contiguous()
+    oh, ow = out_hw
+    for a23 in _PLANE_AFFINES:
+        a23s = np.stack([np.asarray(a23, np.float32)] * 2)
+        dev_a = torch.from_numpy(a23s).to(cuda)
+        n0 = WK.warp_planes.launches
+        got_dev = WK.warp_planes(planes, dev_a, oh, ow)
+        got_host = WK.warp_planes(planes, a23s, oh, ow)
+        assert WK.warp_planes.launches == n0 + 2
+        table = WK.device_inverse_coeffs(dev_a)
+        plain = WK.warp_planes_plain(planes, table, oh, ow)
+        torch.cuda.synchronize()
+        assert got_dev.shape == (2, oh, ow)
+        assert torch.equal(got_dev, plain) and torch.equal(got_host, plain)
+
+
+@pytest.mark.gpu
+def test_k2_plane_batched_equals_per_frame(cuda):
+    """Five planes, each with its own transform, in one launch: each equal
+    to its own one-plane launch and to the plain version."""
+    planes = _float_frames(cuda, n=5, h=120, w=200)[..., 1].contiguous()
+    a23s = torch.tensor([[[1.0, 0.01 * k, 2.3 * k - 3],
+                          [-0.01 * k, 1.0, 1.1 * k - 2]] for k in range(5)],
+                        device=cuda)
+    n0 = WK.warp_planes.launches
+    got = WK.warp_planes(planes, a23s, 131, 211)
+    assert WK.warp_planes.launches == n0 + 1
+    plain = WK.warp_planes_plain(planes, WK.device_inverse_coeffs(a23s),
+                                 131, 211)
+    assert torch.equal(got, plain)
+    for k in range(5):
+        one = WK.warp_planes(planes[k:k + 1], a23s[k:k + 1], 131, 211)
+        assert torch.equal(one[0], got[k])
+
+
+@pytest.mark.gpu
+def test_k2_plane_device_transforms_make_no_host_sync(cuda):
+    """The device inverse, the table and the launch never wait for the
+    card: under sync debug mode "error" a synchronising call raises. The
+    inverse on the card equals inverse_coeffs bit for bit."""
+    planes = _float_frames(cuda, n=3, h=64, w=96)[..., 2].contiguous()
+    rng = np.random.default_rng(3)
+    a23s = np.stack([np.asarray([[1.0 + rng.normal(0, 0.02),
+                                  rng.normal(0, 0.02), rng.normal(0, 40)],
+                                 [rng.normal(0, 0.02),
+                                  1.0 + rng.normal(0, 0.02),
+                                  rng.normal(0, 40)]], np.float32)
+                     for _ in range(3)])
+    dev_a = torch.from_numpy(a23s).to(cuda)
+    WK.warp_planes(planes, dev_a, 64, 96)           # builds the kernel
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = WK.warp_planes(planes, dev_a, 64, 96)
+        table = WK.device_inverse_coeffs(dev_a)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ref = np.asarray([WK.inverse_coeffs(a) for a in a23s], np.float32)
+    np.testing.assert_array_equal(table.cpu().numpy(), ref)
+    assert torch.equal(got, WK.warp_planes_plain(planes, table, 64, 96))
 
 
 @pytest.mark.gpu
