@@ -51,6 +51,19 @@ Phases (one line each; any failure exits nonzero and prints no result):
      groups, no flips, strip offsets within 2 px, mosaic size within 8 px,
      GT-RMSE (and per strip), graph-cut seams on every adjacent strip pair,
      K1 launched by the global stage and K2's content mode launched;
+ 5a. switches: one more multi-line pass with both of the global stage's
+     seam switches (stitch_frames(seam_warp="fullres", seam_method="dp"):
+     the seam canvas warped from each full-resolution strip by one K2
+     content-mode launch, DP seams), its launch counts set to 0 just
+     before it and read just after: the default pass's groups, no flips,
+     strip offsets within 2 px of the default pass's, every seam pair cut
+     by the DP seam, GT-RMSE <= 8, and exactly one content-mode K2 launch
+     per strip's seam warp (the pass's content-mode launches the default
+     pass's plus one per strip); its seam-warp and seam seconds beside
+     the default pass's. Then K2's content mode at that launch's shape
+     (line 1's padded strip at full resolution into the logged seam
+     canvas, scale ~0.34): bit-equal to its plain version, timed as the
+     other rows;
   6. fallback: the strip stage's sequential anchor-window ladder on the
      first 4 corridor frames (joint registration forced to fail here):
      panorama size within 8 px of the planted one, GT-RMSE, K1 launched on
@@ -166,8 +179,10 @@ Phases (one line each; any failure exits nonzero and prints no result):
      the card. Then each kernel at the shapes only this path gives it,
      from the ground-truth crop: K1 at the global detect of a 25.7k-px
      strip (at least 531 valid keypoints), K2 in content mode from that
-     padded strip and K2's seam batch of a 20-frame line, and K2's I420
-     source on the codec's raw planes of line 0's JPEGs at the compose
+     padded strip into the compose window and, as the full-resolution
+     seam warp calls it, into the ~2150x3720 seam canvas at the run's
+     logged seam scale (~0.14), K2's seam batch of a 20-frame line, and
+     K2's I420 source on the codec's raw planes of line 0's JPEGs at the compose
      feed and the 20-frame seam batch, each held against its plain
      version (K2 bit-equal) and timed as the other rows.
 The environment line carries the JPEG codec probe (jpeglib.h, the libjpeg
@@ -1718,7 +1733,6 @@ def phase_k2_content(torch, dev, padded):
     line's offset), with crafted pixels of gray 2 and 3 planted in the
     strip; bit-equal to its plain version."""
     from drone_image_stitch_cpp_tpu_torch.ops import warp_kernel as WK
-    from drone_image_stitch_cpp_tpu_torch.ops.color import content_mask
     src = padded.clone()
     # gray of (2, 2, 2) is exactly 2 (not content), of (3, 3, 3) 3; mixed
     # triples land on both sides of the threshold
@@ -1743,15 +1757,32 @@ def phase_k2_content(torch, dev, padded):
                                 (mk - mp).abs().max()))
         _fail("k2", f"content mode not bit-identical to plain (max |d| {d})")
     kept = float((mk >= 0.999).float().mean())
+    row = _k2_content_times(torch, dev, src, a23, oh, ow)
+    h, w = src.shape[:2]
+    print(f"[smoke] k2 warp_affine content mode: {h}x{w} u8 padded strip "
+          f"-> {oh}x{ow}x3 + gray>2 mask, kept (>=0.999) {kept:.3f}; "
+          f"bit-identical to plain (crafted gray-2/3 pixels included); "
+          + _k2_row_text(row), flush=True)
+    return row
+
+
+def _k2_content_times(torch, dev, src, a23, oh, ow):
+    """K2's content mode from the uint8 ``src`` by ``a23`` into (oh, ow),
+    timed as every K2 row: the wrapper, the bare launch, the plain
+    version, F.grid_sample on BGR + the gray > 2 plane (made outside the
+    timed call) and the bound (3 B per touched source pixel, 16 B per
+    output pixel written)."""
+    import torch.nn.functional as F
+    from drone_image_stitch_cpp_tpu_torch.ops import warp_kernel as WK
+    from drone_image_stitch_cpp_tpu_torch.ops.color import content_mask
+    from drone_image_stitch_cpp_tpu_torch.ops.warp import dst_to_src_coords
+    inv = WK.inverse_coeffs(a23)
     ms = _median_ms(lambda: WK.warp_frame(src, a23, oh, ow,
                                           content="nonblack"), torch)
     device_ms = _device_ms(lambda: WK._launch(src, 1, inv, oh, ow,
                                               "nonblack"), torch)
     plain_ms = _median_ms(lambda: WK.warp_frame_plain(
         src, inv, oh, ow, content="nonblack"), torch)
-    # grid_sample on BGR + the gray > 2 plane (made outside the timed call)
-    import torch.nn.functional as F
-    from drone_image_stitch_cpp_tpu_torch.ops.warp import dst_to_src_coords
     h, w = src.shape[:2]
     planes = torch.cat([src.permute(2, 0, 1).float(),
                         content_mask(src).float()[None]])[None]
@@ -1766,17 +1797,55 @@ def phase_k2_content(torch, dev, padded):
     src_px = _k2_source_pixels(torch, dev, inv, h, w, oh, ow)
     n_bytes = 3.0 * src_px + 16.0 * oh * ow
     bound_ms, bound_by = _bound(n_bytes, 54.0 * oh * ow)
-    print(f"[smoke] k2 warp_affine content mode: {h}x{w} u8 padded strip "
-          f"-> {oh}x{ow}x3 + gray>2 mask, kept (>=0.999) {kept:.3f}; "
-          f"bit-identical to plain (crafted gray-2/3 pixels included); "
-          f"wrapper {ms:.4f} ms, device {device_ms:.4f} ms, plain "
-          f"{plain_ms:.3f} ms, grid_sample {library_ms:.4f} ms; bound "
-          f"{bound_ms:.4f} ms by {bound_by} ({n_bytes / 1e6:.1f} MB), share "
-          f"{bound_ms / device_ms:.3f}", flush=True)
     return {"shape": [h, w, oh, ow], "ms": ms, "device_ms": device_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "share": bound_ms / device_ms, "max_abs_err": 0.0}
+            "share": bound_ms / device_ms, "max_abs_err": 0.0,
+            "bytes": n_bytes}
+
+
+def _k2_row_text(row):
+    return (f"wrapper {row['ms']:.4f} ms, device {row['device_ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.3f} ms, grid_sample "
+            f"{row['library_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms by "
+            f"{row['bound_by']} ({row['bytes'] / 1e6:.1f} MB), share "
+            f"{row['share']:.3f}")
+
+
+def phase_k2_seam_fullres(torch, dev, padded, scale, step_y, sh, sw,
+                          label):
+    """K2's content mode as the global stage's full-resolution seam warp
+    calls it (``pipeline/global_._to_seam_fullres``, ``seam_warp=
+    "fullres"``): the padded strip of the second line minified by the
+    seam ``scale`` into the (sh, sw) seam canvas at its planted offset
+    ``step_y``; one launch, bit-equal to its plain version, timed as
+    every K2 row."""
+    from drone_image_stitch_cpp_tpu_torch.ops import warp_kernel as WK
+    from drone_image_stitch_cpp_tpu_torch.pipeline import global_ as TG
+    a23 = np.asarray([[scale, 0.0, 0.0], [0.0, scale, scale * step_y]],
+                     np.float32)
+    n0 = WK.warp_frame.nonblack_launches
+    simg, smask = TG._to_seam_fullres(padded, a23, sh, sw)
+    if WK.warp_frame.nonblack_launches != n0 + 1:
+        _fail("k2", f"{label}: the full-resolution seam warp made "
+                    f"{WK.warp_frame.nonblack_launches - n0} content-mode "
+                    f"launches, expected 1")
+    wp, mp = WK.warp_frame_plain(padded, WK.inverse_coeffs(a23), sh, sw,
+                                 content="nonblack")
+    torch.cuda.synchronize()
+    if not (torch.equal(simg, wp) and torch.equal(smask, mp >= 0.999)):
+        d = float((simg - wp).abs().max())
+        _fail("k2", f"{label}: the full-resolution seam warp is not "
+                    f"bit-identical to plain (max |d| {d})")
+    kept = float(smask.float().mean())
+    del simg, smask, wp, mp
+    row = _k2_content_times(torch, dev, padded, a23, sh, sw)
+    h, w = padded.shape[:2]
+    print(f"[smoke] k2 warp_affine content mode {label}: {h}x{w} u8 padded "
+          f"strip at full resolution -> {sh}x{sw} seam canvas (scale "
+          f"{scale:.4f}, one launch), kept (>=0.999) {kept:.3f}; "
+          f"bit-identical to plain; " + _k2_row_text(row), flush=True)
+    return {**row, "scale": scale}
 
 
 def _counts():
@@ -1899,7 +1968,104 @@ def phase_multiline(torch, dev, ortho, imgs, ids, pos, tuning, first):
     for name in ("sift_orient_desc", "warp_affine"):
         if launches[name] <= 0:
             _fail("multiline", f"kernel {name} never launched")
-    return launches, {"res": res, "wall": wall, "peak": peak}
+    return launches, {"res": res, "wall": wall, "peak": peak,
+                      "stages": stages}
+
+
+def phase_multiline_switches(torch, dev, ortho, imgs, ids, pos, tuning, ref,
+                             ref_launches):
+    """One more multi-line pass with both of the global stage's seam
+    switches (app.stitch_frames(seam_warp="fullres", seam_method="dp")),
+    its launch counts set to 0 just before it and read just after; hard
+    checks against phase 5's default pass (``ref``, ``ref_launches``) as
+    the module doc lists. Returns (launches, the seam scale record)."""
+    from drone_image_stitch_cpp_tpu_torch import app as A
+    from drone_image_stitch_cpp_tpu_torch.ops import warp_kernel as WK
+    from drone_image_stitch_cpp_tpu_torch.pipeline import global_ as TG
+    from drone_image_stitch_cpp_tpu_torch.runtime.logging import get_logger
+    from drone_image_stitch_cpp_tpu_torch.utils.synthetic import gt_rmse
+
+    log = get_logger()
+    step_y, (gt_h, gt_w), (oy, ox) = _ml_geometry(pos)
+    real = TG._to_seam_fullres
+    per_strip = []
+
+    def counted(*a, **kw):
+        # the content-mode launches each strip's seam warp makes
+        n0 = WK.warp_frame.nonblack_launches
+        out = real(*a, **kw)
+        per_strip.append(WK.warp_frame.nonblack_launches - n0)
+        return out
+
+    TG._to_seam_fullres = counted
+    try:
+        mark = len(log._records)
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = A.stitch_frames(imgs, ids, tuning, dev, seam_warp="fullres",
+                              seam_method="dp")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+    finally:
+        TG._to_seam_fullres = real
+    recs = log._records[mark:]
+    stages = {f"{r['stage']}/{r['msg'][:-5]}": r["seconds"] for r in recs
+              if "seconds" in r}
+    scale = next(r for r in recs if r["msg"] == "seam scale")
+    switch = [(r["warp"], r["method"]) for r in recs if r["msg"] == "seam"]
+    dref = ref["res"]
+    if [g.indices for g in res.groups] != [g.indices for g in dref.groups]:
+        _fail("switches", f"groups {[g.indices for g in res.groups]}, the "
+                          f"default pass's {[g.indices for g in dref.groups]}")
+    if any(res.flipped):
+        _fail("switches", f"flipped {res.flipped}")
+    offs = np.asarray([t[:2, 2] for t in res.global_transforms], np.float64)
+    ref_offs = np.asarray([t[:2, 2] for t in dref.global_transforms],
+                          np.float64)
+    off_d = float(np.abs(offs - ref_offs).max())
+    if off_d > ML_STRIP_TOL_PX:
+        _fail("switches", f"strip offsets {offs.tolist()} off the default "
+                          f"pass's {ref_offs.tolist()} by {off_d:.3f} px")
+    if switch != [("fullres", "dp")]:
+        _fail("switches", f"the global stage logged seam {switch}")
+    methods = set(res.seam_methods.values())
+    if methods != {"dp"} or len(res.seam_methods) < ML_ROWS - 1:
+        _fail("switches", f"seam methods {res.seam_methods}: dp expected "
+                          f"on every strip pair")
+    pano = res.panorama
+    if abs(pano.shape[0] - gt_h) > ML_SIZE_TOL_PX or \
+            abs(pano.shape[1] - gt_w) > ML_SIZE_TOL_PX:
+        _fail("switches", f"mosaic {pano.shape[:2]} vs ground truth "
+                          f"{(gt_h, gt_w)}")
+    gt = np.clip(ortho[oy:oy + gt_h, ox:ox + gt_w], 0, 255).astype(np.uint8)
+    rmse, dy, dx = gt_rmse(pano, gt, device=dev)
+    ref_rmse = gt_rmse(dref.panorama, gt, device=dev)[0]
+    if not np.isfinite(rmse) or rmse > GT_RMSE_MAX:
+        _fail("switches", f"GT-RMSE {rmse} > {GT_RMSE_MAX}")
+    extra = launches["warp_affine_nonblack"] \
+        - ref_launches["warp_affine_nonblack"]
+    if per_strip != [1] * ML_ROWS or extra != ML_ROWS:
+        _fail("switches", f"seam warps made {per_strip} content-mode K2 "
+                          f"launches per strip, the pass {extra} more than "
+                          f"the default pass: 1 per strip expected")
+    sw_key, sm_key = "GlobalCustom/seam warps", "GlobalCustom/seams"
+    print(f"[smoke] switches: seam_warp=fullres seam_method=dp on the 3 x 10 "
+          f"sortie: groups as the default pass, flipped {res.flipped}, strip "
+          f"offsets {np.round(offs, 3).tolist()} (max {off_d:.4f} px from the "
+          f"default pass's), seams {res.seam_methods}, mosaic "
+          f"{pano.shape[0]}x{pano.shape[1]} (default "
+          f"{dref.panorama.shape[0]}x{dref.panorama.shape[1]}), GT-RMSE "
+          f"{rmse:.4f} at ({dy},{dx}) (default pass {ref_rmse:.4f}); seam "
+          f"scale {scale['scale']} into {scale['h']}x{scale['w']}; seam "
+          f"warps {stages.get(sw_key)} s (default {ref['stages'].get(sw_key)}"
+          f" s), seams {stages.get(sm_key)} s (default "
+          f"{ref['stages'].get(sm_key)} s); content-mode K2 per strip's seam "
+          f"warp {per_strip}, {launches['warp_affine_nonblack']} in the pass "
+          f"(default {ref_launches['warp_affine_nonblack']}); wall "
+          f"{wall:.2f} s (default {ref['wall']:.2f} s); launches {launches}",
+          flush=True)
+    return launches, scale
 
 
 def _counts_all():
@@ -2267,17 +2433,19 @@ def phase_production_cli(ortho, imgs, pos, work):
           f"peak RSS {rss:.2f} GiB", flush=True)
 
 
-def _flagship_kernels(torch, dev, gt, tuning, planes, regs):
+def _flagship_kernels(torch, dev, gt, tuning, planes, regs, seam):
     """Each kernel at the shapes the flagship alone gives it: from the
     ground-truth crop (the frames' bytes before JPEG), K1 at the global
     detect of line 1's 25.7k-px strip and K2's content mode from it, as
-    the global stage pads it, and K2's uint8 seam batch of line 0's 20
-    frames; from ``planes``, the codec's raw 4:2:0 planes of line 0's 20
+    the global stage pads it, the same strip warped at full resolution
+    into the seam canvas (``seam``: the run's logged seam scale record;
+    the ``seam_warp="fullres"`` launch), and K2's uint8 seam batch of line
+    0's 20 frames; from ``planes``, the codec's raw 4:2:0 planes of line 0's 20
     JPEGs (packed I420), K2's I420 source at the strip compose feed (one
     frame into the compose window) and at the 20-frame seam batch
     (``regs``: ptxas's registers by entry). Returns ({"global_detect":
-    K1}, {"content_mode", "seam_batch", "i420_compose_feed",
-    "i420_seam_batch": K2})."""
+    K1}, {"content_mode", "seam_fullres", "seam_batch",
+    "i420_compose_feed", "i420_seam_batch": K2})."""
     from drone_image_stitch_cpp_tpu_torch.ops.blend import align_up
     step_y = int(FRAME_H * (1 - ML_OVERLAP_Y))
     step_x = int(FRAME_W * (1 - OVERLAP))
@@ -2290,7 +2458,11 @@ def _flagship_kernels(torch, dev, gt, tuning, planes, regs):
                          label="flagship global detect",
                          min_valid=FLAG_K1_GLOBAL_MIN_VALID)
     content = phase_k2_content(torch, dev, padded)
+    fullres = phase_k2_seam_fullres(torch, dev, padded, seam["scale"],
+                                    step_y, seam["h"], seam["w"],
+                                    "flagship seam warp")
     del padded
+    torch.cuda.empty_cache()
     pos = [(0, c * step_x) for c in range(FLAG_COLS)]
     imgs = [gt[:FRAME_H, x:x + FRAME_W] for _, x in pos]
     batch = phase_k2_batch(torch, dev, imgs, pos, tuning)
@@ -2308,6 +2480,7 @@ def _flagship_kernels(torch, dev, gt, tuning, planes, regs):
     del frames
     torch.cuda.empty_cache()
     return {"global_detect": k1}, {"content_mode": content,
+                                   "seam_fullres": fullres,
                                    "seam_batch": batch,
                                    "i420_compose_feed": feed,
                                    "i420_seam_batch": seam}
@@ -2506,7 +2679,7 @@ def phase_flagship(torch, dev, card, tuning, regs):
     del mosaic
     torch.cuda.empty_cache()
     return (launches, *_flagship_kernels(torch, dev, gt, tuning, planes,
-                                         regs))
+                                         regs, scale))
 
 
 def _synchronize_all(torch) -> None:
@@ -2787,6 +2960,15 @@ def main() -> int:
         ml_launches, ml_ref = phase_multiline(torch, dev, ml_ortho, ml_imgs,
                                               ml_ids, ml_pos, tuning, first)
         del first
+        sw_launches, sw_scale = phase_multiline_switches(
+            torch, dev, ml_ortho, ml_imgs, ml_ids, ml_pos, tuning, ml_ref,
+            ml_launches)
+        padded, _ = _padded_strip(torch, dev, ml_ortho, ml_pos, 1)
+        k2["seam_fullres"] = phase_k2_seam_fullres(
+            torch, dev, padded, sw_scale["scale"], _ml_geometry(ml_pos)[0],
+            sw_scale["h"], sw_scale["w"], "3 x 10 seam warp")
+        del padded
+        torch.cuda.empty_cache()
         dv_ml = phase_devices(torch, dev, "multi_line", ml_imgs, ml_ids,
                               tuning, ml_ref, ml_launches)
         tr_launches = phase_trace(torch, dev, ml_imgs, ml_ids, tuning, ml_ref)
@@ -2802,7 +2984,7 @@ def main() -> int:
     k1["flagship"], k2["flagship"] = k1_fl, k2_fl
     paths = {"throughput": tp_launches, "single_line": launches,
              "i420": i420_launches,
-             "multi_line": ml_launches,
+             "multi_line": ml_launches, "multi_line_switches": sw_launches,
              "fallback": fb_launches, "production": pr_launches,
              "knobs": kn_launches, "devices_single_line": dv_sl,
              "devices_multi_line": dv_ml, "sortie_step": st_launches,
@@ -2818,6 +3000,8 @@ def main() -> int:
     k2["launches_by_path"] = {
         **{p: c["warp_affine"] for p, c in paths.items()},
         "multi_line_content_mode": ml_launches["warp_affine_nonblack"],
+        "multi_line_switches_content_mode": sw_launches[
+            "warp_affine_nonblack"],
         "production_content_mode": pr_launches["warp_affine_nonblack"],
         "flagship_content_mode": fl_launches["warp_affine_nonblack"]}
     k2["f32_launches_by_path"] = {p: c["warp_affine_f32"]

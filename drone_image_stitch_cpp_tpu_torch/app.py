@@ -29,7 +29,10 @@ global stage streams the mosaic's row bands into the incremental JPEG
 encoder when the codec is built, else the mosaic is written after the
 blend; ``RunConfig.fetch_packed`` sends its tiles to the host as packed
 I420. ``ingest_fmt`` and ``fetch_packed`` are the JAX package's
-``TM_INGEST_FMT`` and ``TM_FETCH_PACKED`` switches, taken as fields.
+``TM_INGEST_FMT`` and ``TM_FETCH_PACKED`` switches, taken as fields;
+``seam_warp`` and ``seam_method`` are its ``TM_SEAM_WARP`` and
+``TM_SEAM_METHOD`` (the global stage's seam canvas warped from the
+full-resolution strip; DP seams in place of the graph cut).
 
 The run's device spec resolves to a device list
 (``runtime/device.resolve_devices``: ``cuda`` is every visible card,
@@ -59,7 +62,8 @@ from .grouping.flight_grouper import VisualStripGroup, group_boustrophedon
 from .ops.crop import auto_crop_black_border
 from .ops.undistort import distortion_maps
 from .ops.warp import remap
-from .pipeline.global_ import stitch_inter_strips_custom
+from .pipeline.global_ import (check_seam_switches,
+                               stitch_inter_strips_custom)
 from .pipeline.strip import stitch_strip
 from .runtime.checkpoint import load_strip_checkpoint, save_strip_checkpoint
 from .runtime.device import (describe_device, device_sync, resolve_device,
@@ -87,6 +91,8 @@ class RunConfig:
     tuning_overrides: dict = field(default_factory=dict)
     ingest_fmt: str = "auto"      # the frame store's fmt: auto, bgr, yuv420
     fetch_packed: bool = False    # global tiles leave the card packed I420
+    seam_warp: str = "prescaled"  # global seam canvas: prescaled, fullres
+    seam_method: str = "graphcut"  # global seams: graphcut, dp
 
     @property
     def input_dir(self) -> str:
@@ -144,8 +150,9 @@ def global_tuning(tuning: StitchTuning) -> StitchTuning:
 def stitch_frames(images: Optional[List[np.ndarray]], ids: List[str],
                   tuning: StitchTuning, device, store=None,
                   on_strip: Optional[Callable] = None,
-                  row_sink=None, fetch_packed: bool = False
-                  ) -> StitchResult:
+                  row_sink=None, fetch_packed: bool = False,
+                  seam_warp: str = "prescaled",
+                  seam_method: str = "graphcut") -> StitchResult:
     """Group and stitch same-size BGR uint8 frames on ``device``.
 
     One flight line: one strip stitch. Several: one strip stitch per line
@@ -162,11 +169,14 @@ def stitch_frames(images: Optional[List[np.ndarray]], ids: List[str],
     strip of a multi-line sortie with its cropped panorama (a host array
     or a :class:`DeviceStrip`), ``last`` on the final strip, before the
     global stage. ``row_sink`` and ``fetch_packed``: passed to the global
-    stage (streamed mosaic write; tiles fetched as packed I420). Raises
+    stage (streamed mosaic write; tiles fetched as packed I420), as are
+    ``seam_warp`` and ``seam_method`` (checked before any work: a value
+    the global stage does not take raises ValueError). Raises
     DeviceUnavailableError when ``device`` names a card that is not there,
     FrameStoreError when a streamed frame does not decode,
     StripStitchError or GlobalStitchError when a stage fails.
     """
+    check_seam_switches(seam_warp, seam_method)
     devices = resolve_devices(device)
     dev = devices[0]
     log = get_logger()
@@ -228,7 +238,9 @@ def stitch_frames(images: Optional[List[np.ndarray]], ids: List[str],
         mosaic = stitch_inter_strips_custom(strips, global_tuning(tuning),
                                             device=devices, info=ginfo,
                                             row_sink=row_sink,
-                                            fetch_packed=fetch_packed)
+                                            fetch_packed=fetch_packed,
+                                            seam_warp=seam_warp,
+                                            seam_method=seam_method)
     return StitchResult(
         panorama=mosaic, groups=groups, strip_kept=strip_kept,
         strip_transforms=strip_tf, global_transforms=ginfo["transforms"],
@@ -338,7 +350,8 @@ def run_stitch_application(cfg: Optional[RunConfig] = None) -> int:
             with log.timer("Main", "global compose", sync=device_sync(dev)):
                 panorama = stitch_inter_strips_custom(
                     strips, global_tuning(tuning), device=devices,
-                    row_sink=sink, fetch_packed=cfg.fetch_packed)
+                    row_sink=sink, fetch_packed=cfg.fetch_packed,
+                    seam_warp=cfg.seam_warp, seam_method=cfg.seam_method)
         else:
             with log.timer("Main", "scan"):
                 paths, ids = scan_with_ids(cfg.input_dir)
@@ -389,7 +402,9 @@ def run_stitch_application(cfg: Optional[RunConfig] = None) -> int:
                 result = stitch_frames(images, ids, tuning, devices,
                                        store=store, on_strip=on_strip,
                                        row_sink=sink,
-                                       fetch_packed=cfg.fetch_packed)
+                                       fetch_packed=cfg.fetch_packed,
+                                       seam_warp=cfg.seam_warp,
+                                       seam_method=cfg.seam_method)
             except FrameStoreError as e:
                 # an unreadable or mismatched frame: recover with the eager
                 # loader (skip-unreadable, image_loader.cpp:52-59)
@@ -403,7 +418,9 @@ def run_stitch_application(cfg: Optional[RunConfig] = None) -> int:
                 done.clear()
                 result = stitch_frames(images, ids, tuning, devices,
                                        on_strip=on_strip, row_sink=sink,
-                                       fetch_packed=cfg.fetch_packed)
+                                       fetch_packed=cfg.fetch_packed,
+                                       seam_warp=cfg.seam_warp,
+                                       seam_method=cfg.seam_method)
             panorama = result.panorama
             if store is not None:
                 log.log("Main", "streaming decode", n=len(store),

@@ -13,6 +13,11 @@ Port of ``drone_image_stitch_cpp_tpu/pipeline/global_.py``
       chained clamped mean-ratio gains and the canvas-size-adaptive
       exposure compensation (:307-326, :353-383, :497-573);
   (e) graph-cut seams with the DP seam as fallback (:583-630);
+      the JAX package's two seam ablation switches (``TM_SEAM_WARP``,
+      ``TM_SEAM_METHOD``) are the keywords ``seam_warp`` (the seam canvas
+      warped from the area-downscaled strip, or straight from the
+      full-resolution one through K2's content mode) and ``seam_method``
+      (graph cut, or the DP seam for every pair);
   (f) the multiband blend with sigma-10 soft seam masks, through tiles
       above ``ops/blend.TILED_THRESHOLD_BYTES``, the crop box from the
       tiles' device content flags (:632-666), the finished row bands
@@ -45,6 +50,7 @@ from ..ops.color import bgr_to_gray, content_mask
 from ..ops.crop import auto_crop_black_border
 from ..ops.resize import resize_area, scale_for_max_dim
 from ..ops.warp import warp_affine, warp_content_mask
+from ..ops.warp_kernel import warp_frame
 from ..runtime.device import device_sync, placement, resolve_device
 from ..runtime.handoff import DeviceStrip
 from ..runtime.logging import get_logger
@@ -58,6 +64,8 @@ _GAIN_CLAMP = (0.8, 1.25)   # reference :497-549
 _GAIN_MIN_OVERLAP = 1000    # full-res valid-px inheritance threshold (:529)
 _STRIP_BUCKET = 512         # common padded strip size grid
 _STAGE = "GlobalCustom"
+SEAM_WARPS = ("prescaled", "fullres")
+SEAM_METHODS = ("graphcut", "dp")
 
 
 class GlobalStitchError(RuntimeError):
@@ -251,11 +259,36 @@ def _to_seam(strip_u8: torch.Tensor, t_small: np.ndarray, hp_s: int,
     return simg, smask
 
 
+def _to_seam_fullres(strip_u8: torch.Tensor, t_seam: np.ndarray, sh: int,
+                     sw: int):
+    """Seam-scale image and content mask of one padded strip warped
+    straight from full resolution by the seam transform ``t_seam`` (JAX's
+    ``TM_SEAM_WARP=fullres``, global_.py:438-459): the warped image, and
+    the warped gray > 2 indicator kept at >= 0.999. One launch of K2's
+    content mode on a CUDA strip (no float32 copy of the strip is made);
+    a CPU strip runs its plain version."""
+    simg, cov = warp_frame(strip_u8, t_seam, sh, sw, content="nonblack")
+    return simg, cov >= 0.999
+
+
+def check_seam_switches(seam_warp: str, seam_method: str) -> None:
+    """ValueError unless ``seam_warp`` is one of :data:`SEAM_WARPS` and
+    ``seam_method`` one of :data:`SEAM_METHODS`."""
+    if seam_warp not in SEAM_WARPS:
+        raise ValueError(f"seam_warp must be one of {SEAM_WARPS}, got "
+                         f"{seam_warp!r}")
+    if seam_method not in SEAM_METHODS:
+        raise ValueError(f"seam_method must be one of {SEAM_METHODS}, got "
+                         f"{seam_method!r}")
+
+
 def stitch_inter_strips_custom(strips: List, tuning: Optional[StitchTuning]
                                = None, seed: int = 0, device=None,
                                info: Optional[dict] = None,
                                row_sink=None,
-                               fetch_packed: bool = False) -> np.ndarray:
+                               fetch_packed: bool = False,
+                               seam_warp: str = "prescaled",
+                               seam_method: str = "graphcut") -> np.ndarray:
     """Compose strip panoramas (host arrays or :class:`DeviceStrip`) into
     one cropped mosaic (reference :386-675) on ``device`` (default: the
     device strips'). ``info``: optional dict that receives ``transforms``
@@ -283,7 +316,17 @@ def stitch_inter_strips_custom(strips: List, tuning: Optional[StitchTuning]
     chroma loss). Off by default: the JAX package turns it on
     (``TM_FETCH_PACKED``, global_.py:612) to halve the bytes over its
     remote TPU link, which a card on PCIe does not need.
+
+    ``seam_warp``: ``"prescaled"`` (default) area-downscales each padded
+    strip and its coverage to the seam scale before the warp;
+    ``"fullres"`` warps the seam canvas straight from the full-resolution
+    strip (:func:`_to_seam_fullres`, one K2 content-mode launch per strip
+    on a card). ``seam_method``: ``"graphcut"`` (default, the DP seam
+    where the min-cut has no terminals) or ``"dp"`` for every pair. These
+    are the JAX package's ``TM_SEAM_WARP`` / ``TM_SEAM_METHOD``
+    (global_.py:425, 505-510); any other value raises ValueError.
     """
+    check_seam_switches(seam_warp, seam_method)
     log = get_logger()
     tuning = tuning or StitchTuning()
     n = len(strips)
@@ -350,6 +393,7 @@ def stitch_inter_strips_custom(strips: List, tuning: Optional[StitchTuning]
     sw = max(1, int(round(canvas_w * seam_scale)))
     ssc = np.diag([seam_scale, seam_scale]).astype(np.float32)
     log.log(_STAGE, "seam scale", scale=round(seam_scale, 4), h=sh, w=sw)
+    log.log(_STAGE, "seam", warp=seam_warp, method=seam_method)
     hp_s = max(1, int(round(hp_ * seam_scale)))
     wp_s = max(1, int(round(wp_ * seam_scale)))
     s_x, s_y = wp_s / wp_, hp_s / hp_
@@ -357,9 +401,13 @@ def stitch_inter_strips_custom(strips: List, tuning: Optional[StitchTuning]
     with log.timer(_STAGE, "seam warps", sync=sync):
         for i in range(n):
             tsm = (ssc @ t_canvas[i]).astype(np.float32).copy()
-            tsm[:, 0] /= s_x            # pre-scaled source -> seam canvas
-            tsm[:, 1] /= s_y
-            simg, smask = _to_seam(dev_strips[i], tsm, hp_s, wp_s, sh, sw)
+            if seam_warp == "fullres":
+                simg, smask = _to_seam_fullres(dev_strips[i], tsm, sh, sw)
+            else:
+                tsm[:, 0] /= s_x        # pre-scaled source -> seam canvas
+                tsm[:, 1] /= s_y
+                simg, smask = _to_seam(dev_strips[i], tsm, hp_s, wp_s, sh,
+                                       sw)
             seam_imgs.append(simg)
             seam_masks.append(smask)
 
@@ -385,7 +433,7 @@ def stitch_inter_strips_custom(strips: List, tuning: Optional[StitchTuning]
         del gained
     total_gains = (gains * comp_gains).astype(np.float32)
 
-    # ---- graph-cut seams with the DP fallback (:583-630) ------------------
+    # ---- graph-cut seams with the DP fallback, or DP seams (:583-630) -----
     comp_imgs = [im * torch.from_numpy(g).to(dev)
                  for im, g in zip(seam_imgs, total_gains)]
     axes = []
@@ -400,7 +448,7 @@ def stitch_inter_strips_custom(strips: List, tuning: Optional[StitchTuning]
     gc0 = (graphcut_native.calls, graphcut_native.seconds)
     with log.timer(_STAGE, "seams", sync=sync):
         seam_out = S.find_seams_sequential(comp_imgs, seam_masks, axes,
-                                           method="graphcut",
+                                           method=seam_method,
                                            methods=methods)
     log.log(_STAGE, "seam methods",
             **{f"{i}-{j}": m for (i, j), m in methods.items()})

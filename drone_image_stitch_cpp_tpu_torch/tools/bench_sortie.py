@@ -9,8 +9,9 @@ crop -> write) ``--runs`` times in this process, and prints ONE JSON line.
 
 Protocol v2: run 1 is cold (the CUDA kernels' nvcc and the graph-cut
 solver's g++ build at first use); ``secs_ours`` is the median of the warm
-runs (2..N); every run keeps its wall, GT-RMSE (``max_dim=6000``), stage
-split, peak device memory (``torch.cuda.max_memory_allocated`` after
+runs (2..N); every run keeps its wall, GT-RMSE (``max_dim=6000``, whole
+and per flight line), stage split, the global stage's seam-warp and seam
+seconds, peak device memory (``torch.cuda.max_memory_allocated`` after
 ``reset_peak_memory_stats``), the process's peak RSS (``ru_maxrss``, a
 high-water mark over the process so far), the decode thread's busy time,
 the frame store's format and bytes, whether the mosaic was streamed into
@@ -20,6 +21,7 @@ codec's build route, and the K1 / K2 launch counts (K2's also by source).
     python -m drone_image_stitch_cpp_tpu_torch.tools.bench_sortie \\
         [--frames-rows 10 --frames-cols 20] [--work DIR] [--runs 4] \\
         [--device cuda] [--ingest-fmt auto|bgr|yuv420] [--fetch-packed] \\
+        [--seam-warp prescaled|fullres] [--seam-method graphcut|dp] \\
         [--record PATH]
 
 Nothing is written into the repository's tree but the rendered sortie
@@ -37,7 +39,7 @@ import time
 
 import numpy as np
 
-from .sortie_bench import gt_rmse, log, make_sortie, run_ours
+from .sortie_bench import gt_rmse_rows, line_rows, log, make_sortie, run_ours
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -133,13 +135,17 @@ def _rec(records, msg, stage="Main"):
 
 
 def measure_run(root, gt, device, label, retries=2, ingest_fmt="auto",
-                fetch_packed=False):
-    """One timed ``run_ours`` (``ingest_fmt``, ``fetch_packed``: its
-    ``RunConfig`` fields) with its stage split, GT-RMSE, peak device
-    memory, peak RSS, decode-thread time, the store's format and bytes,
-    the streamed write's encoder and finish-wait seconds (None when the
-    mosaic was written after the blend), the codec's route and launch
-    counts: (run record, mosaic, the run's log records)."""
+                fetch_packed=False, seam_warp="prescaled",
+                seam_method="graphcut", lines=()):
+    """One timed ``run_ours`` (``ingest_fmt``, ``fetch_packed``,
+    ``seam_warp``, ``seam_method``: its ``RunConfig`` fields) with its
+    stage split, GT-RMSE (whole, and over each (y0, y1) ground-truth row
+    band of ``lines``: ``gt_rmse_lines``), the global stage's seam-warp
+    and seam seconds, peak device memory, peak RSS, decode-thread time,
+    the store's format and bytes, the streamed write's encoder and
+    finish-wait seconds (None when the mosaic was written after the
+    blend), the codec's route and launch counts: (run record, mosaic, the
+    run's log records)."""
     import torch
 
     from ..runtime.device import resolve_devices
@@ -158,16 +164,21 @@ def measure_run(root, gt, device, label, retries=2, ingest_fmt="auto",
     zero_launch_counts()
     secs, mosaic, rc = run_ours(root, os.path.join(root, "_ours"), device,
                                 retries=retries, ingest_fmt=ingest_fmt,
-                                fetch_packed=fetch_packed)
+                                fetch_packed=fetch_packed,
+                                seam_warp=seam_warp, seam_method=seam_method)
     launches = launch_counts()
     if rc != 0 or mosaic is None:
         raise RuntimeError(f"[sortie] the port's run failed rc={rc}")
     records = logger._records[rec0:]
-    rmse, dx, dy = gt_rmse(mosaic, gt, max_dim=GT_MAX_DIM)
+    rmse, dx, dy, by_line = gt_rmse_rows(mosaic, gt, max_dim=GT_MAX_DIM,
+                                         rows=lines)
     decode = _rec(records, "streaming decode") or {}
     streamed = _rec(records, "streamed mosaic written", "GlobalCustom")
     codec = _rec(records, "codec") or {}
+    seam_warps = _rec(records, "seam warps done", "GlobalCustom") or {}
+    seams = _rec(records, "seams done", "GlobalCustom") or {}
     run = dict(label=label, secs=round(secs, 3), gt_rmse=round(rmse, 3),
+               gt_rmse_lines=[round(r, 3) for r in by_line],
                gt_shift=[round(dx, 2), round(dy, 2)],
                mosaic_hw=list(mosaic.shape[:2]),
                stages=stage_split(records),
@@ -182,6 +193,9 @@ def measure_run(root, gt, device, label, retries=2, ingest_fmt="auto",
                finish_wait_s=streamed and streamed["finish_wait_seconds"],
                codec_route=codec.get("route"),
                ingest_fmt=ingest_fmt, fetch_packed=fetch_packed,
+               seam_warp=seam_warp, seam_method=seam_method,
+               seam_warps_s=seam_warps.get("seconds"),
+               seams_s=seams.get("seconds"),
                launches=launches, k2_by_source=k2_by_source(launches))
     return run, mosaic, records
 
@@ -205,6 +219,13 @@ def main(argv=None):
     ap.add_argument("--fetch-packed", action="store_true",
                     help="fetch the global tiles as packed I420 "
                          "(RunConfig.fetch_packed)")
+    ap.add_argument("--seam-warp", default="prescaled",
+                    choices=("prescaled", "fullres"),
+                    help="the global seam canvas's warp source "
+                         "(RunConfig.seam_warp)")
+    ap.add_argument("--seam-method", default="graphcut",
+                    choices=("graphcut", "dp"),
+                    help="the global seams (RunConfig.seam_method)")
     ap.add_argument("--record", default=None,
                     help="also write the JSON line to this path")
     args = ap.parse_args(argv)
@@ -217,17 +238,23 @@ def main(argv=None):
                                 frame_w=FRAME_W, device=args.device)
     render_s = time.perf_counter() - t0
     gt = np.load(gt_path)
+    with open(os.path.join(root, "meta.json")) as f:
+        lines = line_rows(json.load(f))
     out = {"frames": args.frames_rows * args.frames_cols,
            "frame": f"{FRAME_H}x{FRAME_W}", "overlap": "0.70/0.35",
            "render_s": round(render_s, 3),
            "device": args.device, "card": card_name_and_power_limit(),
-           "ingest_fmt": args.ingest_fmt, "fetch_packed": args.fetch_packed}
+           "ingest_fmt": args.ingest_fmt, "fetch_packed": args.fetch_packed,
+           "seam_warp": args.seam_warp, "seam_method": args.seam_method}
     runs = []
     for k in range(max(1, args.runs)):
         run, mosaic, _ = measure_run(root, gt, args.device,
                                      "cold" if k == 0 else "warm",
                                      ingest_fmt=args.ingest_fmt,
-                                     fetch_packed=args.fetch_packed)
+                                     fetch_packed=args.fetch_packed,
+                                     seam_warp=args.seam_warp,
+                                     seam_method=args.seam_method,
+                                     lines=lines)
         runs.append(run)
         out["mosaic_hw"] = run["mosaic_hw"]
         log(f"[sortie] run {k + 1}/{args.runs} ({run['label']}): "

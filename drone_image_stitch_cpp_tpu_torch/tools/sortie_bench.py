@@ -10,7 +10,9 @@ Counterpart of the JAX package's ``tools/sortie_bench.py``:
     process, with ``--resume`` retries; returns (seconds, mosaic, rc);
   * gt_rmse(): mosaic vs ground-truth ortho crop, phase-aligned at reduced
     scale, blurred RMSE over the eroded shared region (the same cv2
-    operations in the same order as the JAX harness).
+    operations in the same order as the JAX harness); gt_rmse_rows() also
+    gives the RMSE over row bands of the ground truth, such as each
+    flight line's (line_rows()).
 
 The C++ reference's build and run have no counterpart here: they need the
 reference sources and an OpenCV 5 C++ build, which this repository does
@@ -116,7 +118,8 @@ def make_sortie(root: str, rows: int, cols: int, frame_h: int, frame_w: int,
 # ---------------------------------------------------------------------------
 
 def run_ours(input_root: str, out_root: str, device, retries: int = 0,
-             ingest_fmt: str = "auto", fetch_packed: bool = False):
+             ingest_fmt: str = "auto", fetch_packed: bool = False,
+             seam_warp: str = "prescaled", seam_method: str = "graphcut"):
     """End-to-end run of the port; returns (seconds, mosaic, rc).
 
     ``device`` is the run's device (``cuda``, ``cuda:N``, ``cpu`` or a
@@ -127,7 +130,9 @@ def run_ours(input_root: str, out_root: str, device, retries: int = 0,
     ``RunConfig.ingest_fmt`` (the frame store's format: ``auto`` stores a
     4:2:0 JPEG folder packed I420 where the codec builds) and
     ``RunConfig.fetch_packed`` (the global tiles leave the card as packed
-    I420), the JAX harness's ``TM_INGEST_FMT`` / ``TM_FETCH_PACKED``.
+    I420), the JAX harness's ``TM_INGEST_FMT`` / ``TM_FETCH_PACKED``;
+    ``seam_warp`` / ``seam_method``: ``RunConfig.seam_warp`` and
+    ``RunConfig.seam_method`` (its ``TM_SEAM_WARP`` / ``TM_SEAM_METHOD``).
     """
     cv2 = _cv2()
     from ..app import RunConfig, run_stitch_application
@@ -138,7 +143,8 @@ def run_ours(input_root: str, out_root: str, device, retries: int = 0,
         cfg = RunConfig(image_folder=input_root, image_type="visible",
                         group="minfull", output_root=out_root,
                         device=device, resume=attempt > 0,
-                        ingest_fmt=ingest_fmt, fetch_packed=fetch_packed)
+                        ingest_fmt=ingest_fmt, fetch_packed=fetch_packed,
+                        seam_warp=seam_warp, seam_method=seam_method)
         rc = run_stitch_application(cfg)
         if rc == 0:
             break
@@ -155,6 +161,14 @@ def run_ours(input_root: str, out_root: str, device, retries: int = 0,
 # ground-truth RMSE
 # ---------------------------------------------------------------------------
 
+def line_rows(meta: dict):
+    """[(y0, y1)] per flight line: the ground-truth rows its planted
+    frames cover (``meta``: :func:`make_sortie`'s ``meta.json``)."""
+    step_y = int(meta["frame_h"] * (1 - meta["overlap_y"]))
+    return [(k * step_y, k * step_y + meta["frame_h"])
+            for k in range(meta["rows"])]
+
+
 def gt_rmse(mosaic: np.ndarray, gt: np.ndarray, max_dim: int = 4000):
     """Blurred RMSE between a mosaic and the ground-truth ortho crop.
 
@@ -163,6 +177,15 @@ def gt_rmse(mosaic: np.ndarray, gt: np.ndarray, max_dim: int = 4000):
     a mild blur (subpixel-resampling tolerant) over the common region.
     Returns (rmse, dx, dy).
     """
+    return gt_rmse_rows(mosaic, gt, max_dim)[:3]
+
+
+def gt_rmse_rows(mosaic: np.ndarray, gt: np.ndarray, max_dim: int = 4000,
+                 rows=()):
+    """:func:`gt_rmse` and the same RMSE over each (y0, y1) band of ground-
+    truth rows in ``rows`` (the shifted mosaic and the ground truth
+    restricted to those rows; inf where the band holds under 1000 common
+    pixels): (rmse, dx, dy, [band rmse])."""
     cv2 = _cv2()
 
     def gray(a):
@@ -188,6 +211,10 @@ def gt_rmse(mosaic: np.ndarray, gt: np.ndarray, max_dim: int = 4000):
     gb = cv2.GaussianBlur(gt.astype(np.float32), (9, 9), 2.0)
     diff = ((mb - gb) ** 2).mean(axis=-1)
     sel = valid.astype(bool)
-    if sel.sum() < 1000:
-        return float("inf"), fdx, fdy
-    return float(np.sqrt(diff[sel].mean())), fdx, fdy
+
+    def rmse(d, m):
+        return float(np.sqrt(d[m].mean())) if m.sum() >= 1000 \
+            else float("inf")
+
+    return (rmse(diff, sel), fdx, fdy,
+            [rmse(diff[y0:y1], sel[y0:y1]) for y0, y1 in rows])

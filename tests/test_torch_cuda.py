@@ -304,6 +304,33 @@ def test_k2_content_mode_out_of_range_and_batched(cuda):
     assert torch.equal(wimgs, wp) and torch.equal(masks, mp)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale,out_hw", [(0.1433, (147, 509)),
+                                          (0.3367, (173, 689))])
+def test_seam_fullres_warp_is_one_content_launch(cuda, scale, out_hw):
+    """The global stage's full-resolution seam warp
+    (``pipeline/global_._to_seam_fullres``): a padded strip (texture,
+    near-threshold pixels, black pad) minified into a ragged seam canvas
+    by one K2 content-mode launch, bit-equal to the plain version, its
+    mask the plain footprint kept at >= 0.999."""
+    from drone_image_stitch_cpp_tpu_torch.pipeline import global_ as TG
+    strip = torch.zeros((1024, 3584, 3), dtype=torch.uint8, device=cuda)
+    strip[:900, :3300] = _near_threshold_frame(cuda, 900, 3300)
+    strip[300:420, 1000:2900] = 2           # gray 2: not content
+    t_seam = (np.diag([scale, scale]).astype(np.float32) @ np.asarray(
+        [[1.0, 0.0004, 11.3], [-0.0004, 1.0, 140.61]], np.float32)
+              ).astype(np.float32)
+    oh, ow = out_hw
+    n0, l0 = WK.warp_frame.nonblack_launches, WK.warp_frame.launches
+    simg, smask = TG._to_seam_fullres(strip, t_seam, oh, ow)
+    assert WK.warp_frame.nonblack_launches == n0 + 1
+    assert WK.warp_frame.launches == l0 + 1
+    wp, mp = WK.warp_frame_plain(strip, WK.inverse_coeffs(t_seam), oh, ow,
+                                 content="nonblack")
+    assert torch.equal(simg, wp) and torch.equal(smask, mp >= 0.999)
+    assert 0.1 < float(smask.float().mean()) < 0.9
+
+
 def _float_frames(dev, n=None, h=37, w=53, seed=7):
     """Float32 BGR frames with fractional values (as area-resized frames
     have), including values above 255 and below 0."""
