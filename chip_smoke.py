@@ -20,8 +20,13 @@ Phases (one line each; any failure exits nonzero and prints no result):
      prints the stage times, the queued x5 time, each stage's
      synchronising calls, frames/s and vs_baseline. Then K2's single-plane
      form for one frame and the 7-frame batch on the bench's frames and
-     device models (wrapper and bare launch bit-equal to the plain version;
-     wrapper, device, plain and F.grid_sample times, bound, share) and K1
+     device models, a strided slice of the (N, 3, 3) models as the bench
+     passes them (the kernel's in-kernel inverse first, bit-equal to
+     inverse_coeffs on 10,200 affines; one call must be ONE device
+     operation, the kernel, by torch.profiler; the wrapper and both
+     routes, staged boxes and the direct gather, bit-equal to the plain
+     version; wrapper, each route's device time in turns, plain and
+     F.grid_sample times, bound, each route's share) and K1
      at the bench's detect shape (8 x 2200 keypoints on a (192, 512, 896)
      stack, at least TP_K1_MIN_VALID valid);
   3. each kernel's wrapper against its plain PyTorch version on the card
@@ -359,18 +364,20 @@ def _codec_probe() -> str:
             f"g++ '{ver}'; cv2 {mods['cv2']}; PIL {mods['PIL']}")
 
 
-def _ptxas_entries(report: str) -> dict:
-    """{entry: registers} from an -Xptxas -v report, K2's entries by the
-    source they read (u8, f32, i420_per_tap, i420_staged)."""
+def _ptxas_entries(report: str,
+                   what: str = r"Used (\d+) registers") -> dict:
+    """{entry: registers} (or, with ``what`` another pattern, that number)
+    from an -Xptxas -v report, K2's entries by the source they read (u8,
+    f32, i420_per_tap, i420_staged, plane, affine_inverse)."""
     names = {"warp_i420_staged_kernel": "i420_staged", "I420": "i420_per_tap",
-             "warp_plane_kernel": "plane",
-             "warp_affine_kernelIhE": "u8", "warp_affine_kernelIfE": "f32"}
+             "warp_plane_kernel": "plane", "affine_inverse": "affine_inverse",
+             "warp_affine_kernelIh": "u8", "warp_affine_kernelIf": "f32"}
     out = {}
     for part in report.split("Compiling entry function '")[1:]:
         entry = part.split("'")[0]
-        regs = re.search(r"Used (\d+) registers", part)
+        num = re.search(what, part)
         key = next((v for k, v in names.items() if k in entry), entry)
-        out[key] = int(regs.group(1)) if regs else -1
+        out[key] = max(out.get(key, -1), int(num.group(1)) if num else -1)
     return out
 
 
@@ -425,8 +432,9 @@ def phase_build() -> dict:
                                            k.ptxas)]
         spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill",
                                                k.ptxas))
-        out[m.KERNEL_SOURCE] = (max(regs, default=-1), spill,
-                                _ptxas_entries(k.ptxas))
+        out[m.KERNEL_SOURCE] = (
+            max(regs, default=-1), spill, _ptxas_entries(k.ptxas),
+            _ptxas_entries(k.ptxas, r"(\d+) bytes smem"))
         print(f"[smoke] build {m.KERNEL_SOURCE}: nvcc {k.seconds:.2f} s; "
               f"ptxas: {' | '.join(lines)}", flush=True)
     print(f"[smoke] build: both kernels in {time.perf_counter() - t0:.2f} s",
@@ -480,49 +488,164 @@ def _plane_library(torch, planes, table, oh, ow):
     return _median_ms(call, torch), out
 
 
+def _device_ops(torch, fn):
+    """The device operations (kernels, copies, memsets) of one call of
+    ``fn`` after a warm call, from a torch.profiler trace: [(category,
+    name)]."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build")
+    os.makedirs(out_dir, exist_ok=True)
+    fd, path = tempfile.mkstemp(suffix=".json", dir=out_dir)
+    os.close(fd)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.unlink(path)
+    return [(e["cat"], e["name"]) for e in events if e.get("ph") == "X"
+            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
 def _plane_row(torch, dev, label, planes, a23s):
-    """K2's single-plane form at the throughput path's shape: the wrapper
-    with device transforms (as the bench calls it) and the bare launch
-    bit-equal to the plain version on the same table; wrapper, device,
-    plain and F.grid_sample times; the bound (4 B a touched source pixel
-    read, 4 B an output pixel written; 20 operations an output pixel)."""
+    """K2's single-plane form at the throughput path's shape, ``a23s`` the
+    device models as the bench passes them (a (N, 2, 3) slice of the
+    (N, 3, 3) models): the wrapper's call is ONE device operation, the
+    kernel itself (torch.profiler); the wrapper and both routes (staged
+    boxes where they fit, and every tile direct) bit-equal to the plain
+    version on the same table, the staged route staging tiles and the
+    direct one none; wrapper, device time of each route (in turns:
+    staged, direct, direct, staged), plain and F.grid_sample times; the
+    bound (4 B a touched source pixel read, 4 B an output pixel written;
+    20 operations an output pixel) and each route's share of it. Fails
+    when the direct route's device time beats the staged one, the
+    kernel's default."""
     from drone_image_stitch_cpp_tpu_torch.ops import warp_kernel as WK
     n, h, w = planes.shape
     table = WK.device_inverse_coeffs(a23s)
     got = WK.warp_planes(planes, a23s, h, w)
-    bare = WK._launch_planes(planes, table, h, w)
     plain = WK.warp_planes_plain(planes, table, h, w)
+    counts = torch.zeros(2, dtype=torch.int32, device=dev)
+    routes = {r: WK._launch_planes(planes, a23s, h, w,
+                                   direct=r == "direct",
+                                   staged_tiles=counts[i])
+              for i, r in enumerate(("staged", "direct"))}
     torch.cuda.synchronize()
-    if not (torch.equal(got, plain) and torch.equal(bare, plain)):
+    if not torch.equal(got, plain):
         _fail("throughput", f"k2 plane {label}: not bit-equal to the plain "
                             f"version (max |d| "
                             f"{float((got - plain).abs().max())})")
-    del got, bare, plain
+    for r, out in routes.items():
+        if not torch.equal(out, plain):
+            _fail("throughput", f"k2 plane {label}: the {r} route is not "
+                                f"bit-equal to the plain version")
+    del got, plain, routes
+    tiles = n * -(-h // WK.PLANE_TILE[0]) * -(-w // WK.PLANE_TILE[1])
+    staged, direct = counts.tolist()
+    if staged == 0 or direct != 0:
+        _fail("throughput", f"k2 plane {label}: {staged} tiles staged by "
+                            f"the staged route (need > 0), {direct} by the "
+                            f"direct one (need 0)")
+    ops = _device_ops(torch, lambda: WK.warp_planes(planes, a23s, h, w))
+    if len(ops) != 1 or ops[0][0] != "kernel" or \
+            "warp_plane_kernel" not in ops[0][1]:
+        _fail("throughput", f"k2 plane {label}: one warp_planes call ran "
+                            f"{ops} on the device (need exactly one "
+                            f"warp_plane_kernel)")
     ms = _median_ms(lambda: WK.warp_planes(planes, a23s, h, w), torch)
-    device_ms = _device_ms(lambda: WK._launch_planes(planes, table, h, w),
-                           torch)
+    runs = {"staged": [], "direct": []}
+    for r in ("staged", "direct", "direct", "staged"):
+        runs[r].append(_device_ms(lambda: WK._launch_planes(
+            planes, a23s, h, w, direct=r == "direct"), torch))
     plain_ms = _median_ms(lambda: WK.warp_planes_plain(planes, table, h, w),
                           torch)
     library_ms, lib = _plane_library(torch, planes, table, h, w)
-    lib_err = float((lib[:, 0] - WK._launch_planes(planes, table, h,
-                                                   w)).abs().max())
+    lib_err = float((lib[:, 0] - WK.warp_planes(planes, a23s, h,
+                                                w)).abs().max())
     del lib
     src_px = sum(_k2_source_pixels(torch, dev, inv, h, w, h, w)
                  for inv in table.tolist())
     n_out = n * h * w
     n_bytes = 4.0 * src_px + 4.0 * n_out
     bound_ms, bound_by = _bound(n_bytes, 20.0 * n_out)
+    route_rows = {r: {"device_ms": float(np.mean(t)), "runs_ms": t,
+                      "share": bound_ms / float(np.mean(t))}
+                  for r, t in runs.items()}
+    route_rows["staged"]["staged_tiles"] = staged
+    route_rows["staged"]["tiles"] = tiles
+    # the kernel's own choice wherever a box fits, so it must be the faster
+    default = "staged"
+    if route_rows["direct"]["device_ms"] < route_rows[default]["device_ms"]:
+        _fail("throughput", f"k2 plane {label}: the direct route "
+                            f"({route_rows['direct']['device_ms']:.4f} ms) "
+                            f"beats the default, staged one "
+                            f"({route_rows[default]['device_ms']:.4f} ms)")
+    device_ms = route_rows[default]["device_ms"]
     print(f"[smoke] k2 warp_affine_plane_f32 {label}: {n} x {h}x{w} f32 -> "
-          f"{h}x{w} (no mask), device transforms; bit-identical to plain; "
-          f"wrapper {ms:.4f} ms, device {device_ms:.4f} ms, plain "
-          f"{plain_ms:.3f} ms, grid_sample {library_ms:.4f} ms (max |d| "
-          f"{lib_err:.3g}); bound {bound_ms:.4f} ms by {bound_by} "
-          f"({n_bytes / 1e6:.1f} MB), share {bound_ms / device_ms:.3f}",
-          flush=True)
+          f"{h}x{w} (no mask), device models (strided), inverted in the "
+          f"kernel; one call = {ops[0][1][:60]} alone on the device; "
+          f"wrapper, staged and direct routes bit-identical to plain; "
+          f"staged route staged {staged} of {tiles} tiles; wrapper "
+          f"{ms:.4f} ms, device staged "
+          f"{route_rows['staged']['device_ms']:.4f} ms (runs "
+          f"{', '.join(f'{x:.4f}' for x in runs['staged'])}), direct "
+          f"{route_rows['direct']['device_ms']:.4f} ms (runs "
+          f"{', '.join(f'{x:.4f}' for x in runs['direct'])}), default "
+          f"{default}; plain {plain_ms:.3f} ms, grid_sample "
+          f"{library_ms:.4f} ms (max |d| {lib_err:.3g}); bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({n_bytes / 1e6:.1f} MB), share "
+          f"staged {route_rows['staged']['share']:.3f}, direct "
+          f"{route_rows['direct']['share']:.3f}; wrapper / grid_sample "
+          f"{ms / library_ms:.3f}", flush=True)
     return {"shape": [n, h, w], "max_abs_err": 0.0, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "share": bound_ms / device_ms,
-            "device_ms": device_ms, "bytes": n_bytes}
+            "device_ms": device_ms, "bytes": n_bytes, "default_route": default,
+            "routes": route_rows, "device_ops_per_call": len(ops)}
+
+
+def _plane_inverse_check(torch, dev):
+    """The card's build of the single-plane kernel's inverse
+    (csrc/affine_inverse.cuh, through ops/warp_kernel.kernel_inverse_coeffs)
+    bit-equal to inverse_coeffs and device_inverse_coeffs on the affines
+    of utils/plane_affines (the 200 of the throughput tests and 10^4
+    more), and not finite on singular ones; the kernel library's host
+    entry of it (host_inverse_coeffs, the other K2 launches' inverse)
+    bit-equal to inverse_coeffs on the same affines."""
+    from drone_image_stitch_cpp_tpu_torch.ops import warp_kernel as WK
+    from drone_image_stitch_cpp_tpu_torch.utils.plane_affines import (
+        bench_affines, singular_affines, wide_affines)
+    total = 0
+    for a23s in (bench_affines(), wide_affines()):
+        on_card = torch.from_numpy(a23s).to(dev)
+        got = WK.kernel_inverse_coeffs(on_card)
+        ref = np.asarray([WK.inverse_coeffs(a) for a in a23s], np.float32)
+        if not (np.array_equal(got.cpu().numpy(), ref)
+                and torch.equal(got, WK.device_inverse_coeffs(on_card))):
+            _fail("throughput", "the in-kernel affine inverse differs from "
+                                "inverse_coeffs / device_inverse_coeffs")
+        if not np.array_equal(WK.host_inverse_coeffs(a23s), ref):
+            _fail("throughput", "the kernel library's host inverse differs "
+                                "from inverse_coeffs")
+        total += len(a23s)
+    sing = WK.kernel_inverse_coeffs(torch.from_numpy(
+        singular_affines()).to(dev)).cpu().numpy()
+    if np.isfinite(sing).all(axis=1).any():
+        _fail("throughput", f"a singular affine inverted to finite "
+                            f"coefficients {sing.tolist()}")
+    print(f"[smoke] k2 plane inverse: the kernel's float32 LU "
+          f"(csrc/affine_inverse.cuh) bit-equal to inverse_coeffs and "
+          f"device_inverse_coeffs on {total} affines, and so is its host "
+          f"entry in the same library; singular ones not finite",
+          flush=True)
+    return total
 
 
 def phase_throughput(torch, dev):
@@ -575,7 +698,8 @@ def phase_throughput(torch, dev):
         _fail("throughput", f"the warp stage synchronised {sy['warp']} "
                             f"times (need 0)")
     fdev = torch.from_numpy(np.stack(frames)).to(dev)
-    a23s = torch.from_numpy(r["models"][:, :2, :].copy()).to(dev)
+    a23s = torch.from_numpy(r["models"].astype(np.float32)).to(dev)[:, :2]
+    n_inv = _plane_inverse_check(torch, dev)
     one = _plane_row(torch, dev, "one frame", fdev[1:2], a23s[:1])
     batch = _plane_row(torch, dev, f"{len(frames) - 1}-frame batch",
                        fdev[1:], a23s)
@@ -592,8 +716,10 @@ def phase_throughput(torch, dev):
                       "(pallas_warp.py:323) and warp_affine_many (:287)",
              **{k: batch[k] for k in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms",
-                                      "share", "device_ms", "shape")},
-             "one_frame": one,
+                                      "share", "device_ms", "shape",
+                                      "default_route", "routes",
+                                      "device_ops_per_call")},
+             "one_frame": one, "inverse_affines_checked": n_inv,
              "throughput": {"fps": r["fps"], "vs_baseline": r["fps"] / fps_cpu,
                             "opencv_fps": fps_cpu, "stages_ms": st,
                             "syncs": sy, "cores": os.cpu_count()}}
@@ -3017,8 +3143,8 @@ def main() -> int:
                             k1["throughput"]["max_abs_err"],
                             k1["flagship"]["global_detect"]["max_abs_err"])
     for d in (k1, k2, plane):
-        d["registers"], d["spill_bytes"], d["registers_by_entry"] = ptxas[
-            d["source"].split("/")[-1]]
+        (d["registers"], d["spill_bytes"], d["registers_by_entry"],
+         d["static_smem_by_entry"]) = ptxas[d["source"].split("/")[-1]]
         d["card"] = card
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -76,22 +76,58 @@
 // ((b*0.114f) + (g*0.587f)) + (r*0.299f) with the same rounding, the plain
 // version's ops/color.content_mask, so no pixel crosses 2.0 differently.
 //
+// A batch's coefficients reach the kernel by value, as a parameter block
+// of kByValue sets of six floats (3,840 B, inside the 4 KB of kernel
+// parameters of every toolkit), so a launch needs no host-to-device copy;
+// one frame passes a block of one set (24 B); above kByValue frames they
+// come from a device table. The host computes those sets with
+// the single-plane kernel's own inverse (affine_inverse_f32_host, below),
+// one call for a whole batch.
+//
 // One more form reads a single float32 plane and writes it with no mask
 // (warp_affine_plane_f32: the JAX package's warp_affine_traced,
 // pallas_warp.py:323, which bench.py:111 runs on 7 full-4K gray frames of
-// each batch, and its batched warp_affine_many, :287). Its coefficients
-// always come from a device table, so a transform computed on the card
-// (RANSAC's models, inverted there: ops/warp_kernel.device_inverse_coeffs)
-// reaches the kernel with no host round trip. It writes 4 B and reads about
-// 4 B of touched source a pixel, so it is bound by memory traffic too: each
-// thread warps 4 consecutive pixels (the same taps and rounding as
-// warp_pixel) and writes them as one 16-byte store.
+// each batch, and its batched warp_affine_many, :287). It takes the
+// src->dst affines themselves, from the device (RANSAC's models as they
+// lie on the card, read through their strides) or by value, and each
+// block inverts its frame's affine (csrc/affine_inverse.cuh, the float32
+// LU of ops/warp_kernel.inverse_coeffs in its rounding), so a call is one
+// launch and no host work. It writes 4 B and reads about 4 B of touched
+// source a pixel, so it is bound by memory traffic: 459 MB for the
+// 7-frame 4K batch. A block covers a kPlaneTileH x kTileW output tile
+// (256 threads, each 4 consecutive pixels of 4 rows). It maps the tile's
+// corners with warp_pixel's own rounded arithmetic to the source box that
+// holds every tap (as the staged I420 kernel does) and, when the box
+// clipped to the frame fits the block's fixed kPlaneSmemFloats of shared
+// memory, stages its rows with 16-byte cp.async (L2 only) and gathers the
+// four taps of each pixel from shared memory: each source pixel comes
+// from device memory once, where the per-tap loads of a 4-pixel thread
+// spread every warp load over four cache lines. A box that does not fit
+// (a strong downscale or rotation), or a tile with no tap in the frame,
+// takes the direct gather (__ldg per tap); the choice is the block's own
+// and uniform across it. Both routes share the per-pixel code, which is
+// issue-bound as much as memory-bound (a 4K pixel moves 8 B for some 30
+// operations), so it is lean: a thread computes a x for its 4 pixels and
+// a row's b y once (the same rounded products src_coord takes), and a
+// tile whose box lies inside the frame, most of them, drops the bounds
+// tests and saturating conversions. Lanes 8g..8g+7 take their 4 pixels
+// starting at pixel g, so a warp's shared-memory taps of a near-identity
+// warp fall in 32 distinct banks. Each thread writes its 4 pixels as one
+// 16-byte streaming store (__stcs): the output is read once, by what
+// follows, and should not evict the source from L2. Both gathers give the
+// plain version's values bit for bit: the same coordinates, bounds tests
+// and lerp2.
 //
 // Plain C interface for ctypes; each entry returns the cudaGetLastError()
 // code.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
+
+#include "affine_inverse.cuh"
 
 namespace {
 
@@ -104,9 +140,42 @@ constexpr int kTileW = 32 * kPix;    // 128
 constexpr int kTileH = 24;
 static_assert(kTileH % kWarps == 0, "each warp takes the same rows");
 
+// the single-plane kernel's output tile: kPlaneTileH rows of kTileW, and
+// the shared memory that bounds its staged source box: 30 KB, so seven
+// blocks fit an SM (a near-identity tile's box takes ~18 KB; a rotation
+// up to ~9 degrees still fits)
+constexpr int kPlaneTileH = 32;
+constexpr int kPlaneSmemFloats = 7680;
+static_assert(kPlaneTileH % kWarps == 0, "each warp takes the same rows");
+// coefficient sets a launch takes by value, at most (3,840 B of
+// parameters; one frame passes a block of one: with_sets)
+constexpr int kByValue = 160;
+
 struct Coeffs {
   float i00, i01, i02, i10, i11, i12;
 };
+
+// S sets of six floats passed by value: dst->src coefficients (the BGR
+// and I420 kernels) or src->dst affines (the single-plane kernel), set n
+// for frame n.
+template <int S>
+struct HostSets {
+  static constexpr int kSets = S;
+  float v[S][6];
+};
+
+// Frame n's coefficients: row n of the device table, else set n of the
+// by-value block.
+template <int S>
+__device__ __forceinline__ Coeffs coeffs_of(const float* __restrict__ table,
+                                            const HostSets<S>& host, int n) {
+  if (table != nullptr) {
+    const float* t = table + 6 * n;
+    return Coeffs{t[0], t[1], t[2], t[3], t[4], t[5]};
+  }
+  const float* t = host.v[n];
+  return Coeffs{t[0], t[1], t[2], t[3], t[4], t[5]};
+}
 
 // Tag type of a packed I420 source (one byte per element).
 struct I420 {
@@ -269,10 +338,8 @@ struct Bilinear {
   bool in00, in01, in10, in11;
 };
 
-__device__ __forceinline__ Bilinear bilinear_at(const Coeffs& k, int h, int w,
-                                                int x, int y) {
-  const float sx = src_coord(k.i00, k.i01, k.i02, x, y);
-  const float sy = src_coord(k.i10, k.i11, k.i12, x, y);
+__device__ __forceinline__ Bilinear bilinear_of(float sx, float sy, int h,
+                                                int w) {
   const float x0 = floorf(sx);
   const float y0 = floorf(sy);
   Bilinear b;
@@ -290,6 +357,12 @@ __device__ __forceinline__ Bilinear bilinear_at(const Coeffs& k, int h, int w,
   b.in10 = ry1 & cx0;
   b.in11 = ry1 & cx1;
   return b;
+}
+
+__device__ __forceinline__ Bilinear bilinear_at(const Coeffs& k, int h, int w,
+                                                int x, int y) {
+  return bilinear_of(src_coord(k.i00, k.i01, k.i02, x, y),
+                     src_coord(k.i10, k.i11, k.i12, x, y), h, w);
 }
 
 // One output pixel (x, y): BGR into v[0..2], the warped mask into *m (the
@@ -315,20 +388,6 @@ __device__ __forceinline__ void warp_pixel(const T* __restrict__ src,
   else
     *m = lerp2(b.in00 ? 1.f : 0.f, b.in01 ? 1.f : 0.f, b.in10 ? 1.f : 0.f,
                b.in11 ? 1.f : 0.f, b.fx, b.fy);
-}
-
-// One output pixel (x, y) of a single float32 plane: the same taps and
-// rounding as warp_pixel, no mask.
-__device__ __forceinline__ float plane_pixel(const float* __restrict__ src,
-                                             int h, int w, const Coeffs& k,
-                                             int x, int y) {
-  const Bilinear b = bilinear_at(k, h, w, x, y);
-  const long long i00 = (long long)b.yi * w + b.xi;   // read only in range
-  const float t00 = b.in00 ? __ldg(src + i00) : 0.f;
-  const float t01 = b.in01 ? __ldg(src + (i00 + 1)) : 0.f;
-  const float t10 = b.in10 ? __ldg(src + (i00 + w)) : 0.f;
-  const float t11 = b.in11 ? __ldg(src + (i00 + w + 1)) : 0.f;
-  return lerp2(t00, t01, t10, t11, b.fx, b.fy);
 }
 
 // A thread's kPix consecutive output pixels i .. i + kPix - 1 of a run of
@@ -365,24 +424,21 @@ __device__ __forceinline__ void store_pixels(float* fout, float* fmask,
 }
 
 // grid.x: blocks of kThreads * kPix output pixels; grid.y: frames. Frame n
-// reads src + n * src_stride elements (h x w the frame's logical size) and its coefficients from
-// table[6n..] (or `one` when table is null), and writes out/mask at
-// n * out_h * out_w.
-template <typename T>
+// reads src + n * src_stride elements (h x w the frame's logical size) and
+// its coefficients from table[6n..] (or set n of `host` when table is
+// null), and writes out/mask at n * out_h * out_w.
+template <typename T, int S>
 __global__ void __launch_bounds__(kThreads)
 warp_affine_kernel(const T* __restrict__ src, size_t src_stride, int h,
-                   int w, const float* __restrict__ table, Coeffs one,
-                   int content, float* __restrict__ out,
-                   float* __restrict__ mask, int out_h, int out_w) {
+                   int w, const float* __restrict__ table,
+                   const __grid_constant__ HostSets<S> host, int content,
+                   float* __restrict__ out, float* __restrict__ mask,
+                   int out_h, int out_w) {
   const size_t total = (size_t)out_h * out_w;
   const size_t p0 = ((size_t)blockIdx.x * kThreads + threadIdx.x) * kPix;
   if (p0 >= total) return;
   const int n = blockIdx.y;
-  Coeffs k = one;
-  if (table != nullptr) {
-    const float* t = table + 6 * n;
-    k = Coeffs{t[0], t[1], t[2], t[3], t[4], t[5]};
-  }
+  const Coeffs k = coeffs_of(table, host, n);
   const T* frame = src + (size_t)n * src_stride;
   float* fout = out + (size_t)n * total * 3 + p0 * 3;
   float* fmask = mask + (size_t)n * total + p0;
@@ -406,46 +462,15 @@ warp_affine_kernel(const T* __restrict__ src, size_t src_stride, int h,
   store_pixels(fout, fmask, v, m, p0, total);
 }
 
-// grid.x: blocks of kThreads * kPix output pixels; grid.y: frames. Frame n
-// reads the (h, w) float32 plane at src + n * src_stride and its
-// coefficients from table[6n..], and writes out at n * out_h * out_w; a
-// thread's 4 pixels go out as one 16-byte store where aligned.
-__global__ void __launch_bounds__(kThreads)
-warp_plane_kernel(const float* __restrict__ src, size_t src_stride, int h,
-                  int w, const float* __restrict__ table,
-                  float* __restrict__ out, int out_h, int out_w) {
-  const size_t total = (size_t)out_h * out_w;
-  const size_t p0 = ((size_t)blockIdx.x * kThreads + threadIdx.x) * kPix;
-  if (p0 >= total) return;
-  const int n = blockIdx.y;
-  const float* t = table + 6 * n;
-  const Coeffs k{t[0], t[1], t[2], t[3], t[4], t[5]};
-  const float* frame = src + (size_t)n * src_stride;
-  float* fout = out + (size_t)n * total + p0;
-
-  float v[kPix];
-  int x = (int)(p0 % out_w);
-  int y = (int)(p0 / out_w);
-#pragma unroll
-  for (int j = 0; j < kPix; ++j) {
-    v[j] = p0 + j < total ? plane_pixel(frame, h, w, k, x, y) : 0.f;
-    if (++x == out_w) {           // the next pixel starts a new row
-      x = 0;
-      ++y;
-    }
-  }
-  if (p0 + kPix <= total && ((uintptr_t)fout & 15) == 0) {
-    *reinterpret_cast<float4*>(fout) = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < kPix; ++j)
-      if (p0 + j < total) fout[j] = v[j];
-  }
-}
-
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
                "l"(src));
 }
 
@@ -536,19 +561,16 @@ __device__ __forceinline__ const uint8_t* staged_row(const uint8_t* sm,
 // warp_affine_kernel). box_h x box_w bounds every tile's box (the host
 // plan); dynamic shared memory: StagedLayout(box_h, box_w, h, w).bytes.
 // Four blocks an SM: at most 64 registers.
+template <int S>
 __global__ void __launch_bounds__(kThreads, 4)
 warp_i420_staged_kernel(const uint8_t* __restrict__ src, size_t src_stride,
                         int h, int w, const float* __restrict__ table,
-                        Coeffs one, float* __restrict__ out,
-                        float* __restrict__ mask, int out_h, int out_w,
-                        int box_h, int box_w) {
+                        const __grid_constant__ HostSets<S> host,
+                        float* __restrict__ out, float* __restrict__ mask,
+                        int out_h, int out_w, int box_h, int box_w) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int n = blockIdx.z;
-  Coeffs k = one;
-  if (table != nullptr) {
-    const float* t = table + 6 * n;
-    k = Coeffs{t[0], t[1], t[2], t[3], t[4], t[5]};
-  }
+  const Coeffs k = coeffs_of(table, host, n);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int tx0 = blockIdx.x * kTileW;
@@ -637,80 +659,374 @@ warp_i420_staged_kernel(const uint8_t* __restrict__ src, size_t src_stride,
   }
 }
 
+// A source plane's box staged in shared memory by stage_plane: source
+// (y, x) at s[y * pitch + x + base].
+struct PlaneBox {
+  const float* s;
+  int pitch, base;
+};
+
+// The taps (y, x), (y, x + 1), (y + 1, x), (y + 1, x + 1) of a float32
+// plane of width w, in device memory or in its staged box; `in` says which
+// lie in the frame (the others are 0 and are not read). Indices are
+// unsigned, so an out-of-range tap's, never used, cannot overflow.
+__device__ __forceinline__ void taps(const float* __restrict__ frame, int w,
+                                     int x, int y, const bool (&in)[4],
+                                     float (&t)[4]) {
+  const float* p = frame + ((long long)y * w + x);
+  t[0] = in[0] ? __ldg(p) : 0.f;
+  t[1] = in[1] ? __ldg(p + 1) : 0.f;
+  t[2] = in[2] ? __ldg(p + w) : 0.f;
+  t[3] = in[3] ? __ldg(p + w + 1) : 0.f;
+}
+
+__device__ __forceinline__ void taps(const PlaneBox& b, int w, int x, int y,
+                                     const bool (&in)[4], float (&t)[4]) {
+  const unsigned i = (unsigned)y * (unsigned)b.pitch + (unsigned)x +
+                     (unsigned)b.base;
+  t[0] = in[0] ? b.s[i] : 0.f;
+  t[1] = in[1] ? b.s[i + 1] : 0.f;
+  t[2] = in[2] ? b.s[i + b.pitch] : 0.f;
+  t[3] = in[3] ? b.s[i + b.pitch + 1] : 0.f;
+}
+
+// The plane's bilinear sample at source (sx, sy): bilinear_of's taps,
+// bounds tests and rounding, then lerp2. kInterior: the caller knows every
+// tap lies in the frame, so the bounds tests and the saturating
+// conversions are left out (they would all pass).
+template <bool kInterior, typename S>
+__device__ __forceinline__ float plane_sample(const S& src, int h, int w,
+                                              float sx, float sy) {
+  float t[4];
+  if constexpr (kInterior) {
+    const float x0 = floorf(sx);
+    const float y0 = floorf(sy);
+    const bool all[4] = {true, true, true, true};
+    taps(src, w, (int)x0, (int)y0, all, t);
+    return lerp2(t[0], t[1], t[2], t[3], __fsub_rn(sx, x0),
+                 __fsub_rn(sy, y0));
+  }
+  const Bilinear b = bilinear_of(sx, sy, h, w);
+  const bool in[4] = {b.in00, b.in01, b.in10, b.in11};
+  taps(src, w, b.xi, b.yi, in, t);
+  return lerp2(t[0], t[1], t[2], t[3], b.fx, b.fy);
+}
+
+// Rows [y0, y0 + bh) x columns [x0, x0 + bw) of a plane of width w into
+// shared rows `pitch` floats apart, spread over the block's threads: with
+// w % 4 == 0 as the pitch / 4 16-byte cp.async chunks (L2 only) from the
+// aligned one that holds (y, x0), `lead` floats before it (the same in
+// every row); else float by float (4-byte cp.async), lead 0. A chunk
+// holding a float of the frame never leaves the frame's pages; the floats
+// of a chunk outside the box are never read.
+__device__ __forceinline__ void stage_plane(const float* frame, int w,
+                                            int x0, int y0, int bw, int bh,
+                                            int lead, float* sm, int pitch) {
+  const bool wide = (w & 3) == 0;
+  const int per_row = wide ? pitch >> 2 : bw;     // copies a row
+  const int dr = kThreads / per_row;              // a stride of kThreads
+  const int dc = kThreads - dr * per_row;         // copies, in (rows, cols)
+  int r = threadIdx.x / per_row;
+  int c = threadIdx.x - r * per_row;
+  for (int i = threadIdx.x; i < bh * per_row; i += kThreads) {
+    const float* row = frame + (size_t)(y0 + r) * w + x0;
+    if (wide)
+      cp_async16(sm + r * pitch + 4 * c, row - lead + 4 * c);
+    else
+      cp_async4(sm + r * pitch + c, row + c);
+    r += dr;
+    c += dc;
+    if (c >= per_row) {
+      c -= per_row;
+      ++r;
+    }
+  }
+}
+
+// The tile [tx0, tx1] x [ty0, ty1] of an output plane of width out_w from
+// `src` (the frame in device memory, or its staged box): warp r takes rows
+// ty0 + r, ty0 + r + kWarps, ..., each lane 4 consecutive pixels from x =
+// tx0 + 4 lane, written as one 16-byte streaming store where whole and
+// aligned. Lane group rot = lane / 8 computes its 4 pixels starting at
+// pixel rot, so at each step a warp's taps of a near-identity warp lie 4
+// columns apart plus rot: 32 distinct shared-memory banks. A pixel's
+// source coordinate is ((a x) + (b y)) + c, src_coord's rounding, with
+// the thread's a x (4 pixels) and a row's b y computed once.
+template <bool kInterior, typename S>
+__device__ __forceinline__ void plane_tile(const S& src, int h, int w,
+                                           const Coeffs& k,
+                                           float* __restrict__ out,
+                                           int out_w, int tx0, int ty0,
+                                           int tx1, int ty1) {
+  static_assert(kPix == 4, "the rotation below selects among 4 pixels");
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int x = tx0 + lane * kPix;
+  if (x > tx1) return;
+  const int rot = lane >> 3;
+  int px[kPix];                      // step j computes pixel px[j]
+  float ax[kPix], cx[kPix];
+#pragma unroll
+  for (int j = 0; j < kPix; ++j) {
+    px[j] = x + ((j + rot) & (kPix - 1));
+    ax[j] = __fmul_rn(k.i00, (float)px[j]);
+    cx[j] = __fmul_rn(k.i10, (float)px[j]);
+  }
+  for (int y = ty0 + warp; y <= ty1; y += kWarps) {
+    const float by = __fmul_rn(k.i01, (float)y);
+    const float dy = __fmul_rn(k.i11, (float)y);
+    float got[kPix];
+#pragma unroll
+    for (int j = 0; j < kPix; ++j)
+      got[j] = px[j] <= tx1
+                   ? plane_sample<kInterior>(
+                         src, h, w, __fadd_rn(__fadd_rn(ax[j], by), k.i02),
+                         __fadd_rn(__fadd_rn(cx[j], dy), k.i12))
+                   : 0.f;
+    float v[kPix];                   // v[i] is pixel x + i
+#pragma unroll
+    for (int i = 0; i < kPix; ++i) {
+      const int j = (i - rot) & (kPix - 1);
+      v[i] = j == 0 ? got[0] : j == 1 ? got[1] : j == 2 ? got[2] : got[3];
+    }
+    float* o = out + (size_t)y * out_w + x;
+    if (x + kPix - 1 <= tx1 && ((uintptr_t)o & 15) == 0) {
+      __stcs(reinterpret_cast<float4*>(o),
+             make_float4(v[0], v[1], v[2], v[3]));
+    } else {
+#pragma unroll
+      for (int j = 0; j < kPix; ++j)
+        if (x + j <= tx1) __stcs(o + j, v[j]);
+    }
+  }
+}
+
+// plane_tile<interior>
+template <typename S>
+__device__ __forceinline__ void plane_tile_of(bool interior, const S& src,
+                                              int h, int w, const Coeffs& k,
+                                              float* __restrict__ out,
+                                              int out_w, int tx0, int ty0,
+                                              int tx1, int ty1) {
+  if (interior)
+    plane_tile<true>(src, h, w, k, out, out_w, tx0, ty0, tx1, ty1);
+  else
+    plane_tile<false>(src, h, w, k, out, out_w, tx0, ty0, tx1, ty1);
+}
+
+// [*lo, *hi] = [floor(min s), floor(max s) + 1] over the tile [x0, x1] x
+// [y0, y1], s = src_coord(a, b, c, x, y): the source rows (or columns)
+// that its taps read, unclipped (tap_span's span before the clip).
+__device__ __forceinline__ void tile_span(float a, float b, float c, int x0,
+                                          int y0, int x1, int y1, float* lo,
+                                          float* hi) {
+  const float s00 = src_coord(a, b, c, x0, y0);
+  const float s01 = src_coord(a, b, c, x1, y0);
+  const float s10 = src_coord(a, b, c, x0, y1);
+  const float s11 = src_coord(a, b, c, x1, y1);
+  *lo = floorf(fminf(fminf(s00, s01), fminf(s10, s11)));
+  *hi = floorf(fmaxf(fmaxf(s00, s01), fmaxf(s10, s11))) + 1.f;
+}
+
+// grid: (output tiles across, tiles down, frames); a block warps one
+// kPlaneTileH x kTileW output tile of plane blockIdx.z (src + n *
+// src_stride, h x w) into out + n * out_h * out_w. Frame n's src->dst
+// affine is element (n, i, j) = a23s[n * sn + i * sr + j * sc] of a
+// device array, or set n of `host` when a23s is null; every thread
+// inverts it (affine_inverse::invert). The tile's taps span a source box
+// (tile_span, monotone: its corners bound it). The box clipped to the
+// frame is staged when it fits kPlaneSmemFloats and `direct` is 0, else
+// the tile gathers from device memory; a box inside the frame (every tap
+// in range) drops the bounds tests. staged_tiles, when not null, counts
+// the staged tiles.
+template <int S>
+__global__ void __launch_bounds__(kThreads)
+warp_plane_kernel(const float* __restrict__ src, size_t src_stride, int h,
+                  int w, const float* __restrict__ a23s, long long sn,
+                  long long sr, long long sc,
+                  const __grid_constant__ HostSets<S> host,
+                  float* __restrict__ out, int out_h, int out_w, int direct,
+                  int* __restrict__ staged_tiles) {
+  __shared__ __align__(16) float sm[kPlaneSmemFloats];
+  const int n = blockIdx.z;
+  float m[6], inv[6];
+  if (a23s != nullptr) {
+    const float* a = a23s + n * sn;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) m[i] = __ldg(a + (i / 3) * sr + (i % 3) * sc);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) m[i] = host.v[n][i];
+  }
+  affine_inverse::invert(m, inv);
+  const Coeffs k{inv[0], inv[1], inv[2], inv[3], inv[4], inv[5]};
+  const int tx0 = blockIdx.x * kTileW;
+  const int ty0 = blockIdx.y * kPlaneTileH;
+  const int tx1 = min(tx0 + kTileW, out_w) - 1;
+  const int ty1 = min(ty0 + kPlaneTileH, out_h) - 1;
+  const float* frame = src + (size_t)n * src_stride;
+  float* fout = out + (size_t)n * out_h * out_w;
+
+  float lx, ux, ly, uy;
+  tile_span(k.i00, k.i01, k.i02, tx0, ty0, tx1, ty1, &lx, &ux);
+  tile_span(k.i10, k.i11, k.i12, tx0, ty0, tx1, ty1, &ly, &uy);
+  // false for coordinates that are not finite
+  const bool interior = lx >= 0.f && ux <= (float)(w - 1) && ly >= 0.f &&
+                        uy <= (float)(h - 1);
+  const bool any = lx <= (float)(w - 1) && ux >= 0.f &&
+                   ly <= (float)(h - 1) && uy >= 0.f;
+  int x0 = 0, y0 = 0, bw = 0, bh = 0, pitch = 0, lead = 0;
+  bool staged = direct == 0 && any;
+  if (staged) {                      // the box clipped to the frame
+    x0 = (int)fmaxf(lx, 0.f);
+    y0 = (int)fmaxf(ly, 0.f);
+    bw = (int)fminf(ux, (float)(w - 1)) - x0 + 1;
+    bh = (int)fminf(uy, (float)(h - 1)) - y0 + 1;
+    if ((w & 3) == 0) {
+      lead = (int)(((uintptr_t)(frame + x0) >> 2) & 3);
+      pitch = 4 * ((lead + bw + 3) >> 2);
+    } else {
+      pitch = bw;
+    }
+    staged = (long long)bh * pitch <= kPlaneSmemFloats;
+  }
+  if (!staged) {
+    plane_tile_of(interior, frame, h, w, k, fout, out_w, tx0, ty0, tx1,
+                  ty1);
+    return;
+  }
+  stage_plane(frame, w, x0, y0, bw, bh, lead, sm, pitch);
+  cp_async_wait_all();
+  __syncthreads();
+  if (staged_tiles != nullptr && threadIdx.x == 0) atomicAdd(staged_tiles, 1);
+  const PlaneBox box{sm, pitch, lead - y0 * pitch - x0};
+  plane_tile_of(interior, box, h, w, k, fout, out_w, tx0, ty0, tx1, ty1);
+}
+
+// One thread an affine: out[6i..] = affine_inverse::invert(a23s[6i..]).
+__global__ void affine_inverse_kernel(const float* __restrict__ a23s,
+                                      float* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) affine_inverse::invert(a23s + 6 * i, out + 6 * i);
+}
+
+// The n <= S coefficient sets at `host` by value, or none when the kernel
+// reads a device table.
+template <int S>
+HostSets<S> host_sets(const float* table, const float* host, int n) {
+  HostSets<S> sets{};
+  if (table == nullptr) memcpy(sets.v, host, sizeof(float) * 6 * (size_t)n);
+  return sets;
+}
+
+// f(the n sets at host by value): a block of one set when the kernel
+// reads a device table or warps one frame, so a one-frame launch carries
+// 24 B of coefficients and not 3,840.
+template <typename F>
+int with_sets(const float* table, const float* host, int n, F&& f) {
+  if (table != nullptr || n == 1) return f(host_sets<1>(table, host, n));
+  return f(host_sets<kByValue>(table, host, n));
+}
+
+// The sets' count, S, of a HostSets<S> value.
+template <typename Sets>
+constexpr int sets_of() {
+  return std::decay_t<Sets>::kSets;
+}
+
+// Whether a launch of n frames reads table (device), or else the n sets
+// at host by value: false when it can do neither (no table and more than
+// kByValue sets, or none).
+bool coefficients_ok(const float* table, const float* host, int n) {
+  return table != nullptr || (host != nullptr && n <= kByValue);
+}
+
 // n frames of h x w x 3 elements, src_stride elements apart; table: device
-// (n, 6) float32 dst->src coefficients, or null for n == 1 with the
-// coefficients passed by value.
+// (n, 6) float32 dst->src coefficients, or null with the n sets at host
+// passed by value.
 template <typename T>
 int launch(const T* src, long long src_stride, int h, int w,
-           const float* table, Coeffs k, int content, float* out,
+           const float* table, const float* host, int content, float* out,
            float* mask, int out_h, int out_w, int n, void* stream) {
   const size_t total = (size_t)out_h * out_w;
   if (total == 0 || n <= 0) return 0;
-  if (table == nullptr && n != 1) return (int)cudaErrorInvalidValue;
+  if (!coefficients_ok(table, host, n)) return (int)cudaErrorInvalidValue;
   const size_t threads = (total + kPix - 1) / kPix;
   const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads),
                   (unsigned)n);
-  warp_affine_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      src, (size_t)src_stride, h, w, table, k, content, out, mask, out_h,
-      out_w);
-  return (int)cudaGetLastError();
+  return with_sets(table, host, n, [&](const auto& sets) {
+    constexpr int S = sets_of<decltype(sets)>();
+    warp_affine_kernel<T, S><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        src, (size_t)src_stride, h, w, table, sets, content, out, mask,
+        out_h, out_w);
+    return (int)cudaGetLastError();
+  });
 }
 
-// The staged I420 kernel over boxes of at most box_h x box_w; smem_bytes
-// as the host plan sized it (at least StagedLayout's).
-int launch_staged(const uint8_t* src, long long src_stride, int h, int w,
-                  const float* table, Coeffs k, float* out, float* mask,
-                  int out_h, int out_w, int n, int box_h, int box_w,
-                  int smem_bytes, void* stream) {
-  if ((long long)out_h * out_w == 0 || n <= 0) return 0;
-  if ((table == nullptr && n != 1) || box_h <= 0 || box_w <= 0 ||
-      smem_bytes < StagedLayout(box_h, box_w, h, w).bytes)
-    return (int)cudaErrorInvalidValue;
-  // above 48 KB of dynamic shared memory only after opting in, per device
+// Lets warp_i420_staged_kernel<S> take smem_bytes of dynamic shared
+// memory: above 48 KB only after opting in, per device.
+template <int S>
+int opt_in_staged(int smem_bytes) {
   static int opted_in[64];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
   if (smem_bytes > 48 * 1024 && smem_bytes > opted_in[dev]) {
-    err = cudaFuncSetAttribute(warp_i420_staged_kernel,
+    err = cudaFuncSetAttribute(warp_i420_staged_kernel<S>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem_bytes);
     if (err != cudaSuccess) return (int)err;
     opted_in[dev] = smem_bytes;
   }
+  return 0;
+}
+
+// The staged I420 kernel over boxes of at most box_h x box_w; smem_bytes
+// as the host plan sized it (at least StagedLayout's).
+int launch_staged(const uint8_t* src, long long src_stride, int h, int w,
+                  const float* table, const float* host, float* out,
+                  float* mask, int out_h, int out_w, int n, int box_h,
+                  int box_w, int smem_bytes, void* stream) {
+  if ((long long)out_h * out_w == 0 || n <= 0) return 0;
+  if (!coefficients_ok(table, host, n) || box_h <= 0 || box_w <= 0 ||
+      smem_bytes < StagedLayout(box_h, box_w, h, w).bytes)
+    return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((out_w + kTileW - 1) / kTileW),
                   (unsigned)((out_h + kTileH - 1) / kTileH), (unsigned)n);
-  warp_i420_staged_kernel<<<grid, kThreads, smem_bytes,
-                            (cudaStream_t)stream>>>(
-      src, (size_t)src_stride, h, w, table, k, out, mask, out_h, out_w,
-      box_h, box_w);
-  return (int)cudaGetLastError();
+  return with_sets(table, host, n, [&](const auto& sets) {
+    constexpr int S = sets_of<decltype(sets)>();
+    const int err = opt_in_staged<S>(smem_bytes);
+    if (err != 0) return err;
+    warp_i420_staged_kernel<S><<<grid, kThreads, smem_bytes,
+                                 (cudaStream_t)stream>>>(
+        src, (size_t)src_stride, h, w, table, sets, out, mask, out_h, out_w,
+        box_h, box_w);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace
 
 // uint8 frames (src_stride in bytes); content: 0 for the footprint mask,
-// 1 for the warped gray > 2 indicator.
+// 1 for the warped gray > 2 indicator. table: device (n, 6) dst->src
+// coefficients, or null with the n <= kByValue sets at the host pointer
+// `host` (read during the call, passed to the kernel by value).
 extern "C" int warp_affine_u8(const uint8_t* src, long long src_stride,
-                              int h, int w, const float* table, float i00,
-                              float i01, float i02, float i10, float i11,
-                              float i12, int content, float* out,
+                              int h, int w, const float* table,
+                              const float* host, int content, float* out,
                               float* mask, int out_h, int out_w, int n,
                               void* stream) {
-  return launch(src, src_stride, h, w, table,
-                Coeffs{i00, i01, i02, i10, i11, i12}, content, out, mask,
+  return launch(src, src_stride, h, w, table, host, content, out, mask,
                 out_h, out_w, n, stream);
 }
 
 // float32 frames (src_stride in floats); the mask is always the footprint.
 extern "C" int warp_affine_f32(const float* src, long long src_stride,
-                               int h, int w, const float* table, float i00,
-                               float i01, float i02, float i10, float i11,
-                               float i12, float* out, float* mask,
+                               int h, int w, const float* table,
+                               const float* host, float* out, float* mask,
                                int out_h, int out_w, int n, void* stream) {
-  return launch(src, src_stride, h, w, table,
-                Coeffs{i00, i01, i02, i10, i11, i12}, 0, out, mask, out_h,
+  return launch(src, src_stride, h, w, table, host, 0, out, mask, out_h,
                 out_w, n, stream);
 }
 
@@ -720,35 +1036,72 @@ extern "C" int warp_affine_f32(const float* src, long long src_stride,
 // source boxes of at most box_h x box_w with smem_bytes of dynamic shared
 // memory (ops/warp_kernel.i420_plan).
 extern "C" int warp_affine_i420(const uint8_t* src, long long src_stride,
-                                int h, int w, const float* table, float i00,
-                                float i01, float i02, float i10, float i11,
-                                float i12, float* out, float* mask,
+                                int h, int w, const float* table,
+                                const float* host, float* out, float* mask,
                                 int out_h, int out_w, int n, int box_h,
                                 int box_w, int smem_bytes, void* stream) {
   if ((h & 3) || (w & 1)) return (int)cudaErrorInvalidValue;
-  const Coeffs k{i00, i01, i02, i10, i11, i12};
   if (box_h == 0)
     return launch(reinterpret_cast<const I420*>(src), src_stride, h, w,
-                  table, k, 0, out, mask, out_h, out_w, n, stream);
-  return launch_staged(src, src_stride, h, w, table, k, out, mask, out_h,
+                  table, host, 0, out, mask, out_h, out_w, n, stream);
+  return launch_staged(src, src_stride, h, w, table, host, out, mask, out_h,
                        out_w, n, box_h, box_w, smem_bytes, stream);
 }
 
 // n single float32 planes of h x w (src_stride floats apart; the JAX
-// package's warp_affine_traced / warp_affine_many form) with their dst->src
-// coefficients in the device (n, 6) float32 table; out: (n, out_h, out_w)
-// float32, no mask.
+// package's warp_affine_traced / warp_affine_many form), each warped by
+// its src->dst affine, inverted in the kernel: element (k, i, j) of the
+// device array a23s at k * sn + i * sr + j * sc floats, or, with a23s
+// null, the n <= kByValue row-major (2, 3) affines at the host pointer
+// `host`, passed by value. out: (n, out_h, out_w) float32, no mask.
+// direct != 0 keeps every tile on the direct gather; staged_tiles (device,
+// or null) adds the number of staged tiles.
 extern "C" int warp_affine_plane_f32(const float* src, long long src_stride,
-                                     int h, int w, const float* table,
+                                     int h, int w, const float* a23s,
+                                     long long sn, long long sr,
+                                     long long sc, const float* host,
                                      float* out, int out_h, int out_w, int n,
+                                     int direct, int* staged_tiles,
                                      void* stream) {
-  const size_t total = (size_t)out_h * out_w;
-  if (total == 0 || n <= 0) return 0;
-  if (table == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t threads = (total + kPix - 1) / kPix;
-  const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads),
+  if ((size_t)out_h * out_w == 0 || n <= 0) return 0;
+  if (!coefficients_ok(a23s, host, n)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((out_w + kTileW - 1) / kTileW),
+                  (unsigned)((out_h + kPlaneTileH - 1) / kPlaneTileH),
                   (unsigned)n);
-  warp_plane_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      src, (size_t)src_stride, h, w, table, out, out_h, out_w);
+  return with_sets(a23s, host, n, [&](const auto& sets) {
+    constexpr int S = sets_of<decltype(sets)>();
+    warp_plane_kernel<S><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        src, (size_t)src_stride, h, w, a23s, sn, sr, sc, sets, out, out_h,
+        out_w, direct, staged_tiles);
+    return (int)cudaGetLastError();
+  });
+}
+
+// The single-plane kernel's inverse alone: n row-major (2, 3) src->dst
+// affines (device, contiguous) to their n x 6 dst->src coefficients
+// (device), one thread each.
+extern "C" int affine_inverse_f32(const float* a23s, float* out, int n,
+                                  void* stream) {
+  if (n <= 0) return 0;
+  affine_inverse_kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+      a23s, out, n);
   return (int)cudaGetLastError();
+}
+
+// The same inverse on the host (affine_inverse.cuh's host path, built by
+// nvcc's host compiler with -ffp-contract=off): n row-major (2, 3)
+// src->dst affines (host) to their n x 6 dst->src coefficients (host),
+// which the uint8, float32 and I420 launches take by value. Returns the
+// number of affines with a coefficient that is not finite.
+extern "C" int affine_inverse_f32_host(const float* a23s, float* out,
+                                       int n) {
+  int bad = 0;
+  for (int i = 0; i < n; ++i) {
+    float* o = out + 6 * i;
+    affine_inverse::invert(a23s + 6 * i, o);
+    bool finite = true;
+    for (int j = 0; j < 6; ++j) finite = finite && std::isfinite(o[j]);
+    bad += finite ? 0 : 1;
+  }
+  return bad;
 }

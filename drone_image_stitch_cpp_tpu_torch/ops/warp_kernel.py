@@ -29,12 +29,19 @@ is read (a downscale such as the seam batch, or a strong rotation).
 :func:`warp_frame` (one frame) and :func:`warp_frames` (a batch, as the
 JAX package's ``warp_affine_many``) launch the kernel for CUDA tensors and
 run the plain versions for CPU tensors; they never fall back from one to
-the other. :func:`warp_planes` warps single float32 planes with no mask
-(the JAX package's ``warp_affine_traced`` and ``warp_affine_many``: the
-throughput benchmark's 4K gray warps), its transforms given as a tensor
-and inverted where they lie (:func:`device_inverse_coeffs`), so a model
-computed on the card reaches the kernel with no host round trip; its
-launches count in ``warp_planes.launches`` alone. Every launch counts in
+the other. A launch passes up to :data:`BY_VALUE_MAX` frames'
+coefficients by value, in the kernel's parameters, and a device table
+only above that, so it copies nothing to the card; the coefficients come
+from one call of the kernel library's host inverse
+(:func:`host_inverse_coeffs`), whatever the batch. :func:`warp_planes`
+warps single float32 planes with no mask (the JAX package's
+``warp_affine_traced`` and ``warp_affine_many``: the throughput
+benchmark's 4K gray warps); its kernel takes the src->dst affines (a
+tensor where it lies, read through its strides, or host affines by value)
+and inverts them itself (``csrc/affine_inverse.cuh``), so a model computed
+on the card reaches the kernel with no host round trip and a call is one
+launch; its launches count in ``warp_planes.launches`` alone. Every launch
+counts in
 its wrapper's ``launches``; content-mode launches also in
 ``warp_frame.nonblack_launches``, float32-source
 launches in ``warp_frame.f32_launches``, I420-source launches in
@@ -57,23 +64,28 @@ from .color import content_mask, yuv420_to_bgr
 from .warp import bilinear_sample, dst_to_src_coords
 
 KERNEL_SOURCE = "warp_affine.cu"
-_HEAD = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-         ctypes.c_void_p] + [ctypes.c_float] * 6
-_TAIL = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_void_p]
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# src, its stride, h, w, device table, host coefficient sets
+_HEAD = [_P, _LL, _I, _I, _P, _P]
+_TAIL = [_P, _P, _I, _I, _I, _P]     # out, mask, out_h, out_w, n, stream
 KERNEL_SIGNATURES = {
-    "warp_affine_u8": (ctypes.c_int, _HEAD + [ctypes.c_int] + _TAIL),
-    "warp_affine_f32": (ctypes.c_int, _HEAD + _TAIL),
-    "warp_affine_i420": (ctypes.c_int,
-                         _HEAD + _TAIL[:-1] + [ctypes.c_int] * 3 + _TAIL[-1:]),
-    "warp_affine_plane_f32": (ctypes.c_int, _HEAD[:5] + [ctypes.c_void_p]
-                              + _TAIL[2:]),
+    "warp_affine_u8": (_I, _HEAD + [_I] + _TAIL),
+    "warp_affine_f32": (_I, _HEAD + _TAIL),
+    "warp_affine_i420": (_I, _HEAD + _TAIL[:-1] + [_I] * 3 + _TAIL[-1:]),
+    # src, stride, h, w, device affines and their 3 strides, host affines,
+    # out, out_h, out_w, n, direct, staged-tile count, stream
+    "warp_affine_plane_f32": (_I, [_P, _LL, _I, _I, _P, _LL, _LL, _LL, _P,
+                                   _P, _I, _I, _I, _I, _P, _P]),
+    "affine_inverse_f32": (_I, [_P, _P, _I, _P]),
+    "affine_inverse_f32_host": (_I, [_P, _P, _I]),
 }
 CONTENT_MODES = ("ones", "nonblack")
 SOURCE_DTYPES = (torch.uint8, torch.float32)
 _MAX_FRAMES = 65535          # grid.y (grid.z when staged) of one launch
+BY_VALUE_MAX = 160           # coefficient sets a launch passes by value
 I420_TILE = (24, 128)        # the staged kernel's output tile: rows, columns
 I420_SMEM_CAP = 96 * 1024    # larger boxes take the per-tap kernel
+PLANE_TILE = (32, 128)       # the single-plane kernel's output tile
 _F32 = struct.Struct("f")
 
 
@@ -128,7 +140,9 @@ def inverse_coeffs(a23) -> tuple:
 def device_inverse_coeffs(a23s: torch.Tensor) -> torch.Tensor:
     """(N, 6) float32 table of the dst->src coefficients of (N, 2, 3)
     src->dst affines, computed where ``a23s`` lies, with no host round
-    trip (``torch.linalg.inv`` on a card checks its result on the host).
+    trip (``torch.linalg.inv`` on a card checks its result on the host):
+    the plain version of the single-plane kernel's own inverse
+    (:func:`kernel_inverse_coeffs`), which :func:`warp_planes_plain` reads.
 
     The steps of :func:`inverse_coeffs` on tensors: each is taken in
     float64 from float32 values and rounded to float32 where that function
@@ -156,6 +170,57 @@ def device_inverse_coeffs(a23s: torch.Tensor) -> torch.Tensor:
     return torch.stack([i00, i01, -r32(i01 * ty + r32(i00 * tx)),
                         i10, i11, -r32(i11 * ty + r32(i10 * tx))],
                        dim=-1).to(torch.float32)
+
+
+def _host_sets(a23s) -> ctypes.Array:
+    """:func:`host_inverse_coeffs` as the flat ctypes float array that
+    :func:`_launch` passes on as it is (ctypes arrays, not numpy's
+    ``.ctypes``, keep a one-frame call to a few microseconds)."""
+    a = np.ascontiguousarray(a23s, np.float32)
+    k = a.size
+    if k == 0 or k % 6:
+        raise ValueError(f"affines must be (N, 2, 3), got shape {a.shape}")
+    out = (ctypes.c_float * k)()
+    bad = load_kernel(KERNEL_SOURCE, KERNEL_SIGNATURES).fns[
+        "affine_inverse_f32_host"](
+            (ctypes.c_float * k).from_buffer_copy(a), out, k // 6)
+    if bad:
+        rows = np.frombuffer(out, np.float32).reshape(-1, 6)
+        for i in np.flatnonzero(~np.isfinite(rows).all(axis=1)):
+            inverse_coeffs(a.reshape(-1, 6)[i])  # raises where singular
+    return out
+
+
+def host_inverse_coeffs(a23s) -> np.ndarray:
+    """(N, 6) float32 dst->src coefficients of N src->dst (2, 3) affines,
+    row for row bit-equal to :func:`inverse_coeffs`: one call of the host
+    entry of K2's kernel library (``affine_inverse_f32_host``, the host
+    path of ``csrc/affine_inverse.cuh``), whatever N. The uint8, float32
+    and I420 launches take their coefficients from it. Raises as
+    :func:`inverse_coeffs` does on a singular affine."""
+    return np.frombuffer(_host_sets(a23s), np.float32).reshape(-1, 6)
+
+
+def kernel_inverse_coeffs(a23s: torch.Tensor) -> torch.Tensor:
+    """The single-plane kernel's in-kernel inverse on its own: (N, 6)
+    float32 dst->src coefficients of (N, 2, 3) src->dst affines. A CUDA
+    tensor launches ``affine_inverse_f32`` (csrc/affine_inverse.cuh, one
+    thread an affine; not counted, as no path of the port calls it); a
+    CPU tensor runs its plain version, :func:`device_inverse_coeffs`."""
+    a = a23s.reshape(-1, 2, 3).to(torch.float32)
+    if a.device.type == "cpu":
+        return device_inverse_coeffs(a)
+    a = a.contiguous()
+    out = torch.empty((a.shape[0], 6), dtype=torch.float32, device=a.device)
+    fn = load_kernel(KERNEL_SOURCE,
+                     KERNEL_SIGNATURES).fns["affine_inverse_f32"]
+    with torch.cuda.device(a.device):
+        err = fn(a.data_ptr(), out.data_ptr(), a.shape[0],
+                 stream_handle(a.device))
+    if err != 0:
+        raise RuntimeError(f"affine_inverse_f32 launch failed: cudaError "
+                           f"{err}")
+    return out
 
 
 def _is_i420(frames: torch.Tensor) -> bool:
@@ -258,12 +323,16 @@ def _launch(src: torch.Tensor, nf: int, invs, out_h: int, out_w: int,
             content: str = "ones", table=None, i420_staged=None):
     """One kernel launch over ``nf`` contiguous frames: (H, W, 3) uint8 or
     float32 BGR, or (H*3/2, W) packed I420 (``src``: one frame, or a batch
-    with a leading N); ``invs``: one coefficient tuple (passed by value,
-    nf == 1) or a list of nf tuples, read from the device (N, 6) float32
-    ``table`` (made here when None). ``i420_staged`` forces the staged
-    (True) or the per-tap (False) kernel of an I420 source; None takes
-    :func:`i420_plan`'s choice. Returns the warped planes, shaped with
-    src's leading dimensions, and whether the staged kernel ran."""
+    with a leading N); ``invs``: nf coefficient sets (a tuple when nf ==
+    1, a list of tuples, an (nf, 6) float32 array, or the flat ctypes
+    array of :func:`_host_sets`), passed by value up to
+    :data:`BY_VALUE_MAX` of them, else read from the device (N, 6) float32
+    ``table`` (made here, by a pageable copy, when None; given, it is read
+    at any N). ``i420_staged``
+    forces the staged (True) or the per-tap (False) kernel of an I420
+    source; None takes :func:`i420_plan`'s choice. Returns the warped
+    planes, shaped with src's leading dimensions, and whether the staged
+    kernel ran."""
     f32 = src.dtype == torch.float32
     i420 = _is_i420(src)
     name = ("warp_affine_f32" if f32 else
@@ -282,14 +351,17 @@ def _launch(src: torch.Tensor, nf: int, invs, out_h: int, out_w: int,
                        device=dev)
     mask = torch.empty(lead + (out_h, out_w), dtype=torch.float32,
                        device=dev)
-    if isinstance(invs, list):
-        if table is None:
-            table = torch.tensor(invs, dtype=torch.float32).to(dev)
-        ptr, coeffs, frame_invs = table.data_ptr(), (0.0,) * 6, invs
-    else:
-        ptr, coeffs, frame_invs = None, invs, [invs]
+    sets = invs if isinstance(invs, ctypes.Array) else (
+        ctypes.c_float * (6 * nf)).from_buffer_copy(
+            np.ascontiguousarray(invs, np.float32))
+    if table is None and nf > BY_VALUE_MAX:
+        table = torch.frombuffer(sets, dtype=torch.float32).to(dev)
+    ptr = table.data_ptr() if table is not None else None
+    host = sets if table is None else None
     mode = () if f32 or i420 else (int(content == "nonblack"),)
     plan = None
+    frame_invs = (np.frombuffer(sets, np.float32).reshape(-1, 6).tolist()
+                  if i420 else None)                # Python floats
     if i420 and i420_staged is None:
         plan = i420_plan(frame_invs, h, w, out_h, out_w)
     elif i420 and i420_staged:
@@ -299,7 +371,7 @@ def _launch(src: torch.Tensor, nf: int, invs, out_h: int, out_w: int,
         plan = (*staged_box, i420_smem_bytes(staged_box, h, w))
     box = (plan or (0, 0, 0)) if i420 else ()
     with torch.cuda.device(dev):    # <<<>>> binds to the current device
-        err = fn(src.data_ptr(), stride, h, w, ptr, *coeffs, *mode,
+        err = fn(src.data_ptr(), stride, h, w, ptr, host, *mode,
                  wimg.data_ptr(), mask.data_ptr(), out_h, out_w, nf, *box,
                  stream_handle(dev))
     if err != 0:
@@ -351,11 +423,11 @@ def warp_frame(img: torch.Tensor, a23, out_h: int, out_w: int,
     plain version.
     """
     _check(img, 3, out_h, out_w, content)
-    inv = inverse_coeffs(a23)
     if img.device.type == "cpu":
-        return warp_frame_plain(img, inv, out_h, out_w, content)
-    wimg, mask, staged = _launch(img.contiguous(), 1, inv, out_h, out_w,
-                                 content)
+        return warp_frame_plain(img, inverse_coeffs(a23), out_h, out_w,
+                                content)
+    wimg, mask, staged = _launch(img.contiguous(), 1, _host_sets(a23),
+                                 out_h, out_w, content)
     _count_launch(warp_frame, content, img, staged)
     return wimg, mask
 
@@ -368,9 +440,11 @@ def warp_frames(frames: torch.Tensor, a23s, out_h: int, out_w: int,
 
     Returns ((N, out_h, out_w, 3), (N, out_h, out_w)) float32, the mask as
     in :func:`warp_frame`. CUDA frames make ONE launch of
-    ``csrc/warp_affine.cu`` with a device table of the N inverse affines
-    (counted in ``warp_frames.launches``; see :func:`_count_launch`); CPU
-    frames run :func:`warp_frames_plain`.
+    ``csrc/warp_affine.cu`` with the N inverse affines
+    (:func:`host_inverse_coeffs`) in its parameters (a device table
+    above :data:`BY_VALUE_MAX` frames; counted in
+    ``warp_frames.launches``; see :func:`_count_launch`); CPU frames run
+    :func:`warp_frames_plain`.
     """
     _check(frames, 4, out_h, out_w, content)
     a = np.asarray(a23s, np.float32).reshape(-1, 2, 3)
@@ -378,11 +452,11 @@ def warp_frames(frames: torch.Tensor, a23s, out_h: int, out_w: int,
     if a.shape[0] != nf or not 0 < nf <= _MAX_FRAMES:
         raise ValueError(f"{nf} frames with {a.shape[0]} affines "
                          f"(need 1..{_MAX_FRAMES} of each)")
-    invs = [inverse_coeffs(t) for t in a]
     if frames.device.type == "cpu":
-        return warp_frames_plain(frames, invs, out_h, out_w, content)
-    wimg, mask, staged = _launch(frames.contiguous(), nf, invs, out_h,
-                                 out_w, content)
+        return warp_frames_plain(frames, [inverse_coeffs(t) for t in a],
+                                 out_h, out_w, content)
+    wimg, mask, staged = _launch(frames.contiguous(), nf, _host_sets(a),
+                                 out_h, out_w, content)
     _count_launch(warp_frames, content, frames, staged)
     return wimg, mask
 
@@ -427,18 +501,31 @@ def warp_planes_plain(frames: torch.Tensor, table: torch.Tensor,
     return torch.stack(outs)
 
 
-def _launch_planes(src: torch.Tensor, table: torch.Tensor, out_h: int,
-                   out_w: int) -> torch.Tensor:
+def _launch_planes(src: torch.Tensor, a23s, out_h: int, out_w: int,
+                   direct: bool = False,
+                   staged_tiles: torch.Tensor = None) -> torch.Tensor:
     """One launch of the single-plane kernel over the contiguous (N, H, W)
-    float32 ``src`` with the device (N, 6) ``table``."""
+    float32 ``src``: ``a23s`` the src->dst affines, a float32 (N, 2, 3)
+    tensor on src's card (read through its strides) or a host (N, 2, 3)
+    float32 array of at most :data:`BY_VALUE_MAX` (passed by value); the
+    kernel inverts them. ``direct`` keeps every tile on the direct gather
+    (by default a tile whose source box fits the block's shared memory
+    stages it: the faster route on the card); ``staged_tiles``, a card
+    int32 scalar, adds the tiles that staged."""
     fn = load_kernel(KERNEL_SOURCE,
                      KERNEL_SIGNATURES).fns["warp_affine_plane_f32"]
     n, h, w = src.shape
     out = torch.empty((n, out_h, out_w), dtype=torch.float32,
                       device=src.device)
+    if isinstance(a23s, torch.Tensor):
+        dev_a, strides, host = a23s.data_ptr(), a23s.stride(), None
+    else:
+        dev_a, strides, host = None, (0, 0, 0), a23s.ctypes.data
+    counter = None if staged_tiles is None else staged_tiles.data_ptr()
     with torch.cuda.device(src.device):
-        err = fn(src.data_ptr(), h * w, h, w, table.data_ptr(),
-                 out.data_ptr(), out_h, out_w, n, stream_handle(src.device))
+        err = fn(src.data_ptr(), h * w, h, w, dev_a, *strides, host,
+                 out.data_ptr(), out_h, out_w, n, int(direct), counter,
+                 stream_handle(src.device))
     if err != 0:
         raise RuntimeError(f"warp_affine_plane_f32 launch failed: cudaError "
                            f"{err}")
@@ -453,13 +540,16 @@ def warp_planes(frames: torch.Tensor, a23s, out_h: int,
     (one plane, a traced transform; ``bench.py:111``) and
     ``warp_affine_many`` (a batch, host transforms).
 
-    ``a23s``: a (N, 2, 3) tensor, inverted where it lies by
-    :func:`device_inverse_coeffs` (a model computed on the card never
-    comes to the host), or a host (N, 2, 3) array, inverted by
-    :func:`inverse_coeffs`; both give the same table. CUDA frames make
-    ONE launch of ``csrc/warp_affine.cu``'s ``warp_affine_plane_f32``
-    (counted in ``warp_planes.launches``); CPU frames run
-    :func:`warp_planes_plain`.
+    ``a23s``: a (N, 2, 3) tensor or a host (N, 2, 3) array of src->dst
+    affines. CUDA frames make ONE launch of ``csrc/warp_affine.cu``'s
+    ``warp_affine_plane_f32`` (counted in ``warp_planes.launches``), which
+    inverts each affine in the kernel, bit-equal to
+    :func:`inverse_coeffs`: a float32 tensor on the frames' card is read
+    where it lies, through its strides (a model computed on the card never
+    comes to the host, and nothing else is launched); host affines go by
+    value (through a device copy above :data:`BY_VALUE_MAX`). CPU frames
+    run :func:`warp_planes_plain` on :func:`device_inverse_coeffs` of a
+    tensor or :func:`inverse_coeffs` of a host array (the same table).
     """
     if frames.dtype != torch.float32 or frames.ndim != 3:
         raise ValueError(f"warp_planes takes (N, H, W) float32 planes, got "
@@ -474,21 +564,24 @@ def warp_planes(frames: torch.Tensor, a23s, out_h: int,
         if a23s.ndim != 3 or tuple(a23s.shape[1:]) != (2, 3):
             raise ValueError(f"a23s must be (N, 2, 3), got "
                              f"{tuple(a23s.shape)}")
-        na = a23s.shape[0]
     else:
-        a23s = np.asarray(a23s, np.float32).reshape(-1, 2, 3)
-        na = a23s.shape[0]
+        a23s = np.ascontiguousarray(a23s, np.float32).reshape(-1, 2, 3)
+    na = a23s.shape[0]
     if na != nf or not 0 < nf <= _MAX_FRAMES:
         raise ValueError(f"{nf} planes with {na} affines (need "
                          f"1..{_MAX_FRAMES} of each)")
-    if isinstance(a23s, torch.Tensor):
-        table = device_inverse_coeffs(a23s.to(dev))
-    else:
-        table = torch.tensor([inverse_coeffs(t) for t in a23s],
-                             dtype=torch.float32).to(dev)
     if dev.type == "cpu":
+        if isinstance(a23s, torch.Tensor):
+            table = device_inverse_coeffs(a23s.to(dev))
+        else:
+            table = torch.tensor([inverse_coeffs(t) for t in a23s],
+                                 dtype=torch.float32)
         return warp_planes_plain(frames, table, out_h, out_w)
-    out = _launch_planes(frames.contiguous(), table, out_h, out_w)
+    if isinstance(a23s, torch.Tensor):
+        a23s = a23s.to(dev, torch.float32)      # no copy when it is already
+    elif nf > BY_VALUE_MAX:
+        a23s = torch.from_numpy(a23s).to(dev)
+    out = _launch_planes(frames.contiguous(), a23s, out_h, out_w)
     warp_planes.launches += 1
     return out
 

@@ -3,8 +3,9 @@
 Each kernel source is compiled by ``nvcc`` into a shared library with a
 plain C interface and loaded with ``ctypes`` (no PyTorch headers: a build
 takes seconds, not minutes). Libraries land in ``build/kernels/`` at the
-repository root, keyed by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused.
+repository root, keyed by a hash of the source, the headers beside it
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and
+an unchanged one is reused.
 
 The C functions get their ``restype``/``argtypes`` once, when the library
 loads; later calls of :func:`load_kernel` return the cached handles without
@@ -18,6 +19,7 @@ Nothing here runs at import time: the first launch of a kernel builds it.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -34,8 +36,11 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 
+# host code unfused too: csrc/affine_inverse.cuh's host path rounds
+# every step as the plain versions do
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC,-ffp-contract=off",
+              "-Xptxas", "-v")
 
 # C function name -> (restype, argtypes)
 Signatures = Mapping[str, Tuple[type, List[type]]]
@@ -125,9 +130,12 @@ def _start_build(source: str):
     """Start ``nvcc`` on ``csrc/<source>`` unless its library exists:
     (source, library path, nvcc process or None, temporary output, t0)."""
     src_path = os.path.join(CSRC_DIR, source)
-    with open(src_path, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src_path] + sorted(glob.glob(os.path.join(CSRC_DIR,
+                                                           "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    digest = h.hexdigest()[:16]
     stem = os.path.splitext(source)[0]
     lib_path = os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
     if os.path.exists(lib_path):

@@ -24,7 +24,11 @@ so every machine runs the same code (no ``-march=native``; the committed
   failures and every codec read or write raises with it, but the raw
   4:2:0 decodes, which return None there (the frame store's probe then
   stores BGR);
-* the solver from ``native/graphcut.cpp`` (no libjpeg needed).
+* the solver from ``native/graphcut.cpp`` (no libjpeg needed);
+* the host build of K2's in-kernel affine inverse
+  (:func:`affine_inverse_host`, from ``csrc/``), which holds that
+  inverse to the bits of ``ops/warp_kernel.inverse_coeffs`` on a machine
+  with no card (tests/test_torch_plane_inverse.py).
 """
 
 from __future__ import annotations
@@ -49,9 +53,10 @@ _FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-pthread")
 _LOCK = threading.Lock()
 _GC = {}        # "fn": the typed tm_graphcut, "path": its library
 _CODEC = {}     # "lib": the typed codec library, "path", "route", "error"
+_AFFINE = {}    # "fn": the typed affine_inverse_f32_host, "error"
+_CSRC = os.path.join(_ROOT, "drone_image_stitch_cpp_tpu_torch", "csrc")
 # the jpeg62 headers the pillow route compiles against
-_VENDORED = os.path.join(_ROOT, "drone_image_stitch_cpp_tpu_torch", "csrc",
-                         "libjpeg62")
+_VENDORED = os.path.join(_CSRC, "libjpeg62")
 _JPEG_HEADERS = ("jpeglib.h", "jconfig.h", "jmorecfg.h", "jerror.h")
 # what the system route's header probe preprocesses
 _SYSTEM_PROBE = ("#include <cstdio>\n#include <jpeglib.h>\n"
@@ -68,14 +73,15 @@ def _first_error(stderr: str) -> str:
 
 
 def _build(name: str, sources: Sequence[str], libs: Sequence[str] = (),
-           cflags: Sequence[str] = (), key: bytes = b""
+           cflags: Sequence[str] = (), key: bytes = b"",
+           src_dir: str = os.path.join(_ROOT, "native")
            ) -> Tuple[Optional[str], Optional[str]]:
-    """Build ``native/<sources>`` into build/native/lib<name>-<key>.so
-    (key: the sources' bytes, the flags and libraries, and ``key``: what
-    else the build depends on); returns (path, None), or (None, reason)
-    without a C++ compiler or when the compile fails (the reason is the
-    compiler's first error line)."""
-    srcs = [os.path.join(_ROOT, "native", s) for s in sources]
+    """Build ``<src_dir>/<sources>`` (``native/`` by default) into
+    build/native/lib<name>-<key>.so (key: the sources' bytes, the flags
+    and libraries, and ``key``: what else the build depends on); returns
+    (path, None), or (None, reason) without a C++ compiler or when the
+    compile fails (the reason is the compiler's first error line)."""
+    srcs = [os.path.join(src_dir, s) for s in sources]
     cxx = _cxx()
     if cxx is None:
         return None, "no C++ compiler (g++ or c++) on PATH"
@@ -145,6 +151,34 @@ def graphcut_native(cap_src: np.ndarray, cap_snk: np.ndarray,
 
 graphcut_native.calls = 0
 graphcut_native.seconds = 0.0
+
+
+def affine_inverse_host():
+    """``affine_inverse_f32_host(a23s, out, n)`` (float32 arrays: n
+    row-major (2, 3) src->dst affines in, n x 6 dst->src coefficients
+    out): the in-kernel inverse of K2's single-plane form,
+    ``csrc/affine_inverse.cuh``, built for the host by the C++ compiler
+    with ``-ffp-contract=off`` from ``csrc/affine_inverse_host.cpp`` into
+    ``build/native/`` at first use, keyed by both files: the header's
+    host instantiation, for tests on a machine with no card. None without
+    a compiler (the reason is then ``_AFFINE["error"]``)."""
+    if "fn" in _AFFINE:
+        return _AFFINE["fn"]
+    with _LOCK:
+        if "fn" not in _AFFINE:
+            path, err = _build("tmaffineinv", ["affine_inverse_host.cpp"],
+                               cflags=("-ffp-contract=off",),
+                               key=_file_key([os.path.join(
+                                   _CSRC, "affine_inverse.cuh")]),
+                               src_dir=_CSRC)
+            fn = None
+            if path is not None:
+                fptr = np.ctypeslib.ndpointer(dtype=np.float32, flags="C")
+                fn = ctypes.CDLL(path).affine_inverse_f32_host
+                fn.restype = None
+                fn.argtypes = [fptr, fptr, ctypes.c_int]
+            _AFFINE.update(fn=fn, error=err)
+        return _AFFINE["fn"]
 
 
 def _file_key(paths: Sequence[str]) -> bytes:

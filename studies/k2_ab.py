@@ -17,9 +17,15 @@ runtime/kernels' nvcc flags into build/k2_ab/. Then:
     random data: uint8 compose feed, uint8 seam batch, content mode,
     float32 compose feed, I420 compose feed and seam batch per tap and,
     in each build that has it, the staged I420 kernel (sized as
-    ops/warp_kernel.i420_plan sizes it for that tile). Builds take turns:
-    other, current, variants, then the same in reverse; each line gives
-    the mean of the two runs and both runs.
+    ops/warp_kernel.i420_plan sizes it for that tile); the single-plane
+    form on 2160x3840 float32 planes, one frame and the throughput
+    bench's 7-frame batch, by a near-identity model (a build whose plane
+    entry takes a dst->src table reads device_inverse_coeffs' table; one
+    that takes the src->dst affines runs each of its routes, staged and
+    direct). Builds take turns: other, current, variants, then the same in
+    reverse; each line gives the mean of the two runs and both runs.
+A build's entries pass a batch's coefficients by value where its source
+takes them so (a "const float* host" argument), else by a device table.
 The first line is the card's name and power limit. Needs one card.
 """
 
@@ -48,6 +54,7 @@ FRAME = (2160, 3840)
 FEED_WIN = (2176, 3904)
 CONTENT_WIN = (5120, 5120)
 N_SEAM = 12
+N_PLANES = 7
 
 
 def build(src_text: str, tag: str):
@@ -57,7 +64,8 @@ def build(src_text: str, tag: str):
     with open(cu, "w") as f:
         f.write(src_text)
     lib = os.path.join(OUT, f"lib{tag}.so")
-    run = subprocess.run([RK._nvcc(), *RK.NVCC_FLAGS, "-o", lib, cu],
+    run = subprocess.run([RK._nvcc(), *RK.NVCC_FLAGS, "-I", RK.CSRC_DIR,
+                          "-o", lib, cu],
                          capture_output=True, text=True, timeout=600)
     if run.returncode != 0:
         raise RuntimeError(f"nvcc {tag}: {run.stderr[-3000:]}")
@@ -130,7 +138,8 @@ def main() -> int:
     with open(args.other) as f:
         other = f.read()
     builds = {"other": other, "current": current}
-    tiles = {"current": WK.I420_TILE[0]}
+    tiles = {t: int(re.search(r"constexpr int kTileH = (\d+);",
+                              src).group(1)) for t, src in builds.items()}
     for v in filter(None, args.variants.split(",")):
         th, blocks = (int(x) for x in v.split("x"))
         src = re.sub(r"constexpr int kTileH = \d+;",
@@ -146,13 +155,14 @@ def main() -> int:
         print(f"[k2ab] build {tag}: registers {entries(ptxas)}", flush=True)
     a, b = (sass(os.path.join(OUT, f"lib{t}.so")) for t in ("other",
                                                              "current"))
-    for key in ("warp_affine_kernelIhE", "warp_affine_kernelIfE"):
-        fa = [v for k, v in a.items() if key in k]
-        fb = [v for k, v in b.items() if key in k]
-        same = len(fa) == len(fb) == 1 and fa[0] == fb[0]
-        print(f"[k2ab] SASS {key}: {'identical' if same else 'differs'} "
-              f"({[len(x) for x in fa]} vs {[len(x) for x in fb]} "
-              f"instructions)", flush=True)
+    for key in ("warp_affine_kernelIh", "warp_affine_kernelIf"):
+        fa = {k: v for k, v in a.items() if key in k}
+        fb = {k: v for k, v in b.items() if key in k}
+        for ka, va in fa.items():
+            for kb, vb in fb.items():
+                print(f"[k2ab] SASS {ka[:70]} vs {kb[:70]}: "
+                      f"{'identical' if va == vb else 'differs'} "
+                      f"({len(va)} vs {len(vb)} instructions)", flush=True)
 
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -185,15 +195,27 @@ def main() -> int:
         o, m = outs[key]
         return o.data_ptr(), m.data_ptr()
 
-    def call(lib, name, src, stride, hw, tab, coeffs, mode, n, win, box):
+    by_value = {}   # tag: whether its entries take coefficients by value
+    keep = []       # the host coefficient arrays the entries point into
+
+    def call(lib, name, src, stride, hw, tab, coeffs, mode, n, win, box,
+             tag=None):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         o, m = planes(n, *win)
-        a_ = (src.data_ptr(), stride, *hw, tab, *coeffs, *mode, o, m, *win,
+        if by_value[tag]:       # the coefficient sets at a host pointer
+            host = np.asarray(coeffs, np.float32).reshape(-1, 6)
+            keep.append(host)
+            coeff_args = (tab, None if tab is not None else host.ctypes.data)
+            coeff_types = [ctypes.c_void_p] * 2
+        else:
+            coeff_args = (tab, *np.asarray(coeffs, np.float32).reshape(-1)[:6])
+            coeff_types = [ctypes.c_void_p] + [ctypes.c_float] * 6
+        a_ = (src.data_ptr(), stride, *hw, *coeff_args, *mode, o, m, *win,
               n, *box, stream)
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                        ctypes.c_int, ctypes.c_void_p]
-                       + [ctypes.c_float] * 6 + [ctypes.c_int] * len(mode)
+                        ctypes.c_int] + coeff_types
+                       + [ctypes.c_int] * len(mode)
                        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
                        + [ctypes.c_int] * len(box) + [ctypes.c_void_p])
 
@@ -212,40 +234,79 @@ def main() -> int:
             WK.I420_TILE = old
         return (*box, WK.i420_smem_bytes(box, h, w))
 
+    gray = torch.rand((N_PLANES, h, w), generator=g, device=dev) * 255.0
+    models = torch.tensor(np.stack([rot(-0.0255 + 0.004 * k, -59.63 + k,
+                                        -14.9 - 0.5 * k)
+                                    for k in range(N_PLANES)]), device=dev)
+    plane_table = WK.device_inverse_coeffs(models)
+    plane_out = torch.empty((N_PLANES, h, w), device=dev)
+
+    def plane_call(lib, tag, n, direct):
+        fn = lib.warp_affine_plane_f32
+        fn.restype = ctypes.c_int
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        if by_value[tag]:       # src->dst affines, inverted in the kernel
+            fn.argtypes = [p, ll, i, i, p, ll, ll, ll, p, p, i, i, i, i, p,
+                           p]
+            a_ = (gray.data_ptr(), h * w, h, w, models.data_ptr(),
+                  *models.stride(), None, plane_out.data_ptr(), h, w, n,
+                  int(direct), None, stream)
+        else:                   # a dst->src device table
+            fn.argtypes = [p, ll, i, i, p, p, i, i, i, p]
+            a_ = (gray.data_ptr(), h * w, h, w, plane_table.data_ptr(),
+                  plane_out.data_ptr(), h, w, n, stream)
+
+        def go():
+            err = fn(*a_)
+            if err:
+                raise RuntimeError(f"warp_affine_plane_f32: cudaError {err}")
+        return go
+
     def shapes(tag):
         lib = libs[tag]
+        by_value[tag] = "const float* host" in builds[tag]
         new_i420 = "int box_h" in builds[tag]
         per_tap = (0, 0, 0) if new_i420 else ()
-        z6 = (0.0,) * 6
         out = {
             "u8 compose feed": call(lib, "warp_affine_u8", frames[6],
                                     h * w * 3, (h, w), None, feed, (0,), 1,
-                                    FEED_WIN, ()),
+                                    FEED_WIN, (), tag),
             "u8 seam batch": call(lib, "warp_affine_u8", frames, h * w * 3,
-                                  (h, w), table.data_ptr(), z6, (0,),
-                                  N_SEAM, (320, 2048), ()),
+                                  (h, w), None if by_value[tag]
+                                  else table.data_ptr(), seam_invs, (0,),
+                                  N_SEAM, (320, 2048), (), tag),
             "content mode": call(lib, "warp_affine_u8", strip,
                                  2560 * 14336 * 3, (2560, 14336), None,
-                                 content, (1,), 1, CONTENT_WIN, ()),
+                                 content, (1,), 1, CONTENT_WIN, (), tag),
             "f32 compose feed": call(lib, "warp_affine_f32", f32,
                                      1061 * 1886 * 3, (1061, 1886), None,
-                                     comp, (), 1, (1088, 2048), ()),
+                                     comp, (), 1, (1088, 2048), (), tag),
             "i420 compose feed per tap": call(
                 lib, "warp_affine_i420", packed[6], h * w * 3 // 2, (h, w),
-                None, feed, (), 1, FEED_WIN, per_tap),
+                None, feed, (), 1, FEED_WIN, per_tap, tag),
             "i420 seam batch per tap": call(
                 lib, "warp_affine_i420", packed, h * w * 3 // 2, (h, w),
-                table.data_ptr(), z6, (), N_SEAM, (320, 2048), per_tap)}
+                None if by_value[tag] else table.data_ptr(), seam_invs, (),
+                N_SEAM, (320, 2048), per_tap, tag)}
         if new_i420:
             out["i420 compose feed staged"] = call(
                 lib, "warp_affine_i420", packed[6], h * w * 3 // 2, (h, w),
                 None, feed, (), 1, FEED_WIN,
-                staged_box(tag, [feed], *FEED_WIN))
+                staged_box(tag, [feed], *FEED_WIN), tag)
+        routes = ((" staged", False), (" direct", True)) if by_value[tag] \
+            else (("", False),)
+        for label, n in (("one frame", 1), (f"{N_PLANES}-frame batch",
+                                             N_PLANES)):
+            for route, direct in routes:
+                out[f"plane {label}{route}"] = plane_call(lib, tag, n,
+                                                          direct)
         return out
 
     calls = {tag: shapes(tag) for tag in builds}
     order = list(builds) + list(builds)[::-1]
-    for shape in calls["current"]:
+    shapes_all = list(calls["current"]) + [
+        k for k in calls["other"] if k not in calls["current"]]
+    for shape in shapes_all:
         runs = {}
         for tag in order:
             if shape in calls[tag]:

@@ -530,6 +530,33 @@ def test_k2_i420_rejects_what_it_cannot_read():
                        np.stack([a23, a23]), 8, 8)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("nf", [1, 2, 12, WK.BY_VALUE_MAX,
+                                WK.BY_VALUE_MAX + 1])
+def test_k2_batch_coefficients_by_value(cuda, nf):
+    """The batched K2 passes up to BY_VALUE_MAX frames' coefficients by
+    value (a block of one set for one frame, of BY_VALUE_MAX sets for
+    more) and a device table above: the uint8 seam batch and the I420
+    seam batch (per tap) at N = 1, 2, 12, the cap and the cap + 1, one
+    launch each, every frame bit-equal to plain."""
+    g = torch.Generator().manual_seed(nf)
+    frames = torch.randint(0, 256, (nf, 160, 240, 3), generator=g,
+                           dtype=torch.uint8).to(cuda)
+    packed = _i420_frames(cuda, n=nf, h=160, w=240, seed=nf)
+    rng = np.random.default_rng(nf)
+    a23s = np.stack([np.asarray([[0.2, rng.normal(0, 0.01), 5 * k % 40],
+                                 [rng.normal(0, 0.01), 0.2, 2.5]],
+                                np.float32) for k in range(nf)])
+    invs = [WK.inverse_coeffs(a) for a in a23s]
+    assert WK.i420_plan(invs, 160, 240, 16, 48) is None     # per tap
+    for src in (frames, packed):
+        n0 = WK.warp_frames.launches
+        wk, mk = WK.warp_frames(src, a23s, 16, 48)
+        assert WK.warp_frames.launches == n0 + 1
+        wp, mp = WK.warp_frames_plain(src, invs, 16, 48)
+        assert torch.equal(wk, wp) and torch.equal(mk, mp)
+
+
 _PLANE_AFFINES = (
     [[0.99987453, -4.4592799e-04, -59.63], [4.4592799e-04, 0.99987453,
                                            -14.9]],
@@ -541,48 +568,176 @@ _PLANE_AFFINES = (
     [[1, 0, -3.0e9], [0, 1, 3.0e9]])
 
 
+def _plane_routes(planes, a23s, oh, ow):
+    """K2's single-plane form on ``planes`` by the host (N, 2, 3) float32
+    ``a23s``: the wrapper with the transforms on the card and on the host
+    (each call one counted launch) and both routes forced, all bit-equal
+    to the plain version; returns the tiles that the staged launch
+    staged."""
+    dev = planes.device
+    dev_a = torch.from_numpy(a23s).to(dev)
+    n0 = WK.warp_planes.launches
+    got_dev = WK.warp_planes(planes, dev_a, oh, ow)
+    got_host = WK.warp_planes(planes, a23s, oh, ow)
+    assert WK.warp_planes.launches == n0 + 2
+    counts = torch.zeros(2, dtype=torch.int32, device=dev)
+    staged = WK._launch_planes(planes, dev_a, oh, ow, direct=False,
+                               staged_tiles=counts[0])
+    direct = WK._launch_planes(planes, dev_a, oh, ow, direct=True,
+                               staged_tiles=counts[1])
+    plain = WK.warp_planes_plain(planes, WK.device_inverse_coeffs(dev_a),
+                                 oh, ow)
+    torch.cuda.synchronize()
+    assert got_dev.shape == (len(planes), oh, ow)
+    for got in (got_dev, got_host, staged, direct):
+        assert torch.equal(got, plain)
+    n_staged, n_direct = counts.tolist()
+    assert n_direct == 0
+    return n_staged
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("out_hw", [(1, 1), (3, 5), (7, 4099), (320, 512)])
 def test_k2_plane_bit_equal_to_plain(cuda, out_hw):
-    """K2's single-plane form against its plain version, the transforms
-    given on the card (inverted there) and on the host (inverse_coeffs):
-    both bit-equal to the plain warp of the same table, output sizes whose
-    pixel count is not a multiple of 4, the bench's translation, a
-    rotation at canvas coordinates, a scale-down and windows outside the
-    frame; each call is one counted launch."""
+    """K2's single-plane form against its plain version on 37x53 planes
+    (smaller than a tile, so every tile straddles the frame's edges):
+    output sizes whose pixel count is not a multiple of 4, the bench's
+    translation, a rotation at canvas coordinates, a scale-down and windows
+    outside the frame, by both routes. Every box fits, so each tile that
+    reaches the frame stages (the one pixel of a 1x1 window maps to
+    source row -1.45: no tap in range, so its tile takes the direct
+    gather)."""
     planes = _float_frames(cuda, n=2)[..., 0].contiguous()
-    oh, ow = out_hw
     for a23 in _PLANE_AFFINES:
         a23s = np.stack([np.asarray(a23, np.float32)] * 2)
-        dev_a = torch.from_numpy(a23s).to(cuda)
-        n0 = WK.warp_planes.launches
-        got_dev = WK.warp_planes(planes, dev_a, oh, ow)
-        got_host = WK.warp_planes(planes, a23s, oh, ow)
-        assert WK.warp_planes.launches == n0 + 2
-        table = WK.device_inverse_coeffs(dev_a)
-        plain = WK.warp_planes_plain(planes, table, oh, ow)
-        torch.cuda.synchronize()
-        assert got_dev.shape == (2, oh, ow)
-        assert torch.equal(got_dev, plain) and torch.equal(got_host, plain)
+        n_staged = _plane_routes(planes, a23s, *out_hw)
+        if a23 is _PLANE_AFFINES[1]:        # the window meets row 0
+            assert (n_staged > 0) == (out_hw != (1, 1))
 
 
 @pytest.mark.gpu
-def test_k2_plane_batched_equals_per_frame(cuda):
+@pytest.mark.parametrize("out_hw", [(7, 4099), (131, 211), (320, 512)])
+def test_k2_plane_direct_route_and_frame_edges(cuda, out_hw):
+    """300x420 planes: a scale of 0.05 and a 60-degree rotation at canvas
+    coordinates give boxes beyond the block's shared memory (the direct
+    gather: no tile stages at 0.05), a near-identity warp tiles that
+    straddle the frame's right and bottom edges (staged); all bit-equal
+    to plain by both routes."""
+    planes = _float_frames(cuda, n=2, h=300, w=420)[..., 1].contiguous()
+    th = math.radians(60.0)
+    down = np.asarray([[0.05, 0.0, 3.3], [0.0, 0.05, 1.7]], np.float32)
+    turn = np.asarray([[math.cos(th), -math.sin(th), 12000.5 - 11800.0],
+                       [math.sin(th), math.cos(th), -90.25]], np.float32)
+    near = np.asarray([[1.0, 0.002, -7.63], [-0.002, 1.0, -11.9]],
+                      np.float32)
+    assert _plane_routes(planes, np.stack([down, down]), *out_hw) == 0
+    _plane_routes(planes, np.stack([turn, down]), *out_hw)
+    assert _plane_routes(planes, np.stack([near, near]), *out_hw) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_hw", [(131, 211), (64, 128)])
+def test_k2_plane_batched_equals_per_frame(cuda, out_hw):
     """Five planes, each with its own transform, in one launch: each equal
-    to its own one-plane launch and to the plain version."""
+    to its own one-plane launch and to the plain version, by both routes;
+    the device affines read through the strides of a (N, 3, 3) slice, as
+    the throughput bench passes RANSAC's models."""
     planes = _float_frames(cuda, n=5, h=120, w=200)[..., 1].contiguous()
-    a23s = torch.tensor([[[1.0, 0.01 * k, 2.3 * k - 3],
-                          [-0.01 * k, 1.0, 1.1 * k - 2]] for k in range(5)],
-                        device=cuda)
+    models = torch.tensor([[[1.0, 0.01 * k, 2.3 * k - 3],
+                            [-0.01 * k, 1.0, 1.1 * k - 2],
+                            [0.0, 0.0, 1.0]] for k in range(5)],
+                          device=cuda)
+    a23s = models[:, :2, :]
+    assert not a23s.is_contiguous()
     n0 = WK.warp_planes.launches
-    got = WK.warp_planes(planes, a23s, 131, 211)
+    got = WK.warp_planes(planes, a23s, *out_hw)
     assert WK.warp_planes.launches == n0 + 1
     plain = WK.warp_planes_plain(planes, WK.device_inverse_coeffs(a23s),
-                                 131, 211)
+                                 *out_hw)
     assert torch.equal(got, plain)
+    for direct in (False, True):
+        assert torch.equal(WK._launch_planes(planes, a23s, *out_hw,
+                                             direct=direct), plain)
     for k in range(5):
-        one = WK.warp_planes(planes[k:k + 1], a23s[k:k + 1], 131, 211)
+        one = WK.warp_planes(planes[k:k + 1], a23s[k:k + 1], *out_hw)
         assert torch.equal(one[0], got[k])
+    assert _plane_routes(planes, a23s.cpu().numpy(), *out_hw) > 0
+
+
+@pytest.mark.gpu
+def test_k2_plane_host_affines_above_the_by_value_cap(cuda):
+    """Host affines go by value up to BY_VALUE_MAX planes (a block of one
+    set for one plane) and through a device copy above: each bit-equal to
+    plain."""
+    rng = np.random.default_rng(4)
+    for nf in (1, 2, WK.BY_VALUE_MAX, WK.BY_VALUE_MAX + 1):
+        planes = torch.rand((nf, 12, 20), device=cuda) * 255.0
+        a23s = np.stack([np.asarray([[1.0, 0.0, rng.uniform(-3, 3)],
+                                     [0.0, 1.0, rng.uniform(-3, 3)]],
+                                    np.float32) for _ in range(nf)])
+        got = WK.warp_planes(planes, a23s, 13, 21)
+        plain = WK.warp_planes_plain(planes, torch.tensor(
+            [WK.inverse_coeffs(a) for a in a23s], device=cuda), 13, 21)
+        assert torch.equal(got, plain)
+
+
+@pytest.mark.gpu
+def test_k2_plane_in_kernel_inverse_bit_equal(cuda):
+    """The card's build of csrc/affine_inverse.cuh (the inverse each block
+    of the single-plane kernel computes) equals inverse_coeffs and
+    device_inverse_coeffs bit for bit on the affines the CPU build is held
+    to (tests/test_torch_plane_inverse.py), and is not finite on singular
+    affines."""
+    from drone_image_stitch_cpp_tpu_torch.utils.plane_affines import (
+        bench_affines, singular_affines, wide_affines)
+    for a23s in (bench_affines(), wide_affines()):
+        got = WK.kernel_inverse_coeffs(torch.from_numpy(a23s).to(cuda))
+        ref = np.asarray([WK.inverse_coeffs(a) for a in a23s], np.float32)
+        np.testing.assert_array_equal(got.cpu().numpy(), ref)
+        assert torch.equal(got, WK.device_inverse_coeffs(
+            torch.from_numpy(a23s).to(cuda)))
+    sing = torch.from_numpy(singular_affines()).to(cuda)
+    got = WK.kernel_inverse_coeffs(sing).cpu().numpy()
+    assert not np.isfinite(got).all(axis=1).any()
+    np.testing.assert_array_equal(
+        got, WK.device_inverse_coeffs(sing).cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_k2_host_inverse_bit_equal(cuda):
+    """The kernel library's host entry of the same inverse
+    (host_inverse_coeffs, which the uint8, float32 and I420 launches take
+    their coefficients from) equals inverse_coeffs bit for bit on those
+    affines, and raises as it does on a singular one."""
+    from drone_image_stitch_cpp_tpu_torch.utils.plane_affines import (
+        bench_affines, singular_affines, wide_affines)
+    for a23s in (bench_affines(), wide_affines()):
+        np.testing.assert_array_equal(
+            WK.host_inverse_coeffs(a23s),
+            np.asarray([WK.inverse_coeffs(a) for a in a23s], np.float32))
+    for a in singular_affines():
+        with pytest.raises(ValueError, match="singular"):
+            WK.host_inverse_coeffs(np.stack([bench_affines()[0], a]))
+        with pytest.raises(ValueError, match="singular"):
+            WK.warp_frame(torch.zeros((8, 8, 3), dtype=torch.uint8,
+                                      device=cuda), a, 4, 4)
+
+
+@pytest.mark.gpu
+def test_k2_plane_singular_affine_matches_plain_where_finite(cuda):
+    """A singular affine's coefficients are not finite: its warp equals the
+    plain version's wherever that one is finite, beside a regular frame."""
+    planes = _float_frames(cuda, n=2, h=40, w=60)[..., 0].contiguous()
+    a23s = np.stack([np.asarray([[1, 2, 0], [2, 4, 0]], np.float32),
+                     np.asarray([[1, 0, 1.5], [0, 1, -2.25]], np.float32)])
+    dev_a = torch.from_numpy(a23s).to(cuda)
+    plain = WK.warp_planes_plain(planes, WK.device_inverse_coeffs(dev_a),
+                                 33, 70)
+    for got in (WK.warp_planes(planes, dev_a, 33, 70),
+                WK._launch_planes(planes, dev_a, 33, 70, direct=True)):
+        fin = torch.isfinite(plain)
+        assert torch.equal(got[fin], plain[fin])
+        assert torch.equal(got[1], plain[1])
 
 
 @pytest.mark.gpu

@@ -47,6 +47,7 @@ from drone_image_stitch_cpp_tpu_torch.ops.features import (
 from drone_image_stitch_cpp_tpu_torch.runtime.device import (
     DeviceUnavailableError)
 from drone_image_stitch_cpp_tpu_torch.tools import bench_throughput as B
+from drone_image_stitch_cpp_tpu_torch.utils.plane_affines import bench_affines
 
 CUT_FRAMES, CUT_H, CUT_W = 3, 540, 960
 CUT_MPX = 0.1129                # work 252x448, padded 256x512
@@ -171,15 +172,7 @@ def test_device_inverse_equals_jax_invert_affine():
     the JAX package's float32 ``invert_affine`` bit for bit: any rotation
     (row pivots included), seam to full scales, canvas translations; a
     singular affine gives a row that is not finite."""
-    rng = np.random.default_rng(11)
-    th = rng.uniform(-np.pi, np.pi, 200)
-    s = rng.uniform(0.05, 3.0, 200)
-    a23s = np.stack([np.asarray(
-        [[s[k] * np.cos(th[k]) + rng.normal(0, 0.05),
-          -s[k] * np.sin(th[k]) * rng.uniform(0.5, 1.5),
-          rng.uniform(-2e4, 2e4)],
-         [s[k] * np.sin(th[k]), s[k] * np.cos(th[k]) + rng.normal(0, 0.05),
-          rng.uniform(-3e3, 3e3)]], np.float32) for k in range(200)])
+    a23s = bench_affines()
     got = n(WK.device_inverse_coeffs(t(a23s)))
     assert got.shape == (200, 6) and got.dtype == np.float32
     for a23, row in zip(a23s, got):
