@@ -40,9 +40,20 @@ Phases (one line each; any failure exits nonzero and prints no result):
      call (ms: CUDA events around one call on an idle card, median of 10,
      so its host set-up counts; wrapper_b2b_ms: 20 calls back to back / 20,
      where host and device overlap), the bare launch (device_ms: events
-     around 20 back-to-back launches / 20, median of 5) and, for K2, one
-     F.grid_sample call on the same input (library_ms, a yardstick the
-     port never calls);
+     around 20 back-to-back launches / 20, median of 5: the host's launch
+     pace where that is slower than the kernel), the kernel's own
+     duration (kernel_ms: the median of torch.profiler's durations of the
+     kernel over 20 launches in one trace, whose durations must add up to
+     no more than the CUDA events time around the same launches; the
+     smoke fails when three traces in a row do not hold them; the share
+     is taken from it)
+     and, for K2, one F.grid_sample call on the same input (library_ms, a
+     yardstick the port never calls). K2's gather kernel counts its tiles
+     by route (zero, direct) on every uint8, float32 and per-tap I420 row,
+     and the row fails when the counts contradict the launch's plan; the
+     float32 row holds the wrapper's launch (the src->dst affine, inverted
+     by the entry) and one from the host's coefficients bit-equal with
+     the same tiles, and times the wrapper and F.grid_sample in turns;
   4. the single-flight-line main path (app.stitch_frames) on a rendered
      12-frame 2160x3840 corridor sortie, once to warm up and once measured:
      one group, frame offsets within 1 px, panorama size, GT-RMSE, and the
@@ -181,8 +192,10 @@ Phases (one line each; any failure exits nonzero and prints no result):
      the stage split, the graph-cut seams' solver time, each strip's
      stitch, the global canvas and seam scale, GT-RMSE, peak device
      memory, the decode thread's busy time, ru_maxrss, the launches and
-     the card. Then each kernel at the shapes only this path gives it,
-     from the ground-truth crop: K1 at the global detect of a 25.7k-px
+     the card. Then, in a child process of this script (a fresh process:
+     after the run, torch.profiler's traces in this one lose kernel
+     records), each kernel at the shapes only this path gives it, from
+     the ground-truth crop: K1 at the global detect of a 25.7k-px
      strip (at least 531 valid keypoints), K2 in content mode from that
      padded strip into the compose window and, as the full-resolution
      seam warp calls it, into the ~2150x3720 seam canvas at the run's
@@ -205,8 +218,9 @@ gradients tap, for K2 the source pixels its taps touch; each output
 written once) over 3.35 TB/s and its float32 operations (for K1 counted
 from its plain version over the gradients, orientation-box and descriptor
 terms this run needs, transcendental functions as one) over 67 TFLOP/s;
-share = bound_ms / device_ms. The last
-line is {"ok": true, "device": {...}}.
+share = bound_ms / kernel_ms (the kernel's own duration; device_ms, the
+back-to-back events time, beside it). The last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -371,7 +385,8 @@ def _ptxas_entries(report: str,
     f32, i420_per_tap, i420_staged, plane, affine_inverse)."""
     names = {"warp_i420_staged_kernel": "i420_staged", "I420": "i420_per_tap",
              "warp_plane_kernel": "plane", "affine_inverse": "affine_inverse",
-             "warp_affine_kernelIh": "u8", "warp_affine_kernelIf": "f32"}
+             "warp_affine_tile_kernelIh": "u8",
+             "warp_affine_tile_kernelIf": "f32"}
     out = {}
     for part in report.split("Compiling entry function '")[1:]:
         entry = part.split("'")[0]
@@ -488,10 +503,11 @@ def _plane_library(torch, planes, table, oh, ow):
     return _median_ms(call, torch), out
 
 
-def _device_ops(torch, fn):
-    """The device operations (kernels, copies, memsets) of one call of
-    ``fn`` after a warm call, from a torch.profiler trace: [(category,
-    name)]."""
+def _device_ops(torch, fn, calls: int = 1, span=None):
+    """The device operations (kernels, copies, memsets) of ``calls`` calls
+    of ``fn`` after a warm call, from a torch.profiler trace: [(category,
+    name, duration in us)]. ``span``, a list, gets the CUDA events time
+    around the traced calls (ms)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -500,18 +516,72 @@ def _device_ops(torch, fn):
     os.makedirs(out_dir, exist_ok=True)
     fd, path = tempfile.mkstemp(suffix=".json", dir=out_dir)
     os.close(fd)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            fn()
+            a.record()
+            for _ in range(calls):
+                fn()
+            b.record()
             torch.cuda.synchronize()
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
     finally:
         os.unlink(path)
-    return [(e["cat"], e["name"]) for e in events if e.get("ph") == "X"
+    if span is not None:
+        span.append(a.elapsed_time(b))
+    return [(e["cat"], e["name"], float(e.get("dur", 0.0))) for e in events
+            if e.get("ph") == "X"
             and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def _kernel_ms(torch, fn, kernel: str, calls: int = 20) -> float:
+    """The kernel's own duration: the median ``dur`` of the device kernels
+    named ``kernel`` (a substring) over ``calls`` back-to-back calls of
+    ``fn`` in one torch.profiler trace (CUPTI's start and end of each
+    kernel, so the host's pace between launches is not in it), ms. The
+    trace is taken again, up to three times, when it holds fewer than half
+    as many such kernels as calls (CUPTI dropped records) or when their
+    durations add up to more than the CUDA events time around the same
+    calls (the calls run one after another on one stream, so that reading
+    is impossible); then the smoke fails."""
+    for _ in range(3):
+        span = []
+        durs = [d for cat, name, d in _device_ops(torch, fn, calls, span)
+                if cat == "kernel" and kernel in name]
+        if len(durs) >= calls // 2 and sum(durs) / 1e3 <= span[0]:
+            return float(np.median(durs)) / 1e3
+        print(f"[smoke] profile: {len(durs)} '{kernel}' kernels of {calls} "
+              f"calls, {sum(durs) / 1e3:.4f} ms in all against the events' "
+              f"{span[0]:.4f} ms: trace taken again", flush=True)
+    _fail("profile", f"no trace of {calls} calls held the '{kernel}' "
+                     f"kernels' durations, three times")
+
+
+def _routes_of(torch, dev, launch) -> dict:
+    """{route: tiles} of one launch of K2's gather kernel: ``launch(tiles)``
+    with a card int32 counter of each of warp_kernel.ROUTES."""
+    from drone_image_stitch_cpp_tpu_torch.ops import warp_kernel as WK
+    tiles = torch.zeros(len(WK.ROUTES), dtype=torch.int32, device=dev)
+    launch(tiles)
+    torch.cuda.synchronize()
+    return dict(zip(WK.ROUTES, tiles.tolist()))
+
+
+def _check_routes(label, routes, shape, want):
+    """Fails when a launch's tile counts contradict its plan: every tile of
+    the (n, oh, ow) window counted once, and each route of ``want`` taken
+    (True) or not (False)."""
+    from drone_image_stitch_cpp_tpu_torch.ops import warp_kernel as WK
+    n, oh, ow = shape
+    total = n * -(-oh // WK.TILE[0]) * -(-ow // WK.TILE[1])
+    if sum(routes.values()) != total or any(
+            (routes[r] > 0) != v for r, v in want.items()):
+        _fail("k2", f"{label}: tiles by route {routes} of {total} contradict "
+                    f"the plan (routes taken: {want})")
 
 
 def _plane_row(torch, dev, label, planes, a23s):
@@ -524,9 +594,9 @@ def _plane_row(torch, dev, label, planes, a23s):
     direct one none; wrapper, device time of each route (in turns:
     staged, direct, direct, staged), plain and F.grid_sample times; the
     bound (4 B a touched source pixel read, 4 B an output pixel written;
-    20 operations an output pixel) and each route's share of it. Fails
-    when the direct route's device time beats the staged one, the
-    kernel's default."""
+    20 operations an output pixel) and each route's share of it (bound /
+    kernel ms). Fails when the direct route's kernel time beats the staged
+    one, the kernel's default."""
     from drone_image_stitch_cpp_tpu_torch.ops import warp_kernel as WK
     n, h, w = planes.shape
     table = WK.device_inverse_coeffs(a23s)
@@ -561,9 +631,13 @@ def _plane_row(torch, dev, label, planes, a23s):
                             f"warp_plane_kernel)")
     ms = _median_ms(lambda: WK.warp_planes(planes, a23s, h, w), torch)
     runs = {"staged": [], "direct": []}
+    kruns = {"staged": [], "direct": []}
     for r in ("staged", "direct", "direct", "staged"):
-        runs[r].append(_device_ms(lambda: WK._launch_planes(
-            planes, a23s, h, w, direct=r == "direct"), torch))
+        def launch():
+            return WK._launch_planes(planes, a23s, h, w,
+                                     direct=r == "direct")
+        runs[r].append(_device_ms(launch, torch))
+        kruns[r].append(_kernel_ms(torch, launch, "warp_plane_kernel"))
     plain_ms = _median_ms(lambda: WK.warp_planes_plain(planes, table, h, w),
                           torch)
     library_ms, lib = _plane_library(torch, planes, table, h, w)
@@ -575,19 +649,23 @@ def _plane_row(torch, dev, label, planes, a23s):
     n_out = n * h * w
     n_bytes = 4.0 * src_px + 4.0 * n_out
     bound_ms, bound_by = _bound(n_bytes, 20.0 * n_out)
-    route_rows = {r: {"device_ms": float(np.mean(t)), "runs_ms": t,
-                      "share": bound_ms / float(np.mean(t))}
-                  for r, t in runs.items()}
+    route_rows = {}
+    for r, t in runs.items():
+        kernel_ms = float(np.mean(kruns[r]))
+        route_rows[r] = {"device_ms": float(np.mean(t)), "runs_ms": t,
+                         "kernel_ms": kernel_ms, "kernel_ms_runs": kruns[r],
+                         "share": bound_ms / kernel_ms}
     route_rows["staged"]["staged_tiles"] = staged
     route_rows["staged"]["tiles"] = tiles
     # the kernel's own choice wherever a box fits, so it must be the faster
     default = "staged"
-    if route_rows["direct"]["device_ms"] < route_rows[default]["device_ms"]:
+    if route_rows["direct"]["kernel_ms"] < route_rows[default]["kernel_ms"]:
         _fail("throughput", f"k2 plane {label}: the direct route "
-                            f"({route_rows['direct']['device_ms']:.4f} ms) "
+                            f"({route_rows['direct']['kernel_ms']:.4f} ms) "
                             f"beats the default, staged one "
-                            f"({route_rows[default]['device_ms']:.4f} ms)")
+                            f"({route_rows[default]['kernel_ms']:.4f} ms)")
     device_ms = route_rows[default]["device_ms"]
+    kernel_ms = route_rows[default]["kernel_ms"]
     print(f"[smoke] k2 warp_affine_plane_f32 {label}: {n} x {h}x{w} f32 -> "
           f"{h}x{w} (no mask), device models (strided), inverted in the "
           f"kernel; one call = {ops[0][1][:60]} alone on the device; "
@@ -597,7 +675,11 @@ def _plane_row(torch, dev, label, planes, a23s):
           f"{route_rows['staged']['device_ms']:.4f} ms (runs "
           f"{', '.join(f'{x:.4f}' for x in runs['staged'])}), direct "
           f"{route_rows['direct']['device_ms']:.4f} ms (runs "
-          f"{', '.join(f'{x:.4f}' for x in runs['direct'])}), default "
+          f"{', '.join(f'{x:.4f}' for x in runs['direct'])}), kernel "
+          f"staged {route_rows['staged']['kernel_ms']:.4f} ms (runs "
+          f"{', '.join(f'{x:.4f}' for x in kruns['staged'])}), direct "
+          f"{route_rows['direct']['kernel_ms']:.4f} ms (runs "
+          f"{', '.join(f'{x:.4f}' for x in kruns['direct'])}), default "
           f"{default}; plain {plain_ms:.3f} ms, grid_sample "
           f"{library_ms:.4f} ms (max |d| {lib_err:.3g}); bound "
           f"{bound_ms:.4f} ms by {bound_by} ({n_bytes / 1e6:.1f} MB), share "
@@ -606,8 +688,10 @@ def _plane_row(torch, dev, label, planes, a23s):
           f"{ms / library_ms:.3f}", flush=True)
     return {"shape": [n, h, w], "max_abs_err": 0.0, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "share": bound_ms / device_ms,
-            "device_ms": device_ms, "bytes": n_bytes, "default_route": default,
+            "library_ms": library_ms,
+            "share": route_rows[default]["share"], "device_ms": device_ms,
+            "kernel_ms": kernel_ms, "bytes": n_bytes,
+            "default_route": default,
             "routes": route_rows, "device_ops_per_call": len(ops)}
 
 
@@ -716,7 +800,8 @@ def phase_throughput(torch, dev):
                       "(pallas_warp.py:323) and warp_affine_many (:287)",
              **{k: batch[k] for k in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms",
-                                      "share", "device_ms", "shape",
+                                      "share", "device_ms", "kernel_ms",
+                                      "shape",
                                       "default_route", "routes",
                                       "device_ops_per_call")},
              "one_frame": one, "inverse_affines_checked": n_inv,
@@ -881,6 +966,9 @@ def _k1_check(torch, gray, label, n_kp, min_valid=None, true_hw=None):
     radius = SK.support_radius(flat[4])
     device_ms = _device_ms(lambda: SK._launch(flat[0], radius, *flat[1:]),
                            torch)
+    kernel_ms = _kernel_ms(torch, lambda: SK._launch(flat[0], radius,
+                                                     *flat[1:]),
+                           "sift_orient_desc_kernel")
     plain_ms = _median_ms(lambda: SK.orientation_descriptor_plain(*flat),
                           torch)
     octs = build_scale_space(gray, 3, num_octaves(wh, ww, False), False)
@@ -893,15 +981,17 @@ def _k1_check(torch, gray, label, n_kp, min_valid=None, true_hw=None):
           f"close (angle<0.02 rad, L2<2) {frac:.5f}; angle flips {flips}; "
           f"max L2 {worst:.4f}; max |d desc| {max_err:.4f}; two launches "
           f"bit-identical; wrapper {ms:.4f} ms ({b2b_ms:.4f} ms back to "
-          f"back), device {device_ms:.4f} ms, "
+          f"back), device {device_ms:.4f} ms, kernel {kernel_ms:.4f} ms, "
           f"plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms by {bound_by} "
           f"({mb:.1f} MB, {gflop:.3f} GFLOP), share "
-          f"{bound_ms / device_ms:.3f}; padded-stack build {stack_ms:.4f} "
+          f"{bound_ms / kernel_ms:.3f}; padded-stack build "
+          f"{stack_ms:.4f} "
           f"ms ({stack_mb:.0f} MB)", flush=True)
     return {"max_abs_err": max_err, "ms": ms, "wrapper_b2b_ms": b2b_ms,
-            "device_ms": device_ms,
+            "device_ms": device_ms, "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "share": bound_ms / device_ms, "stack_build_ms": stack_ms,
+            "share": bound_ms / kernel_ms,
+            "stack_build_ms": stack_ms,
             "keypoints": v.numel()}
 
 
@@ -924,8 +1014,8 @@ def phase_k1(torch, dev, imgs, tuning):
                       "sift_orient_desc.cu",
             "replaces": "drone_image_stitch_cpp_tpu/ops/pallas_sift.py:308",
             **{k: reg[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                   "device_ms", "share", "wrapper_b2b_ms",
-                                   "stack_build_ms")},
+                                   "device_ms", "kernel_ms", "share",
+                                   "wrapper_b2b_ms", "stack_build_ms")},
             "max_abs_err": max(reg["max_abs_err"], grp["max_abs_err"]),
             "library_ms": None, "grouping": grp}
 
@@ -998,9 +1088,14 @@ def phase_k2(torch, dev, img):
     if not (torch.equal(wk, wp) and torch.equal(mk, mp)):
         _fail("k2", f"not bit-identical to the plain version (max |d| "
                     f"{max_err})")
+    routes = _routes_of(torch, dev, lambda c: WK._launch(frame, 1, inv, oh,
+                                                         ow, tiles=c))
+    _check_routes("compose feed", routes, (1, oh, ow), {"direct": True})
     ms = _median_ms(lambda: WK.warp_frame(frame, a23, oh, ow), torch)
     b2b_ms = _device_ms(lambda: WK.warp_frame(frame, a23, oh, ow), torch)
     device_ms = _device_ms(lambda: WK._launch(frame, 1, inv, oh, ow), torch)
+    kernel_ms = _kernel_ms(torch, lambda: WK._launch(frame, 1, inv, oh, ow),
+                           "warp_affine_tile_kernel")
     plain_ms = _median_ms(lambda: WK.warp_frame_plain(frame, inv, oh, ow),
                           torch)
     library_ms, lib = _k2_library(torch, dev, frame[None], [inv], oh, ow)
@@ -1013,19 +1108,20 @@ def phase_k2(torch, dev, img):
                                 30.0 * oh * ow)
     print(f"[smoke] k2 warp_affine: {FRAME_H}x{FRAME_W} u8 -> {oh}x{ow}x3 "
           f"+ mask, window coverage {covered:.3f}; bit-identical to plain; "
-          f"wrapper {ms:.4f} ms ({b2b_ms:.4f} ms back to back), device "
-          f"{device_ms:.4f} ms, plain "
-          f"{plain_ms:.3f} ms, grid_sample {library_ms:.4f} ms (max |d| "
-          f"{lib_err:.3g}); bound {bound_ms:.4f} ms by {bound_by} "
+          f"tiles {routes}; wrapper {ms:.4f} ms ({b2b_ms:.4f} ms back to "
+          f"back), device {device_ms:.4f} ms, kernel {kernel_ms:.4f} ms, "
+          f"plain {plain_ms:.3f} ms, grid_sample {library_ms:.4f} ms (max "
+          f"|d| {lib_err:.3g}); bound {bound_ms:.4f} ms by {bound_by} "
           f"({(3.0 * src_px + 16.0 * oh * ow) / 1e6:.1f} MB), share "
-          f"{bound_ms / device_ms:.3f}", flush=True)
+          f"{bound_ms / kernel_ms:.3f}", flush=True)
     return {"name": "warp_affine", "route": "cuda",
             "source": "drone_image_stitch_cpp_tpu_torch/csrc/warp_affine.cu",
             "replaces": "drone_image_stitch_cpp_tpu/ops/pallas_warp.py:234",
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "device_ms": device_ms,
-            "share": bound_ms / device_ms, "wrapper_b2b_ms": b2b_ms}
+            "kernel_ms": kernel_ms, "share": bound_ms / kernel_ms,
+            "wrapper_b2b_ms": b2b_ms, "tiles": routes}
 
 
 def _seam_affines(pos, tuning):
@@ -1060,9 +1156,16 @@ def phase_k2_batch(torch, dev, imgs, pos, tuning):
         if not (torch.equal(wk[k], wp) and torch.equal(mk[k], mp)):
             _fail("k2", f"seam batch: frame {k} differs from its plain warp")
     table = torch.tensor(invs, dtype=torch.float32, device=dev)
+    routes = _routes_of(torch, dev, lambda c: WK._launch(
+        frames, len(imgs), invs, sh, sw, tiles=c))
+    _check_routes("seam batch", routes, (len(imgs), sh, sw),
+                  {"zero": True, "direct": True})
     ms = _median_ms(lambda: WK.warp_frames(frames, a23s, sh, sw), torch)
     device_ms = _device_ms(lambda: WK._launch(frames, len(imgs), invs, sh,
                                               sw, table=table), torch)
+    kernel_ms = _kernel_ms(torch, lambda: WK._launch(frames, len(imgs), invs,
+                                                     sh, sw),
+                           "warp_affine_tile_kernel")
     plain_ms = _median_ms(lambda: WK.warp_frames_plain(frames, invs, sh, sw),
                           torch)
     library_ms, lib = _k2_library(torch, dev, frames, invs, sh, sw)
@@ -1073,14 +1176,16 @@ def phase_k2_batch(torch, dev, imgs, pos, tuning):
     bound_ms, bound_by = _bound(3.0 * src_px + 16.0 * n_out, 30.0 * n_out)
     print(f"[smoke] k2 warp_affine seam batch: {len(imgs)} x {FRAME_H}x"
           f"{FRAME_W} u8 -> {sh}x{sw} (seam scale {ss:.4f}) in one launch, "
-          f"every frame bit-identical to plain; wrapper {ms:.4f} ms, device "
-          f"{device_ms:.4f} ms, plain {plain_ms:.3f} ms, grid_sample "
+          f"every frame bit-identical to plain; tiles {routes}; wrapper "
+          f"{ms:.4f} ms, device {device_ms:.4f} ms, kernel "
+          f"{kernel_ms:.4f} ms, plain {plain_ms:.3f} ms, grid_sample "
           f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}, "
-          f"share {bound_ms / device_ms:.3f}", flush=True)
+          f"share {bound_ms / kernel_ms:.3f}", flush=True)
     return {"shape": [len(imgs), sh, sw], "ms": ms, "device_ms": device_ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "share": bound_ms / device_ms}
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "share": bound_ms / kernel_ms,
+            "tiles": routes}
 
 
 def phase_slice(torch, dev, ortho, imgs, ids, pos, tuning):
@@ -1405,6 +1510,7 @@ def phase_k2_f32(torch, dev, fed, imgs, pos, tuning, cs):
     from drone_image_stitch_cpp_tpu_torch.ops.resize import (
         resize_area, scale_for_megapixels)
     frame, a23, oh, ow = fed["img"], fed["a23"], fed["oh"], fed["ow"]
+    frame = frame.contiguous()      # as the wrapper hands it to the kernel
     h, w = frame.shape[:2]
     inv = WK.inverse_coeffs(a23)
     n0 = WK.warp_frame.f32_launches
@@ -1419,9 +1525,33 @@ def phase_k2_f32(torch, dev, fed, imgs, pos, tuning, cs):
         _fail("k2", f"float32 source not bit-identical to plain (max |d| "
                     f"{d})")
     covered = float((mk >= 0.5).float().mean())
-    ms = _median_ms(lambda: WK.warp_frame(frame, a23, oh, ow), torch)
+    # the wrapper's launch (the src->dst affine, inverted by the entry's
+    # host code) and one from the host's coefficients, each bit-equal to
+    # plain, with their tiles by route
+    model = WK._model_sets(a23)
+
+    def launch(tiles=None):
+        return WK._launch(frame, 1, model, oh, ow, invert=True, tiles=tiles)
+
+    routes = {}
+    for name, fn in (("model", launch),
+                     ("coefficients", lambda tiles=None: WK._launch(
+                         frame, 1, inv, oh, ow, tiles=tiles))):
+        routes[name] = _routes_of(torch, dev, fn)
+        wr, mr, _ = fn()
+        torch.cuda.synchronize()
+        if not (torch.equal(wr, wp) and torch.equal(mr, mp)):
+            _fail("k2", f"float32 source: the launch from the {name} is not "
+                        f"bit-identical to plain")
+    del wr, mr
+    if routes["model"] != routes["coefficients"]:
+        _fail("k2", f"float32 source: tiles by route {routes} differ between "
+                    f"the model and its coefficients")
+    _check_routes("float32 source", routes["model"], (1, oh, ow),
+                  {"direct": True})
     b2b_ms = _device_ms(lambda: WK.warp_frame(frame, a23, oh, ow), torch)
-    device_ms = _device_ms(lambda: WK._launch(frame, 1, inv, oh, ow), torch)
+    device_ms = _device_ms(launch, torch)
+    kernel_ms = _kernel_ms(torch, launch, "warp_affine_tile_kernel")
     plain_ms = _median_ms(lambda: WK.warp_frame_plain(frame, inv, oh, ow),
                           torch)
     import torch.nn.functional as F
@@ -1432,25 +1562,44 @@ def phase_k2_f32(torch, dev, fed, imgs, pos, tuning, cs):
                                             device=dev).reshape(2, 3), oh, ow)
     grid = torch.stack([sx / (w - 1) * 2 - 1, sy / (h - 1) * 2 - 1],
                        dim=-1)[None]
-    library_ms = _median_ms(lambda: F.grid_sample(
-        planes, grid, mode="bilinear", padding_mode="zeros",
-        align_corners=True), torch)
+
+    def library():
+        return F.grid_sample(planes, grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+
+    # the wrapper and the library call in turns, in this call
+    turns = {"wrapper": [], "grid_sample": []}
+    for name in ("wrapper", "grid_sample", "grid_sample", "wrapper"):
+        turns[name].append(_median_ms(
+            (lambda: WK.warp_frame(frame, a23, oh, ow)) if name == "wrapper"
+            else library, torch))
+    library_ms = float(np.mean(turns["grid_sample"]))
+    ms = float(np.mean(turns["wrapper"]))
     del planes, grid, sx, sy
     src_px = _k2_source_pixels(torch, dev, inv, h, w, oh, ow)
     n_bytes = 12.0 * src_px + 16.0 * oh * ow
     bound_ms, bound_by = _bound(n_bytes, 30.0 * oh * ow)
     print(f"[smoke] k2 warp_affine float32 source: {h}x{w} f32 (compositing "
-          f"scale {cs:.4f}) -> {oh}x{ow}x3 + mask, window coverage "
-          f"{covered:.3f}; bit-identical to plain; wrapper {ms:.4f} ms "
-          f"({b2b_ms:.4f} ms back to back), device {device_ms:.4f} ms, plain "
-          f"{plain_ms:.3f} ms, grid_sample {library_ms:.4f} ms; bound "
+          f"scale {cs:.4f}) -> {oh}x{ow}x3 + mask by {a23.tolist()}, window "
+          f"coverage {covered:.3f}; wrapper (affine inverted by the entry) "
+          f"and the host's coefficients bit-identical to plain; tiles "
+          f"{routes['model']}; wrapper {ms:.4f} ms (runs "
+          f"{', '.join(f'{t:.4f}' for t in turns['wrapper'])}; {b2b_ms:.4f} "
+          f"ms back to back), device {device_ms:.4f} ms, kernel "
+          f"{kernel_ms:.4f} ms; plain {plain_ms:.3f} ms, grid_sample "
+          f"{library_ms:.4f} ms (runs "
+          f"{', '.join(f'{t:.4f}' for t in turns['grid_sample'])}); bound "
           f"{bound_ms:.4f} ms by {bound_by} ({n_bytes / 1e6:.1f} MB), share "
-          f"{bound_ms / device_ms:.3f}", flush=True)
-    row = {"shape": [h, w, oh, ow], "ms": ms, "wrapper_b2b_ms": b2b_ms,
-           "device_ms": device_ms, "plain_ms": plain_ms,
+          f"{bound_ms / kernel_ms:.3f}; wrapper / grid_sample "
+          f"{ms / library_ms:.3f}", flush=True)
+    row = {"shape": [h, w, oh, ow], "a23": a23.tolist(), "ms": ms,
+           "wrapper_runs_ms": turns["wrapper"],
+           "library_runs_ms": turns["grid_sample"],
+           "wrapper_b2b_ms": b2b_ms, "device_ms": device_ms,
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "share": bound_ms / device_ms,
-           "max_abs_err": 0.0}
+           "bound_by": bound_by, "share": bound_ms / kernel_ms,
+           "max_abs_err": 0.0, "tiles": routes["model"]}
 
     # the batched seam warp of the resized frames (strip.compose_strip)
     rh_, rw_ = int(round(FRAME_H * cs)), int(round(FRAME_W * cs))
@@ -1470,19 +1619,28 @@ def phase_k2_f32(torch, dev, fed, imgs, pos, tuning, cs):
             _fail("k2", f"float32 seam batch: frame {k} differs from its "
                         f"plain warp")
     table = torch.tensor(invs, dtype=torch.float32, device=dev)
+    tiles = _routes_of(torch, dev, lambda c: WK._launch(
+        frames, len(imgs), invs, sh, sw, tiles=c))
+    _check_routes("float32 seam batch", tiles, (len(imgs), sh, sw),
+                  {"zero": True, "direct": True})
     batch_ms = _device_ms(lambda: WK._launch(frames, len(imgs), invs, sh,
                                              sw, table=table), torch)
+    batch_kernel_ms = _kernel_ms(torch, lambda: WK._launch(
+        frames, len(imgs), invs, sh, sw), "warp_affine_tile_kernel")
     src_px = sum(_k2_source_pixels(torch, dev, inv, rh_, rw_, sh, sw)
                  for inv in invs)
     n_out = len(imgs) * sh * sw
     b_ms, b_by = _bound(12.0 * src_px + 16.0 * n_out, 30.0 * n_out)
     print(f"[smoke] k2 warp_affine float32 seam batch: {len(imgs)} x {rh_}x"
-          f"{rw_} f32 -> {sh}x{sw} in one launch, every frame bit-identical "
-          f"to plain; device {batch_ms:.4f} ms; bound {b_ms:.4f} ms by "
-          f"{b_by}, share {b_ms / batch_ms:.3f}", flush=True)
+          f"{rw_} f32 -> {sh}x{sw} (seam scale {ss:.4f}) in one launch, "
+          f"every frame bit-identical to plain; tiles {tiles}; device "
+          f"{batch_ms:.4f} ms, kernel {batch_kernel_ms:.4f} ms; bound "
+          f"{b_ms:.4f} ms by {b_by}, share {b_ms / batch_kernel_ms:.3f}",
+          flush=True)
     row["seam_batch"] = {"shape": [len(imgs), sh, sw], "device_ms": batch_ms,
-                         "bound_ms": b_ms, "bound_by": b_by,
-                         "share": b_ms / batch_ms}
+                         "kernel_ms": batch_kernel_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "share": b_ms / batch_kernel_ms,
+                         "tiles": tiles}
     return row
 
 
@@ -1566,13 +1724,28 @@ def _k2_i420_row(torch, dev, label, frames, a23s, oh, ow, regs):
         del wp, mp
     covered = float((outs["wrapper"][1] >= 0.5).float().mean())
     del outs
+    tiles = _routes_of(torch, dev, lambda c: WK._launch(
+        *bare, oh, ow, table=table, i420_staged=False, tiles=c))
+    _check_routes(f"I420 {label} per tap", tiles, (nf, oh, ow),
+                  {"direct": True, **({"zero": True} if nf > 1 else {})})
     ms = _median_ms(wrapper, torch)
     times = {name: [] for name in branches}
+    ktimes = {name: [] for name in branches}
+    kname = {"per_tap": "warp_affine_tile_kernel",
+             "staged": "warp_i420_staged_kernel"}
     for name in list(branches) + list(branches)[::-1]:
-        times[name].append(_device_ms(lambda: WK._launch(
-            *bare, oh, ow, table=table, i420_staged=branches[name]), torch))
+        def launch():
+            return WK._launch(*bare, oh, ow, table=table,
+                              i420_staged=branches[name])
+        times[name].append(_device_ms(launch, torch))
+        ktimes[name].append(_kernel_ms(torch, launch, kname[name]))
     device = {name: float(np.mean(t)) for name, t in times.items()}
+    kernel = {name: float(np.mean(t)) for name, t in ktimes.items()}
     plan_name = "staged" if plan else "per_tap"
+    if "staged" in kernel and kernel["per_tap"] < kernel[plan_name]:
+        _fail("i420", f"{label}: the per-tap gather ({kernel['per_tap']:.4f} "
+                      f"ms) beats the plan's staged kernel "
+                      f"({kernel['staged']:.4f} ms; kernel times)")
     plain_ms = _median_ms(lambda: [WK.warp_frame_plain(frames[k], invs[k],
                                                        oh, ow)
                                    for k in range(nf)], torch)
@@ -1600,15 +1773,17 @@ def _k2_i420_row(torch, dev, label, frames, a23s, oh, ow, regs):
           f"packed I420 -> {oh}x{ow}x3 + mask in one launch, coverage "
           f"{covered:.3f}; plan {plan_name} (largest tile box {box[0]}x"
           f"{box[1]} px, {smem} B of shared memory); wrapper and both "
-          f"kernels bit-identical to plain; wrapper {ms:.4f} ms, plain "
+          f"kernels bit-identical to plain; per-tap tiles {tiles}; wrapper "
+          f"{ms:.4f} ms, plain "
           f"{plain_ms:.3f} ms, yuv420_to_bgr + grid_sample "
           f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
           f"({n_bytes / 1e6:.1f} MB)", flush=True)
     row = {"shape": [nf, h, w, oh, ow], "plan": plan_name, "box": list(box),
-           "ms": ms, "device_ms": device[plan_name], "plain_ms": plain_ms,
+           "ms": ms, "device_ms": device[plan_name],
+           "kernel_ms": kernel[plan_name], "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "share": bound_ms / device[plan_name],
-           "max_abs_err": 0.0}
+           "bound_by": bound_by, "share": bound_ms / kernel[plan_name],
+           "max_abs_err": 0.0, "per_tap_tiles": tiles}
     for name in ("per_tap", "staged"):
         block = smem if name == "staged" else 0
         if name not in device:
@@ -1618,16 +1793,21 @@ def _k2_i420_row(torch, dev, label, frames, a23s, oh, ow, regs):
                   f"above a block's {SMEM_PER_BLOCK}", flush=True)
             continue
         row[name] = {"device_ms": device[name], "device_ms_runs": times[name],
-                     "share": bound_ms / device[name],
+                     "kernel_ms": kernel[name],
+                     "kernel_ms_runs": ktimes[name],
+                     "share": bound_ms / kernel[name],
                      "registers": regs.get(f"i420_{name}", -1),
                      "smem_bytes": block}
         print(f"[smoke] k2 I420 {label} {name}: device {device[name]:.4f} ms "
-              f"(runs {', '.join(f'{t:.4f}' for t in times[name])}), share "
-              f"{bound_ms / device[name]:.3f}, {row[name]['registers']} "
+              f"(runs {', '.join(f'{t:.4f}' for t in times[name])}), kernel "
+              f"{kernel[name]:.4f} ms (runs "
+              f"{', '.join(f'{t:.4f}' for t in ktimes[name])}), share "
+              f"{bound_ms / kernel[name]:.3f}, "
+              f"{row[name]['registers']} "
               f"registers, {block} B of dynamic shared memory a block",
               flush=True)
-    if "staged" in device:
-        row["staged_speedup"] = device["per_tap"] / device["staged"]
+    if "staged" in kernel:
+        row["staged_speedup"] = kernel["per_tap"] / kernel["staged"]
         print(f"[smoke] k2 I420 {label}: staged {row['staged_speedup']:.2f}x "
               f"the per-tap kernel's speed", flush=True)
     return row
@@ -1907,6 +2087,9 @@ def _k2_content_times(torch, dev, src, a23, oh, ow):
                                           content="nonblack"), torch)
     device_ms = _device_ms(lambda: WK._launch(src, 1, inv, oh, ow,
                                               "nonblack"), torch)
+    kernel_ms = _kernel_ms(torch, lambda: WK._launch(src, 1, inv, oh, ow,
+                                                     "nonblack"),
+                           "warp_affine_tile_kernel")
     plain_ms = _median_ms(lambda: WK.warp_frame_plain(
         src, inv, oh, ow, content="nonblack"), torch)
     h, w = src.shape[:2]
@@ -1924,14 +2107,15 @@ def _k2_content_times(torch, dev, src, a23, oh, ow):
     n_bytes = 3.0 * src_px + 16.0 * oh * ow
     bound_ms, bound_by = _bound(n_bytes, 54.0 * oh * ow)
     return {"shape": [h, w, oh, ow], "ms": ms, "device_ms": device_ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "share": bound_ms / device_ms, "max_abs_err": 0.0,
-            "bytes": n_bytes}
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "share": bound_ms / kernel_ms,
+            "max_abs_err": 0.0, "bytes": n_bytes}
 
 
 def _k2_row_text(row):
     return (f"wrapper {row['ms']:.4f} ms, device {row['device_ms']:.4f} ms, "
+            f"kernel {row['kernel_ms']:.4f} ms, "
             f"plain {row['plain_ms']:.3f} ms, grid_sample "
             f"{row['library_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms by "
             f"{row['bound_by']} ({row['bytes'] / 1e6:.1f} MB), share "
@@ -2804,8 +2988,57 @@ def phase_flagship(torch, dev, card, tuning, regs):
           f"launches {launches}; card '{card}'", flush=True)
     del mosaic
     torch.cuda.empty_cache()
-    return (launches, *_flagship_kernels(torch, dev, gt, tuning, planes,
-                                         regs, scale))
+    return (launches, *_flagship_kernels_apart(gt, planes, regs, scale))
+
+
+def _flagship_kernels_apart(gt, planes, regs, seam):
+    """_flagship_kernels in a child process of this script
+    (``--flagship-kernels DIR``) on the inputs saved into DIR, under
+    build/: after the flagship's run, torch.profiler's traces in this
+    process lose the kernels' records (PERF.md section 7), and a fresh
+    process's do not. The child's lines print with this process's;
+    returns its K1 and K2 rows."""
+    d = tempfile.mkdtemp(prefix="smoke_flagship_kernels_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    try:
+        step_y = int(FRAME_H * (1 - ML_OVERLAP_Y))
+        np.save(os.path.join(d, "gt.npy"), gt[:step_y + FRAME_H])
+        np.save(os.path.join(d, "planes.npy"), np.stack(planes))
+        with open(os.path.join(d, "args.json"), "w") as f:
+            json.dump({"regs": regs, "seam": {k: seam[k] for k in
+                                              ("scale", "h", "w")}}, f)
+        sys.stdout.flush()
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                             "--flagship-kernels", d],
+                            timeout=900).returncode
+        if rc != 0:
+            _fail("flagship", f"the kernels' child process exited {rc}")
+        with open(os.path.join(d, "rows.json")) as f:
+            k1, k2 = json.load(f)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return k1, k2
+
+
+def flagship_kernels_main(d: str) -> int:
+    """The child of _flagship_kernels_apart: _flagship_kernels on the
+    inputs in ``d``, its rows written to d/rows.json."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import drone_image_stitch_cpp_tpu_torch  # noqa: F401  (fp32 policy)
+    from drone_image_stitch_cpp_tpu_torch.config.tuning import (
+        load_stitch_tuning)
+    with open(os.path.join(d, "args.json")) as f:
+        args = json.load(f)
+    rows = _flagship_kernels(
+        torch, torch.device("cuda", 0), np.load(os.path.join(d, "gt.npy")),
+        load_stitch_tuning("visible"),
+        list(np.load(os.path.join(d, "planes.npy"))), args["regs"],
+        args["seam"])
+    with open(os.path.join(d, "rows.json"), "w") as f:
+        json.dump(rows, f)
+    return 0
 
 
 def _synchronize_all(torch) -> None:
@@ -3136,6 +3369,18 @@ def main() -> int:
                                    for p, c in paths.items()}
     k2["launches_by_source"] = {p: k2_by_source(c)
                                 for p, c in paths.items()}
+    # the gather kernel's tiles by route (zero, direct) of each launch the
+    # smoke counted, against its plan
+    k2["tiles_by_row"] = {
+        "compose_feed": k2["tiles"],
+        "seam_batch": k2["seam_batch"]["tiles"],
+        "f32_source": k2["f32_source"]["tiles"],
+        "f32_seam_batch": k2["f32_source"]["seam_batch"]["tiles"],
+        "i420_compose_feed_per_tap": k2["i420_source"]["per_tap_tiles"],
+        "i420_seam_batch": k2["i420_seam_batch"]["per_tap_tiles"],
+        "flagship_seam_batch": k2["flagship"]["seam_batch"]["tiles"],
+        "flagship_i420_seam_batch": k2["flagship"]["i420_seam_batch"][
+            "per_tap_tiles"]}
     k1["max_abs_err"] = max(k1["max_abs_err"],
                             k1["global_detect"]["max_abs_err"],
                             k1["fallback_mixed"]["max_abs_err"],
@@ -3148,7 +3393,7 @@ def main() -> int:
         d["card"] = card
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "share", "device_ms")
+             "library_ms", "share", "kernel_ms", "device_ms")
     print(card)
     print(json.dumps({"kernels": [
         {**{k: d[k] for k in order},
@@ -3161,4 +3406,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--flagship-kernels"]:
+        sys.exit(flagship_kernels_main(sys.argv[2]))
     sys.exit(main())

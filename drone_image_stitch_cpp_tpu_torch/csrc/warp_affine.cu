@@ -43,6 +43,28 @@
 // float32 tap as three 4-byte loads (a 12-byte pixel has no wider aligned
 // load).
 //
+// The uint8, float32 and per-tap I420 sources share one gather kernel
+// (warp_affine_tile_kernel). A block covers a kGatherTileH x kTileW
+// output tile (8 x 128: one row a warp, so no warp waits on its taps'
+// loads row after row), maps its corners through the inverse affine with
+// the pixels' own rounded arithmetic (monotone in x and in y, so the
+// corners bound every pixel's coordinates exactly: the box [floor(min),
+// floor(max) + 1] holds every tap, with no margin for rounding) and takes
+// one of two routes:
+//  - zero, when no tap of the tile is in the frame: it writes the tile's
+//    zeros as whole 16-byte stores across the warp and does no per-pixel
+//    work. At a seam-scale downscale a frame covers a sixth of its window,
+//    so most tiles of a seam batch are zero, and their stores are all the
+//    bound counts for them;
+//  - direct, per-tap loads from device memory.
+// A box inside the frame drops the per-tap bounds tests. An I420 pixel's
+// four taps share the 3 x 3 chroma samples around their quad
+// (sample_i420): 22 byte loads where per-tap conversion takes 36.
+// One frame's uint8 or float32 warp may pass its src->dst affine: the
+// entry inverts it on the host (affine_inverse_f32_host's code) and
+// launches nothing when the inverse is not finite, so the wrapper runs no
+// Python inverse and applies its singular test before any launch.
+//
 // The I420 source has two kernels, and the wrapper's host plan
 // (ops/warp_kernel.i420_plan) picks one per launch from the geometry:
 //  - warp_i420_staged_kernel, where neighbouring output pixels share taps
@@ -60,8 +82,8 @@
 //    in shared memory (one padding float every 32, so the lanes' taps 4
 //    pixels apart fall in distinct banks), and warps from there. Its
 //    shared memory is sized on the host for the launch's largest box.
-//  - warp_affine_kernel<I420>, per tap, where a tile's box is too large
-//    for shared memory: a downscale (the seam batch at 0.12: each touched
+//  - the gather kernel, per tap, where a tile's box is too large for
+//    shared memory: a downscale (the seam batch at 0.12: each touched
 //    source pixel is the tap of one output pixel, so per-tap conversion
 //    already converts it once, and a tile's box would be megabytes) or a
 //    strong rotation.
@@ -125,6 +147,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <algorithm>
+#include <cmath>
 #include <type_traits>
 
 #include "affine_inverse.cuh"
@@ -139,6 +163,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTileW = 32 * kPix;    // 128
 constexpr int kTileH = 24;
 static_assert(kTileH % kWarps == 0, "each warp takes the same rows");
+// the gather kernel's output tile: kGatherTileH rows of kTileW
+constexpr int kGatherTileH = 8;
 
 // the single-plane kernel's output tile: kPlaneTileH rows of kTileW, and
 // the shared memory that bounds its staged source box: 30 KB, so seven
@@ -241,18 +267,6 @@ __device__ __forceinline__ float triangle(float c00, float c01, float c10,
   return __fadd_rn(__fmul_rn(0.75f, a), __fmul_rn(0.25f, b));
 }
 
-// Full-resolution chroma at (x, y) from one (ch, cw) plane in device
-// memory.
-__device__ __forceinline__ float fancy_chroma(const uint8_t* p, int cw,
-                                              int ch, int x, int y) {
-  const int cx = x >> 1;
-  const int nx = chroma_nb(x, cw);
-  const uint8_t* r0 = p + (size_t)(y >> 1) * cw;
-  const uint8_t* r1 = p + (size_t)chroma_nb(y, ch) * cw;
-  return triangle((float)__ldg(r0 + cx), (float)__ldg(r0 + nx),
-                  (float)__ldg(r1 + cx), (float)__ldg(r1 + nx));
-}
-
 // A pixel's B, G, R from its luma and upsampled chroma, as
 // ops/color.yuv420_to_bgr converts it: r = Y + 1.402 V,
 // g = (Y - 0.344136286 U) - 0.714136286 V, b = Y + 1.772 U (U, V minus
@@ -279,18 +293,6 @@ __device__ __forceinline__ void tap(const uint8_t* src, int h, int w, int x,
 __device__ __forceinline__ void tap(const float* src, int h, int w, int x,
                                     int y, float* c) {
   load_tap(src, (size_t)y * w + x, c);
-}
-
-// A packed I420 tap, converted where it is read.
-__device__ __forceinline__ void tap(const I420* src, int h, int w, int x,
-                                    int y, float* c) {
-  const uint8_t* yp = reinterpret_cast<const uint8_t*>(src);
-  const int cw = w >> 1;
-  const int ch = h >> 1;
-  const uint8_t* up = yp + (size_t)h * w;
-  const uint8_t* vp = up + (size_t)ch * cw;
-  yuv_bgr((float)__ldg(yp + (size_t)y * w + x),
-          fancy_chroma(up, cw, ch, x, y), fancy_chroma(vp, cw, ch, x, y), c);
 }
 
 // Column c of a staged row, padded one float every 32.
@@ -359,20 +361,36 @@ __device__ __forceinline__ Bilinear bilinear_of(float sx, float sy, int h,
   return b;
 }
 
-__device__ __forceinline__ Bilinear bilinear_at(const Coeffs& k, int h, int w,
-                                                int x, int y) {
-  return bilinear_of(src_coord(k.i00, k.i01, k.i02, x, y),
-                     src_coord(k.i10, k.i11, k.i12, x, y), h, w);
+// bilinear_of for a sample whose four taps the caller knows lie in the
+// frame: the same floor and weights, no bounds tests, no saturation.
+__device__ __forceinline__ Bilinear bilinear_inside(float sx, float sy) {
+  const float x0 = floorf(sx);
+  const float y0 = floorf(sy);
+  Bilinear b;
+  b.fx = __fsub_rn(sx, x0);
+  b.fy = __fsub_rn(sy, y0);
+  b.xi = (int)x0;
+  b.yi = (int)y0;
+  b.in00 = b.in01 = b.in10 = b.in11 = true;
+  return b;
 }
 
-// One output pixel (x, y): BGR into v[0..2], the warped mask into *m (the
-// footprint, or with `content` the warped gray > 2 indicator).
-template <typename T>
-__device__ __forceinline__ void warp_pixel(const T* __restrict__ src,
-                                           int h, int w, const Coeffs& k,
-                                           bool content, int x, int y,
-                                           float* v, float* m) {
-  const Bilinear b = bilinear_at(k, h, w, x, y);
+template <bool kInterior>
+__device__ __forceinline__ Bilinear bilinear_sample_at(float sx, float sy,
+                                                       int h, int w) {
+  if constexpr (kInterior) return bilinear_inside(sx, sy);
+  return bilinear_of(sx, sy, h, w);
+}
+
+// The BGR sample at source (sx, sy) of a frame read through tap(src, ...):
+// BGR into v[0..2], the warped mask into *m (the footprint, or with
+// `content` the warped gray > 2 indicator). kInterior: every tap lies in
+// the frame (bilinear_inside).
+template <bool kInterior, typename T>
+__device__ __forceinline__ void sample_bgr(const T* __restrict__ src, int h,
+                                           int w, bool content, float sx,
+                                           float sy, float* v, float* m) {
+  const Bilinear b = bilinear_sample_at<kInterior>(sx, sy, h, w);
   float t00[3] = {0.f, 0.f, 0.f}, t01[3] = {0.f, 0.f, 0.f};
   float t10[3] = {0.f, 0.f, 0.f}, t11[3] = {0.f, 0.f, 0.f};
   if (b.in00) tap(src, h, w, b.xi, b.yi, t00);
@@ -388,6 +406,95 @@ __device__ __forceinline__ void warp_pixel(const T* __restrict__ src,
   else
     *m = lerp2(b.in00 ? 1.f : 0.f, b.in01 ? 1.f : 0.f, b.in10 ? 1.f : 0.f,
                b.in11 ? 1.f : 0.f, b.fx, b.fy);
+}
+
+// One output pixel (x, y) of the staged I420 kernel's box.
+template <typename T>
+__device__ __forceinline__ void warp_pixel(const T* __restrict__ src,
+                                           int h, int w, const Coeffs& k,
+                                           bool content, int x, int y,
+                                           float* v, float* m) {
+  sample_bgr<false>(src, h, w, content, src_coord(k.i00, k.i01, k.i02, x, y),
+                    src_coord(k.i10, k.i11, k.i12, x, y), v, m);
+}
+
+// One step of libjpeg's triangle filter: 0.75 own + 0.25 neighbour
+// (triangle's a and b along W, then its result along H).
+__device__ __forceinline__ float tri_step(float own, float nb) {
+  return __fadd_rn(__fmul_rn(0.75f, own), __fmul_rn(0.25f, nb));
+}
+
+// The I420 sample at source (sx, sy): the four taps' B, G, R as
+// ops/color.yuv420_to_bgr converts them, blended as sample_bgr blends
+// them, with the footprint mask. The four taps' chroma comes from at most
+// 3 x 3 samples of each chroma plane around the quad: tap column x takes
+// chroma column x >> 1 and its neighbour chroma_nb(x), and for the two
+// columns xi, xi + 1 these lie in {m - 1, m, m + 1}, m = (xi + 1) >> 1
+// (edges replicated); rows likewise. So the quad loads 4 Y + 9 U + 9 V
+// bytes, where per-tap conversion loads 4 x (1 + 4 + 4), and each tap
+// still runs triangle's three steps and yuv_bgr on its own four samples
+// in the plain version's order (a step shared by two taps is computed
+// once: the same operation on the same values), so every value is
+// bit-equal to the per-tap conversion's. Taps out of the frame read 0 and
+// their chroma, read from clamped indices, is unused.
+template <bool kInterior>
+__device__ __forceinline__ void sample_i420(const uint8_t* __restrict__ yp,
+                                            int h, int w, float sx,
+                                            float sy, float* v, float* m) {
+  const Bilinear b = bilinear_sample_at<kInterior>(sx, sy, h, w);
+  float t[4][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f},
+                   {0.f, 0.f, 0.f}};            // t00, t01, t10, t11
+  if (b.in00 | b.in01 | b.in10 | b.in11) {      // xi, yi >= -1 then
+    const int cw = w >> 1;
+    const int ch = h >> 1;
+    const uint8_t* up = yp + (size_t)h * w;
+    const uint8_t* vp = up + (size_t)ch * cw;
+    const int mx = (b.xi + 1) >> 1;
+    const int my = (b.yi + 1) >> 1;
+    const int cx[3] = {max(mx - 1, 0), min(mx, cw - 1), min(mx + 1, cw - 1)};
+    const int cy[3] = {max(my - 1, 0), min(my, ch - 1), min(my + 1, ch - 1)};
+    // column indices (into cx) of own and neighbour chroma for the taps
+    // at xi and xi + 1: even xi (1, 0) and (1, 2); odd xi (0, 1), (1, 0)
+    const bool ex = (b.xi & 1) == 0;
+    const bool ey = (b.yi & 1) == 0;
+    float hu[3][2], hv[3][2];                   // [chroma row][x tap]
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      const uint8_t* ur = up + (size_t)cy[r] * cw;
+      const uint8_t* vr = vp + (size_t)cy[r] * cw;
+      float u[3], vv[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        u[c] = (float)__ldg(ur + cx[c]);
+        vv[c] = (float)__ldg(vr + cx[c]);
+      }
+      hu[r][0] = tri_step(ex ? u[1] : u[0], ex ? u[0] : u[1]);
+      hu[r][1] = tri_step(u[1], ex ? u[2] : u[0]);
+      hv[r][0] = tri_step(ex ? vv[1] : vv[0], ex ? vv[0] : vv[1]);
+      hv[r][1] = tri_step(vv[1], ex ? vv[2] : vv[0]);
+    }
+    const bool in[4] = {b.in00, b.in01, b.in10, b.in11};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int kx = q & 1;                      // x tap: xi + kx
+      const int jy = q >> 1;                     // y tap: yi + jy
+      if (!in[q]) continue;
+      // own and neighbour chroma rows (into cy) of the y tap
+      const float uo = jy ? hu[1][kx] : (ey ? hu[1][kx] : hu[0][kx]);
+      const float un = jy ? (ey ? hu[2][kx] : hu[0][kx])
+                          : (ey ? hu[0][kx] : hu[1][kx]);
+      const float vo = jy ? hv[1][kx] : (ey ? hv[1][kx] : hv[0][kx]);
+      const float vn = jy ? (ey ? hv[2][kx] : hv[0][kx])
+                          : (ey ? hv[0][kx] : hv[1][kx]);
+      yuv_bgr((float)__ldg(yp + (size_t)(b.yi + jy) * w + (b.xi + kx)),
+              tri_step(uo, un), tri_step(vo, vn), t[q]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    v[c] = lerp2(t[0][c], t[1][c], t[2][c], t[3][c], b.fx, b.fy);
+  *m = lerp2(b.in00 ? 1.f : 0.f, b.in01 ? 1.f : 0.f, b.in10 ? 1.f : 0.f,
+             b.in11 ? 1.f : 0.f, b.fx, b.fy);
 }
 
 // A thread's kPix consecutive output pixels i .. i + kPix - 1 of a run of
@@ -421,45 +528,6 @@ __device__ __forceinline__ void store_pixels(float* fout, float* fmask,
     for (int j = 0; j < kPix; ++j)
       if (i + j < end) fmask[j] = m[j];
   }
-}
-
-// grid.x: blocks of kThreads * kPix output pixels; grid.y: frames. Frame n
-// reads src + n * src_stride elements (h x w the frame's logical size) and
-// its coefficients from table[6n..] (or set n of `host` when table is
-// null), and writes out/mask at n * out_h * out_w.
-template <typename T, int S>
-__global__ void __launch_bounds__(kThreads)
-warp_affine_kernel(const T* __restrict__ src, size_t src_stride, int h,
-                   int w, const float* __restrict__ table,
-                   const __grid_constant__ HostSets<S> host, int content,
-                   float* __restrict__ out, float* __restrict__ mask,
-                   int out_h, int out_w) {
-  const size_t total = (size_t)out_h * out_w;
-  const size_t p0 = ((size_t)blockIdx.x * kThreads + threadIdx.x) * kPix;
-  if (p0 >= total) return;
-  const int n = blockIdx.y;
-  const Coeffs k = coeffs_of(table, host, n);
-  const T* frame = src + (size_t)n * src_stride;
-  float* fout = out + (size_t)n * total * 3 + p0 * 3;
-  float* fmask = mask + (size_t)n * total + p0;
-
-  float v[kPix][3];
-  float m[kPix];
-  int x = (int)(p0 % out_w);
-  int y = (int)(p0 / out_w);
-#pragma unroll
-  for (int j = 0; j < kPix; ++j) {
-    if (p0 + j < total) {
-      warp_pixel(frame, h, w, k, content != 0, x, y, v[j], &m[j]);
-    } else {
-      v[j][0] = v[j][1] = v[j][2] = m[j] = 0.f;
-    }
-    if (++x == out_w) {           // the next pixel starts a new row
-      x = 0;
-      ++y;
-    }
-  }
-  store_pixels(fout, fmask, v, m, p0, total);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -558,7 +626,7 @@ __device__ __forceinline__ const uint8_t* staged_row(const uint8_t* sm,
 // grid: (output tiles across, tiles down, frames); a block warps one
 // kTileH x kTileW output tile of frame blockIdx.z from its staged source
 // box (packed I420 frames src_stride bytes apart, coefficients as in
-// warp_affine_kernel). box_h x box_w bounds every tile's box (the host
+// warp_affine_tile_kernel). box_h x box_w bounds every tile's box (the host
 // plan); dynamic shared memory: StagedLayout(box_h, box_w, h, w).bytes.
 // Four blocks an SM: at most 64 registers.
 template <int S>
@@ -816,8 +884,10 @@ __device__ __forceinline__ void plane_tile_of(bool interior, const S& src,
 
 // [*lo, *hi] = [floor(min s), floor(max s) + 1] over the tile [x0, x1] x
 // [y0, y1], s = src_coord(a, b, c, x, y): the source rows (or columns)
-// that its taps read, unclipped (tap_span's span before the clip).
-__device__ __forceinline__ void tile_span(float a, float b, float c, int x0,
+// that its taps read, unclipped (tap_span's span before the clip); and
+// whether all four corners' s are finite (then so is every pixel's: the
+// rounded s is monotone in x and y, so the corners bound it).
+__device__ __forceinline__ bool tile_span(float a, float b, float c, int x0,
                                           int y0, int x1, int y1, float* lo,
                                           float* hi) {
   const float s00 = src_coord(a, b, c, x0, y0);
@@ -826,6 +896,7 @@ __device__ __forceinline__ void tile_span(float a, float b, float c, int x0,
   const float s11 = src_coord(a, b, c, x1, y1);
   *lo = floorf(fminf(fminf(s00, s01), fminf(s10, s11)));
   *hi = floorf(fmaxf(fmaxf(s00, s01), fmaxf(s10, s11))) + 1.f;
+  return isfinite(s00) && isfinite(s01) && isfinite(s10) && isfinite(s11);
 }
 
 // grid: (output tiles across, tiles down, frames); a block warps one
@@ -903,6 +974,145 @@ warp_plane_kernel(const float* __restrict__ src, size_t src_stride, int h,
   plane_tile_of(interior, box, h, w, k, fout, out_w, tx0, ty0, tx1, ty1);
 }
 
+// The gather kernel's routes, in the order of its optional tile counter.
+enum Route { kZeroTile = 0, kDirectTile = 1 };
+
+// The zero tile [tx0, tx1] x [ty0, ty1]: BGR and mask rows of zeros, as
+// the warp of taps that all read the constant-0 border gives them; whole
+// 16-byte stores across each warp's lanes where a row is aligned, warp r
+// taking rows ty0 + r, ty0 + r + kWarps, ...
+__device__ __forceinline__ void zero_tile(float* __restrict__ out,
+                                          float* __restrict__ mask,
+                                          size_t frame_px, int out_w,
+                                          int tx0, int ty0, int tx1,
+                                          int ty1) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nx = tx1 - tx0 + 1;
+  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int y = ty0 + warp; y <= ty1; y += kWarps) {
+    const size_t p = frame_px + (size_t)y * out_w + tx0;
+    float* o = out + 3 * p;
+    float* mk = mask + p;
+    if ((((uintptr_t)o & 15) | ((3 * nx) & 3)) == 0) {
+      for (int i = lane; i < (3 * nx) >> 2; i += 32)
+        reinterpret_cast<float4*>(o)[i] = z;
+    } else {
+      for (int i = lane; i < 3 * nx; i += 32) o[i] = 0.f;
+    }
+    if ((((uintptr_t)mk & 15) | (nx & 3)) == 0) {
+      for (int i = lane; i < nx >> 2; i += 32)
+        reinterpret_cast<float4*>(mk)[i] = z;
+    } else {
+      for (int i = lane; i < nx; i += 32) mk[i] = 0.f;
+    }
+  }
+}
+
+// The sample of a gather source at (sx, sy): BGR uint8 or float32 frames
+// through sample_bgr, packed I420 frames through sample_i420 (footprint
+// mask only).
+template <bool kInterior, typename T>
+__device__ __forceinline__ void sample_any(const T* src, int h, int w,
+                                           bool content, float sx, float sy,
+                                           float* v, float* m) {
+  if constexpr (std::is_same<T, I420>::value)
+    sample_i420<kInterior>(reinterpret_cast<const uint8_t*>(src), h, w, sx,
+                           sy, v, m);
+  else
+    sample_bgr<kInterior>(src, h, w, content, sx, sy, v, m);
+}
+
+// The non-zero tile [tx0, tx1] x [ty0, ty1] of frame n (its pixels from
+// frame_px on) from `src`: warp r takes rows ty0 + r, ty0 + r + kWarps,
+// ..., each lane the 4 consecutive pixels from x = tx0 + 4 lane, written
+// by store_pixels. A pixel's source coordinate is src_coord's ((a x) +
+// (b y)) + c.
+template <bool kInterior, typename T>
+__device__ __forceinline__ void gather_tile(const T* src, int h, int w,
+                                            const Coeffs& k, bool content,
+                                            float* __restrict__ out,
+                                            float* __restrict__ mask,
+                                            size_t frame_px, int out_w,
+                                            int tx0, int ty0, int tx1,
+                                            int ty1) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int x = tx0 + lane * kPix;
+  if (x > tx1) return;
+  for (int y = ty0 + warp; y <= ty1; y += kWarps) {
+    float v[kPix][3], m[kPix];       // v[i], m[i]: pixel x + i
+#pragma unroll
+    for (int i = 0; i < kPix; ++i) {
+      const int px = x + i;
+      if (px <= tx1) {
+        sample_any<kInterior>(src, h, w, content,
+                              src_coord(k.i00, k.i01, k.i02, px, y),
+                              src_coord(k.i10, k.i11, k.i12, px, y), v[i],
+                              &m[i]);
+      } else {
+        v[i][0] = v[i][1] = v[i][2] = m[i] = 0.f;
+      }
+    }
+    const size_t p = frame_px + (size_t)y * out_w + x;
+    store_pixels(out + p * 3, mask + p, v, m, x, tx1 + 1);
+  }
+}
+
+// The gather kernel of the uint8, float32 and per-tap I420 sources. grid:
+// (output tiles across, tiles down, frames); a block warps one
+// kGatherTileH x kTileW output tile of frame blockIdx.z (src + n *
+// src_stride elements, h x w its logical size) into out/mask from n *
+// out_h * out_w on. Frame n's dst->src coefficients are row n of the
+// device `table`, else set n of `host`. The block maps its tile's corners
+// (tile_span) and takes one route, uniform across it:
+//  - zero: every corner finite and no tap in the frame: zero_tile, no
+//    per-pixel work (at a seam-scale downscale most of a frame's window);
+//  - direct: the taps from device memory (__ldg).
+// A box inside the frame (every tap in range) drops the bounds tests and
+// saturating conversions. tiles, when not null, counts the tiles of each
+// Route. kTileBlocks<T> blocks an SM bound ptxas's registers: the direct
+// route is bound by its taps' load latency, so it needs warps in flight.
+template <typename T>
+constexpr int kTileBlocks = std::is_same<T, I420>::value ? 4 : 5;
+
+template <typename T, int S>
+__global__ void __launch_bounds__(kThreads, kTileBlocks<T>)
+warp_affine_tile_kernel(const T* __restrict__ src, size_t src_stride,
+                        int h, int w, const float* __restrict__ table,
+                        const __grid_constant__ HostSets<S> host,
+                        int content, float* __restrict__ out,
+                        float* __restrict__ mask, int out_h, int out_w,
+                        int* __restrict__ tiles) {
+  const int n = blockIdx.z;
+  const Coeffs k = coeffs_of(table, host, n);
+  const int tx0 = blockIdx.x * kTileW;
+  const int ty0 = blockIdx.y * kGatherTileH;
+  const int tx1 = min(tx0 + kTileW, out_w) - 1;
+  const int ty1 = min(ty0 + kGatherTileH, out_h) - 1;
+  const size_t frame_px = (size_t)n * out_h * out_w;
+  float lx, ux, ly, uy;
+  const bool finite =
+      tile_span(k.i00, k.i01, k.i02, tx0, ty0, tx1, ty1, &lx, &ux) &
+      tile_span(k.i10, k.i11, k.i12, tx0, ty0, tx1, ty1, &ly, &uy);
+  int route = kDirectTile;
+  if (finite && !(lx <= (float)(w - 1) && ux >= 0.f &&
+                  ly <= (float)(h - 1) && uy >= 0.f)) {
+    route = kZeroTile;
+    zero_tile(out, mask, frame_px, out_w, tx0, ty0, tx1, ty1);
+  } else {
+    const T* frame = src + (size_t)n * src_stride;
+    if (finite && lx >= 0.f && ux <= (float)(w - 1) && ly >= 0.f &&
+        uy <= (float)(h - 1))
+      gather_tile<true>(frame, h, w, k, content != 0, out, mask, frame_px,
+                        out_w, tx0, ty0, tx1, ty1);
+    else
+      gather_tile<false>(frame, h, w, k, content != 0, out, mask, frame_px,
+                         out_w, tx0, ty0, tx1, ty1);
+  }
+  if (tiles != nullptr && threadIdx.x == 0) atomicAdd(tiles + route, 1);
+}
+
 // One thread an affine: out[6i..] = affine_inverse::invert(a23s[6i..]).
 __global__ void affine_inverse_kernel(const float* __restrict__ a23s,
                                       float* __restrict__ out, int n) {
@@ -941,28 +1151,6 @@ bool coefficients_ok(const float* table, const float* host, int n) {
   return table != nullptr || (host != nullptr && n <= kByValue);
 }
 
-// n frames of h x w x 3 elements, src_stride elements apart; table: device
-// (n, 6) float32 dst->src coefficients, or null with the n sets at host
-// passed by value.
-template <typename T>
-int launch(const T* src, long long src_stride, int h, int w,
-           const float* table, const float* host, int content, float* out,
-           float* mask, int out_h, int out_w, int n, void* stream) {
-  const size_t total = (size_t)out_h * out_w;
-  if (total == 0 || n <= 0) return 0;
-  if (!coefficients_ok(table, host, n)) return (int)cudaErrorInvalidValue;
-  const size_t threads = (total + kPix - 1) / kPix;
-  const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads),
-                  (unsigned)n);
-  return with_sets(table, host, n, [&](const auto& sets) {
-    constexpr int S = sets_of<decltype(sets)>();
-    warp_affine_kernel<T, S><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        src, (size_t)src_stride, h, w, table, sets, content, out, mask,
-        out_h, out_w);
-    return (int)cudaGetLastError();
-  });
-}
-
 // Lets warp_i420_staged_kernel<S> take smem_bytes of dynamic shared
 // memory: above 48 KB only after opting in, per device.
 template <int S>
@@ -980,6 +1168,56 @@ int opt_in_staged(int smem_bytes) {
     opted_in[dev] = smem_bytes;
   }
   return 0;
+}
+
+// What a launch returns, beside 0 and the CUDA errors, when a frame's
+// src->dst affine has no finite inverse: it launched nothing (the wrapper
+// then applies inverse_coeffs' singular test).
+constexpr int kNotFinite = -1;
+
+// The n src->dst affines at a23s inverted on the host (affine_inverse's
+// host path: inverse_coeffs' bits) into k (n x 6): the number of them
+// with a coefficient that is not finite.
+int host_inverse(const float* a23s, int n, float* k) {
+  int bad = 0;
+  for (int f = 0; f < n; ++f) {
+    affine_inverse::invert(a23s + 6 * f, k + 6 * f);
+    bool finite = true;
+    for (int j = 0; j < 6; ++j) finite = finite && std::isfinite(k[6 * f + j]);
+    bad += finite ? 0 : 1;
+  }
+  return bad;
+}
+
+// The gather kernel over n frames of h x w (src_stride elements apart):
+// table a device (n, 6) float32 array of dst->src coefficients, or null
+// with the n sets at host passed by value: dst->src coefficients, or with
+// invert src->dst affines, inverted here first. Returns kNotFinite, and
+// launches nothing, when such an inverse is not finite.
+template <typename T>
+int launch_tiles(const T* src, long long src_stride, int h, int w,
+                 const float* table, const float* host, int invert,
+                 int content, float* out, float* mask, int out_h, int out_w,
+                 int n, int* tiles, void* stream) {
+  if ((size_t)out_h * out_w == 0 || n <= 0) return 0;
+  if (!coefficients_ok(table, host, n) || (invert && table != nullptr))
+    return (int)cudaErrorInvalidValue;
+  float k[6 * kByValue];
+  if (invert) {
+    if (host_inverse(host, n, k) != 0) return kNotFinite;
+    host = k;
+  }
+  const dim3 grid((unsigned)((out_w + kTileW - 1) / kTileW),
+                  (unsigned)((out_h + kGatherTileH - 1) / kGatherTileH),
+                  (unsigned)n);
+  return with_sets(table, host, n, [&](const auto& sets) {
+    constexpr int S = sets_of<decltype(sets)>();
+    warp_affine_tile_kernel<T, S><<<grid, kThreads, 0,
+                                    (cudaStream_t)stream>>>(
+        src, (size_t)src_stride, h, w, table, sets, content, out, mask,
+        out_h, out_w, tiles);
+    return (int)cudaGetLastError();
+  });
 }
 
 // The staged I420 kernel over boxes of at most box_h x box_w; smem_bytes
@@ -1009,41 +1247,51 @@ int launch_staged(const uint8_t* src, long long src_stride, int h, int w,
 }  // namespace
 
 // uint8 frames (src_stride in bytes); content: 0 for the footprint mask,
-// 1 for the warped gray > 2 indicator. table: device (n, 6) dst->src
-// coefficients, or null with the n <= kByValue sets at the host pointer
-// `host` (read during the call, passed to the kernel by value).
+// 1 for the warped gray > 2 indicator. table: device (n, 6) float32
+// dst->src coefficients, or null with the n <= kByValue sets at the host
+// pointer `host` (read during the call, passed to the kernel by value):
+// dst->src coefficients, or with invert != 0 src->dst affines that the
+// entry inverts on the host. tiles: device int counts of zero and direct
+// tiles (added to), or null. Returns 0, a CUDA error, or kNotFinite
+// (nothing launched: an inverse is not finite).
 extern "C" int warp_affine_u8(const uint8_t* src, long long src_stride,
                               int h, int w, const float* table,
-                              const float* host, int content, float* out,
-                              float* mask, int out_h, int out_w, int n,
-                              void* stream) {
-  return launch(src, src_stride, h, w, table, host, content, out, mask,
-                out_h, out_w, n, stream);
+                              const float* host, int invert, int content,
+                              float* out, float* mask, int out_h, int out_w,
+                              int n, int* tiles, void* stream) {
+  return launch_tiles(src, src_stride, h, w, table, host, invert, content,
+                      out, mask, out_h, out_w, n, tiles, stream);
 }
 
-// float32 frames (src_stride in floats); the mask is always the footprint.
+// float32 frames (src_stride in floats); the mask is always the footprint;
+// the rest as warp_affine_u8.
 extern "C" int warp_affine_f32(const float* src, long long src_stride,
                                int h, int w, const float* table,
-                               const float* host, float* out, float* mask,
-                               int out_h, int out_w, int n, void* stream) {
-  return launch(src, src_stride, h, w, table, host, 0, out, mask, out_h,
-                out_w, n, stream);
+                               const float* host, int invert, float* out,
+                               float* mask, int out_h, int out_w, int n,
+                               int* tiles, void* stream) {
+  return launch_tiles(src, src_stride, h, w, table, host, invert, 0, out,
+                      mask, out_h, out_w, n, tiles, stream);
 }
 
 // packed I420 uint8 frames (h x w the logical size, h % 4 == 0, w % 2 ==
-// 0; src_stride in bytes, h * w * 3 / 2 a frame); the mask is always the
-// footprint. box_h == 0: the per-tap kernel; else the staged kernel over
-// source boxes of at most box_h x box_w with smem_bytes of dynamic shared
-// memory (ops/warp_kernel.i420_plan).
+// 0; src_stride in bytes, h * w * 3 / 2 a frame); dst->src coefficients
+// as warp_affine_u8's; the mask is always the footprint. box_h == 0: the
+// gather kernel (zero and direct tiles, counted in `tiles` when not
+// null); else the staged kernel over source boxes of at most box_h x
+// box_w with smem_bytes of dynamic shared memory (ops/warp_kernel.
+// i420_plan).
 extern "C" int warp_affine_i420(const uint8_t* src, long long src_stride,
                                 int h, int w, const float* table,
                                 const float* host, float* out, float* mask,
                                 int out_h, int out_w, int n, int box_h,
-                                int box_w, int smem_bytes, void* stream) {
+                                int box_w, int smem_bytes, int* tiles,
+                                void* stream) {
   if ((h & 3) || (w & 1)) return (int)cudaErrorInvalidValue;
   if (box_h == 0)
-    return launch(reinterpret_cast<const I420*>(src), src_stride, h, w,
-                  table, host, 0, out, mask, out_h, out_w, n, stream);
+    return launch_tiles(reinterpret_cast<const I420*>(src), src_stride, h,
+                        w, table, host, 0, 0, out, mask, out_h, out_w, n,
+                        tiles, stream);
   return launch_staged(src, src_stride, h, w, table, host, out, mask, out_h,
                        out_w, n, box_h, box_w, smem_bytes, stream);
 }
@@ -1095,13 +1343,5 @@ extern "C" int affine_inverse_f32(const float* a23s, float* out, int n,
 // number of affines with a coefficient that is not finite.
 extern "C" int affine_inverse_f32_host(const float* a23s, float* out,
                                        int n) {
-  int bad = 0;
-  for (int i = 0; i < n; ++i) {
-    float* o = out + 6 * i;
-    affine_inverse::invert(a23s + 6 * i, o);
-    bool finite = true;
-    for (int j = 0; j < 6; ++j) finite = finite && std::isfinite(o[j]);
-    bad += finite ? 0 : 1;
-  }
-  return bad;
+  return host_inverse(a23s, n, out);
 }

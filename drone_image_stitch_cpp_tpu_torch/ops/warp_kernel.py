@@ -20,11 +20,17 @@ the kernel converts exactly as :func:`ops.color.yuv420_to_bgr` converts
 the frame (the JAX package feeds its kernel
 ``yuv420_to_bgr(frame)``). Float32 and I420 frames take
 ``content="ones"`` only, as no caller of either package warps them in
-content mode. An I420 launch takes one of two kernels, as
-:func:`i420_plan` decides from the host affines: the staged kernel, which
-converts each output tile's source box once in shared memory (the
-compose feed), or the per-tap kernel, which converts each tap where it
-is read (a downscale such as the seam batch, or a strong rotation).
+content mode. The uint8, float32 and per-tap I420 sources share one
+gather kernel, whose blocks each take a :data:`TILE` output tile and
+pick its route (:data:`ROUTES`) from the tile's corners: zero (no tap in
+the frame: the tile's zeros and nothing else, most of a seam batch) or
+direct (per-tap loads); an I420 pixel's four taps share their quad's
+chroma samples. An I420 launch takes one of
+two kernels, as :func:`i420_plan` decides from the host affines: the
+staged kernel, which converts each output tile's source box once in
+shared memory (the compose feed), or the gather kernel, which converts
+each tap where it is read (a downscale such as the seam batch, or a
+strong rotation).
 
 :func:`warp_frame` (one frame) and :func:`warp_frames` (a batch, as the
 JAX package's ``warp_affine_many``) launch the kernel for CUDA tensors and
@@ -33,7 +39,11 @@ the other. A launch passes up to :data:`BY_VALUE_MAX` frames'
 coefficients by value, in the kernel's parameters, and a device table
 only above that, so it copies nothing to the card; the coefficients come
 from one call of the kernel library's host inverse
-(:func:`host_inverse_coeffs`), whatever the batch. :func:`warp_planes`
+(:func:`host_inverse_coeffs`), whatever the batch; one uint8 or float32
+frame passes its src->dst affine to the launch's entry, which runs the
+same inverse in its own host code and launches nothing when the inverse
+is not finite (the wrapper then raises where :func:`inverse_coeffs`
+does). :func:`warp_planes`
 warps single float32 planes with no mask (the JAX package's
 ``warp_affine_traced`` and ``warp_affine_many``: the throughput
 benchmark's 4K gray warps); its kernel takes the src->dst affines (a
@@ -67,11 +77,15 @@ KERNEL_SOURCE = "warp_affine.cu"
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # src, its stride, h, w, device table, host coefficient sets
 _HEAD = [_P, _LL, _I, _I, _P, _P]
-_TAIL = [_P, _P, _I, _I, _I, _P]     # out, mask, out_h, out_w, n, stream
+# out, mask, out_h, out_w, n
+_OUT = [_P, _P, _I, _I, _I]
 KERNEL_SIGNATURES = {
-    "warp_affine_u8": (_I, _HEAD + [_I] + _TAIL),
-    "warp_affine_f32": (_I, _HEAD + _TAIL),
-    "warp_affine_i420": (_I, _HEAD + _TAIL[:-1] + [_I] * 3 + _TAIL[-1:]),
+    # ... invert, content, out .. n, tile counts, stream
+    "warp_affine_u8": (_I, _HEAD + [_I, _I] + _OUT + [_P, _P]),
+    # ... invert, out .. n, tile counts, stream
+    "warp_affine_f32": (_I, _HEAD + [_I] + _OUT + [_P, _P]),
+    # ... out .. n, box rows, box columns, shared memory, tile counts, stream
+    "warp_affine_i420": (_I, _HEAD + _OUT + [_I] * 3 + [_P, _P]),
     # src, stride, h, w, device affines and their 3 strides, host affines,
     # out, out_h, out_w, n, direct, staged-tile count, stream
     "warp_affine_plane_f32": (_I, [_P, _LL, _I, _I, _P, _LL, _LL, _LL, _P,
@@ -83,8 +97,10 @@ CONTENT_MODES = ("ones", "nonblack")
 SOURCE_DTYPES = (torch.uint8, torch.float32)
 _MAX_FRAMES = 65535          # grid.y (grid.z when staged) of one launch
 BY_VALUE_MAX = 160           # coefficient sets a launch passes by value
-I420_TILE = (24, 128)        # the staged kernel's output tile: rows, columns
+TILE = (8, 128)              # the gather kernel's output tile (rows,
+I420_TILE = (24, 128)        # columns), and the staged I420 kernel's
 I420_SMEM_CAP = 96 * 1024    # larger boxes take the per-tap kernel
+ROUTES = ("zero", "direct")  # the gather kernel's tile counts
 PLANE_TILE = (32, 128)       # the single-plane kernel's output tile
 _F32 = struct.Struct("f")
 
@@ -172,6 +188,35 @@ def device_inverse_coeffs(a23s: torch.Tensor) -> torch.Tensor:
                        dim=-1).to(torch.float32)
 
 
+_FNS = {}
+
+
+def _fns() -> dict:
+    """The kernel library's typed C entries, resolved at the first call."""
+    if not _FNS:
+        _FNS.update(load_kernel(KERNEL_SOURCE, KERNEL_SIGNATURES).fns)
+    return _FNS
+
+
+NOT_FINITE = -1     # launched nothing: an affine's inverse is not finite
+
+
+def _call(name: str, dev: torch.device, *args) -> int:
+    """Entry ``name`` of the kernel library with ``args`` and the current
+    stream of ``dev``, on ``dev`` (a ``<<<>>>`` launch binds to the current
+    device; switched only when it is another). Raises when the entry
+    returns a CUDA error; returns 0 or :data:`NOT_FINITE`."""
+    fn = _fns()[name]
+    if dev.index == torch._C._cuda_getDevice():
+        err = fn(*args, stream_handle(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, stream_handle(dev))
+    if err > 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    return err
+
+
 def _host_sets(a23s) -> ctypes.Array:
     """:func:`host_inverse_coeffs` as the flat ctypes float array that
     :func:`_launch` passes on as it is (ctypes arrays, not numpy's
@@ -181,14 +226,24 @@ def _host_sets(a23s) -> ctypes.Array:
     if k == 0 or k % 6:
         raise ValueError(f"affines must be (N, 2, 3), got shape {a.shape}")
     out = (ctypes.c_float * k)()
-    bad = load_kernel(KERNEL_SOURCE, KERNEL_SIGNATURES).fns[
-        "affine_inverse_f32_host"](
-            (ctypes.c_float * k).from_buffer_copy(a), out, k // 6)
+    bad = _fns()["affine_inverse_f32_host"](
+        (ctypes.c_float * k).from_buffer_copy(a), out, k // 6)
     if bad:
         rows = np.frombuffer(out, np.float32).reshape(-1, 6)
         for i in np.flatnonzero(~np.isfinite(rows).all(axis=1)):
             inverse_coeffs(a.reshape(-1, 6)[i])  # raises where singular
     return out
+
+
+def _model_sets(a23s) -> ctypes.Array:
+    """The src->dst affines themselves as the flat ctypes float array of a
+    launch whose entry inverts them on the host (``invert``); the entry
+    launches nothing and reports an affine whose inverse is not finite
+    (:data:`NOT_FINITE`)."""
+    a = np.ascontiguousarray(a23s, np.float32)
+    if a.size == 0 or a.size % 6:
+        raise ValueError(f"affines must be (N, 2, 3), got shape {a.shape}")
+    return (ctypes.c_float * a.size).from_buffer_copy(a)
 
 
 def host_inverse_coeffs(a23s) -> np.ndarray:
@@ -212,14 +267,8 @@ def kernel_inverse_coeffs(a23s: torch.Tensor) -> torch.Tensor:
         return device_inverse_coeffs(a)
     a = a.contiguous()
     out = torch.empty((a.shape[0], 6), dtype=torch.float32, device=a.device)
-    fn = load_kernel(KERNEL_SOURCE,
-                     KERNEL_SIGNATURES).fns["affine_inverse_f32"]
-    with torch.cuda.device(a.device):
-        err = fn(a.data_ptr(), out.data_ptr(), a.shape[0],
-                 stream_handle(a.device))
-    if err != 0:
-        raise RuntimeError(f"affine_inverse_f32 launch failed: cudaError "
-                           f"{err}")
+    _call("affine_inverse_f32", a.device, a.data_ptr(), out.data_ptr(),
+          a.shape[0])
     return out
 
 
@@ -319,64 +368,86 @@ def warp_frames_plain(frames: torch.Tensor, invs, out_h: int,
             torch.stack([o[1] for o in outs]))
 
 
-def _launch(src: torch.Tensor, nf: int, invs, out_h: int, out_w: int,
-            content: str = "ones", table=None, i420_staged=None):
+def _launch(src: torch.Tensor, nf: int, sets, out_h: int, out_w: int,
+            content: str = "ones", table=None, i420_staged=None,
+            invert: bool = False, tiles: torch.Tensor = None):
     """One kernel launch over ``nf`` contiguous frames: (H, W, 3) uint8 or
     float32 BGR, or (H*3/2, W) packed I420 (``src``: one frame, or a batch
-    with a leading N); ``invs``: nf coefficient sets (a tuple when nf ==
-    1, a list of tuples, an (nf, 6) float32 array, or the flat ctypes
-    array of :func:`_host_sets`), passed by value up to
-    :data:`BY_VALUE_MAX` of them, else read from the device (N, 6) float32
-    ``table`` (made here, by a pageable copy, when None; given, it is read
-    at any N). ``i420_staged``
-    forces the staged (True) or the per-tap (False) kernel of an I420
-    source; None takes :func:`i420_plan`'s choice. Returns the warped
-    planes, shaped with src's leading dimensions, and whether the staged
-    kernel ran."""
-    f32 = src.dtype == torch.float32
-    i420 = _is_i420(src)
-    name = ("warp_affine_f32" if f32 else
-            "warp_affine_i420" if i420 else "warp_affine_u8")
-    fn = load_kernel(KERNEL_SOURCE, KERNEL_SIGNATURES).fns[name]
+    with a leading N); ``sets``: nf sets of six floats (a tuple when nf ==
+    1, a list of tuples, an (nf, 6) float32 array, or a flat ctypes array
+    of :func:`_host_sets` / :func:`_model_sets`), the dst->src
+    coefficients, or with ``invert`` (BGR frames, by value only) the
+    src->dst affines, which the entry inverts on the host (it launches
+    nothing where an inverse is not finite: this raises where
+    :func:`inverse_coeffs` does, else launches the coefficients of
+    :func:`_host_sets`, as a batch would); passed by value up to
+    :data:`BY_VALUE_MAX` of them, else read from the device (N, 6)
+    float32 ``table`` (made here, by a pageable copy, when None; given, it
+    is read at any N).
+    ``i420_staged`` forces the staged (True) or the per-tap gather (False)
+    kernel of an I420 source; None takes :func:`i420_plan`'s choice.
+    ``tiles``: a card int32 tensor of 2 to which the gather kernel adds
+    its zero and direct tiles (:data:`ROUTES`).
+    Returns the warped planes (one allocation: BGR, then the mask from a
+    16-byte boundary), shaped with src's leading dimensions, and whether
+    the staged I420 kernel ran."""
+    shape, dtype = src.shape, src.dtype
+    f32 = dtype == torch.float32
+    i420 = dtype == torch.uint8 and shape[-1] != 3      # _is_i420
     if i420:
-        lead = src.shape[:-2]
-        h, w = src.shape[-2] * 2 // 3, src.shape[-1]
-        stride = src.shape[-2] * w
+        lead = shape[:-2]
+        h, w = shape[-2] * 2 // 3, shape[-1]
+        stride = shape[-2] * w
     else:
-        lead = src.shape[:-3]
-        h, w = src.shape[-3], src.shape[-2]
+        lead = shape[:-3]
+        h, w = shape[-3], shape[-2]
         stride = h * w * 3
     dev = src.device
-    wimg = torch.empty(lead + (out_h, out_w, 3), dtype=torch.float32,
-                       device=dev)
-    mask = torch.empty(lead + (out_h, out_w), dtype=torch.float32,
-                       device=dev)
-    sets = invs if isinstance(invs, ctypes.Array) else (
-        ctypes.c_float * (6 * nf)).from_buffer_copy(
-            np.ascontiguousarray(invs, np.float32))
+    px = out_h * out_w
+    off = (3 * nf * px + 3) & ~3
+    buf = torch.empty(off + nf * px, dtype=torch.float32, device=dev)
+    wimg = buf.as_strided(lead + (out_h, out_w, 3),
+                          (3 * px, 3 * out_w, 3, 1)[-3 - len(lead):])
+    mask = buf.as_strided(lead + (out_h, out_w), (px, out_w, 1)[-2 - len(
+        lead):], off)
+    if not isinstance(sets, ctypes.Array):
+        sets = (ctypes.c_float * (6 * nf)).from_buffer_copy(
+            np.ascontiguousarray(sets, np.float32))
     if table is None and nf > BY_VALUE_MAX:
         table = torch.frombuffer(sets, dtype=torch.float32).to(dev)
+    if invert and table is not None:
+        raise ValueError("a launch that inverts takes its affines by value")
     ptr = table.data_ptr() if table is not None else None
     host = sets if table is None else None
-    mode = () if f32 or i420 else (int(content == "nonblack"),)
-    plan = None
-    frame_invs = (np.frombuffer(sets, np.float32).reshape(-1, 6).tolist()
-                  if i420 else None)                # Python floats
-    if i420 and i420_staged is None:
-        plan = i420_plan(frame_invs, h, w, out_h, out_w)
-    elif i420 and i420_staged:
-        staged_box = i420_box(frame_invs, h, w, out_h, out_w)
-        if staged_box is None:
-            raise ValueError("no staged box for non-finite coordinates")
-        plan = (*staged_box, i420_smem_bytes(staged_box, h, w))
-    box = (plan or (0, 0, 0)) if i420 else ()
-    with torch.cuda.device(dev):    # <<<>>> binds to the current device
-        err = fn(src.data_ptr(), stride, h, w, ptr, host, *mode,
-                 wimg.data_ptr(), mask.data_ptr(), out_h, out_w, nf, *box,
-                 stream_handle(dev))
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    return wimg, mask, plan is not None
+    counter = tiles.data_ptr() if tiles is not None else None
+    out = (wimg.data_ptr(), mask.data_ptr(), out_h, out_w, nf)
+    if i420:
+        if invert:
+            raise ValueError("the I420 source takes dst->src coefficients")
+        frame_invs = np.frombuffer(sets, np.float32).reshape(
+            -1, 6).tolist()                          # Python floats
+        plan = None
+        if i420_staged is None:
+            plan = i420_plan(frame_invs, h, w, out_h, out_w)
+        elif i420_staged:
+            staged_box = i420_box(frame_invs, h, w, out_h, out_w)
+            if staged_box is None:
+                raise ValueError("no staged box for non-finite coordinates")
+            plan = (*staged_box, i420_smem_bytes(staged_box, h, w))
+        _call("warp_affine_i420", dev, src.data_ptr(), stride, h, w, ptr,
+              host, *out, *(plan or (0, 0, 0)), counter)
+        return wimg, mask, plan is not None
+    if f32:
+        code = _call("warp_affine_f32", dev, src.data_ptr(), stride, h, w,
+                     ptr, host, int(invert), *out, counter)
+    else:
+        code = _call("warp_affine_u8", dev, src.data_ptr(), stride, h, w,
+                     ptr, host, int(invert), int(content == "nonblack"),
+                     *out, counter)
+    if code == NOT_FINITE:          # raises where an affine is singular
+        return _launch(src, nf, _host_sets(np.frombuffer(sets, np.float32)),
+                       out_h, out_w, content, tiles=tiles)
+    return wimg, mask, False
 
 
 def _check(frames: torch.Tensor, ndim: int, out_h: int, out_w: int,
@@ -384,24 +455,25 @@ def _check(frames: torch.Tensor, ndim: int, out_h: int, out_w: int,
     """``ndim``: the rank of BGR frames here (3 for one, 4 for a batch);
     packed I420 frames have one dimension less."""
     lead = "" if ndim == 3 else "N, "
-    i420 = frames.dtype == torch.uint8 and frames.ndim == ndim - 1
+    shape, dtype = frames.shape, frames.dtype
+    i420 = dtype == torch.uint8 and len(shape) == ndim - 1
     if i420:
-        rows, w = frames.shape[-2], frames.shape[-1]
+        rows, w = shape[-2], shape[-1]
         if rows % 6 or w % 2 or rows == 0:
             raise ValueError(f"K2's I420 source takes ({lead}H*3/2, W) uint8 "
                              f"frames with H % 4 == 0 and W % 2 == 0, got "
-                             f"{tuple(frames.shape)}")
-    elif frames.dtype not in SOURCE_DTYPES or frames.ndim != ndim \
-            or frames.shape[-1] != 3:
+                             f"{tuple(shape)}")
+    elif dtype not in SOURCE_DTYPES or len(shape) != ndim \
+            or shape[-1] != 3:
         raise ValueError(f"K2 takes ({lead}H, W, 3) uint8 or float32 BGR or "
                          f"({lead}H*3/2, W) uint8 I420 frames, got "
-                         f"{tuple(frames.shape)} {frames.dtype}")
+                         f"{tuple(shape)} {dtype}")
     if out_h <= 0 or out_w <= 0:
         raise ValueError(f"empty output window {out_h}x{out_w}")
     if content not in CONTENT_MODES:
         raise ValueError(f"content must be one of {CONTENT_MODES}, got "
                          f"{content!r}")
-    if content != "ones" and (frames.dtype == torch.float32 or i420):
+    if content != "ones" and (dtype == torch.float32 or i420):
         raise ValueError(f"content={content!r} takes uint8 BGR frames; "
                          f"float32 and I420 frames warp with "
                          f"content='ones' only")
@@ -426,8 +498,13 @@ def warp_frame(img: torch.Tensor, a23, out_h: int, out_w: int,
     if img.device.type == "cpu":
         return warp_frame_plain(img, inverse_coeffs(a23), out_h, out_w,
                                 content)
-    wimg, mask, staged = _launch(img.contiguous(), 1, _host_sets(a23),
-                                 out_h, out_w, content)
+    src = img.contiguous()
+    if _is_i420(src):       # the host plan needs the coefficients
+        wimg, mask, staged = _launch(src, 1, _host_sets(a23), out_h, out_w,
+                                     content)
+    else:
+        wimg, mask, staged = _launch(src, 1, _model_sets(a23), out_h,
+                                     out_w, content, invert=True)
     _count_launch(warp_frame, content, img, staged)
     return wimg, mask
 
@@ -512,8 +589,6 @@ def _launch_planes(src: torch.Tensor, a23s, out_h: int, out_w: int,
     (by default a tile whose source box fits the block's shared memory
     stages it: the faster route on the card); ``staged_tiles``, a card
     int32 scalar, adds the tiles that staged."""
-    fn = load_kernel(KERNEL_SOURCE,
-                     KERNEL_SIGNATURES).fns["warp_affine_plane_f32"]
     n, h, w = src.shape
     out = torch.empty((n, out_h, out_w), dtype=torch.float32,
                       device=src.device)
@@ -522,13 +597,9 @@ def _launch_planes(src: torch.Tensor, a23s, out_h: int, out_w: int,
     else:
         dev_a, strides, host = None, (0, 0, 0), a23s.ctypes.data
     counter = None if staged_tiles is None else staged_tiles.data_ptr()
-    with torch.cuda.device(src.device):
-        err = fn(src.data_ptr(), h * w, h, w, dev_a, *strides, host,
-                 out.data_ptr(), out_h, out_w, n, int(direct), counter,
-                 stream_handle(src.device))
-    if err != 0:
-        raise RuntimeError(f"warp_affine_plane_f32 launch failed: cudaError "
-                           f"{err}")
+    _call("warp_affine_plane_f32", src.device, src.data_ptr(), h * w, h, w,
+          dev_a, *strides, host, out.data_ptr(), out_h, out_w, n,
+          int(direct), counter)
     return out
 
 

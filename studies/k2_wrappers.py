@@ -17,9 +17,12 @@ of the host's speed spreads over all of them: ``events``, the median of
 CUDA events around one call followed by a synchronize
 (``chip_smoke._median_ms``'s way), and ``host``, the median host time to
 issue one call (``time.perf_counter`` around the call, the synchronize
-after it). The first line is the card's name and power limit
-(nvidia-smi); then one line per case and version: ``[k2w] <case> <root>:
-events <ms> ms, host <us> us``. Needs one card.
+after it). The float32 compositing feed is also timed as one
+``F.grid_sample`` call on the same frame and sample grid (BGR + ones,
+built outside the timed call; root ``torch``), the yardstick that the
+smoke sets beside K2's float32 wrapper. The first line is the card's
+name and power limit (nvidia-smi); then one line per case and version:
+``[k2w] <case> <root>: events <ms> ms, host <us> us``. Needs one card.
 """
 
 from __future__ import annotations
@@ -111,6 +114,25 @@ def cases(WK, d: dict):
     ]
 
 
+def grid_sample_call(torch, WK, d: dict):
+    """F.grid_sample (bilinear, zeros, align_corners=True) on the float32
+    compositing feed's frame + a ones plane, by the feed's sample grid."""
+    import torch.nn.functional as F
+    dst_to_src_coords = importlib.import_module(
+        f"{WK.__package__}.warp").dst_to_src_coords
+    f32 = d["f32"]
+    h, w = f32.shape[:2]
+    planes = torch.cat([f32.permute(2, 0, 1),
+                        torch.ones((1, h, w), device=f32.device)])[None]
+    sx, sy = dst_to_src_coords(torch.tensor(
+        WK.inverse_coeffs(d["f32_a23"]), dtype=torch.float32,
+        device=f32.device).reshape(2, 3), 1088, 2048)
+    grid = torch.stack([sx / (w - 1) * 2 - 1, sy / (h - 1) * 2 - 1],
+                       dim=-1)[None]
+    return lambda: F.grid_sample(planes, grid, mode="bilinear",
+                                 padding_mode="zeros", align_corners=True)
+
+
 def time_calls(torch, fn, reps: int, events: list, host: list) -> None:
     """Append the events ms and host us of ``reps`` calls of ``fn``."""
     for _ in range(reps):
@@ -160,6 +182,7 @@ def main() -> int:
         WK = load_warp_kernel(os.path.abspath(root), k)
         for name, fn in cases(WK, data):
             todo[name, root] = fn
+    todo["f32 compose feed", "torch"] = grid_sample_call(torch, WK, data)
     for fn in todo.values():
         fn()
     torch.cuda.synchronize()
@@ -168,8 +191,9 @@ def main() -> int:
         for key, fn in todo.items():
             time_calls(torch, fn, args.reps, *times[key])
     names = [name for name, _ in cases(None, data)]
+    roots = args.roots + ["torch"]
     for key in sorted(todo, key=lambda kr: (names.index(kr[0]),
-                                            args.roots.index(kr[1]))):
+                                            roots.index(kr[1]))):
         events, host = times[key]
         print(f"[k2w] {key[0]} {key[1]}: events {np.median(events):.4f} "
               f"ms, host {np.median(host):.1f} us", flush=True)

@@ -557,6 +557,195 @@ def test_k2_batch_coefficients_by_value(cuda, nf):
         assert torch.equal(wk, wp) and torch.equal(mk, mp)
 
 
+def _routes(src, a23s, oh, ow, content="ones", model=False, **kw):
+    """One launch of K2's gather kernel on ``src`` (a frame, or a batch)
+    by the host (N, 2, 3) ``a23s`` with its tile counter: the src->dst
+    affines inverted by the entry's host code (``model``, as
+    ``warp_frame`` passes a uint8 or float32 frame's) or the host's
+    dst->src coefficients, against the plain version bit for bit. Returns
+    {route: tiles}."""
+    invs = [WK.inverse_coeffs(a) for a in a23s]
+    one = len(a23s) == 1 and src.ndim == (2 if WK._is_i420(src) else 3)
+    tiles = torch.zeros(len(WK.ROUTES), dtype=torch.int32, device=src.device)
+    if model:
+        wk, mk, _ = WK._launch(src, len(a23s), WK._model_sets(a23s), oh, ow,
+                               content, invert=True, tiles=tiles, **kw)
+    else:
+        wk, mk, _ = WK._launch(src, len(a23s), invs[0] if one else invs, oh,
+                               ow, content, tiles=tiles, **kw)
+    if one:
+        wp, mp = WK.warp_frame_plain(src, invs[0], oh, ow, content)
+    else:
+        wp, mp = WK.warp_frames_plain(src, invs, oh, ow, content)
+    torch.cuda.synchronize()
+    for got, want in ((wk, wp), (mk, mp)):      # NaN where plain has NaN
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    return dict(zip(WK.ROUTES, tiles.tolist()))
+
+
+def _n_tiles(nf, oh, ow):
+    return nf * -(-oh // WK.TILE[0]) * -(-ow // WK.TILE[1])
+
+
+def _rot(deg, tx, ty, s=1.0):
+    c, sn = math.cos(math.radians(deg)), math.sin(math.radians(deg))
+    return np.asarray([[s * c, -s * sn, tx], [s * sn, s * c, ty]],
+                      np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("a23", [_rot(0.0, -0.37, 12.6), _rot(2.0, 7.3, -11.6),
+                                 _rot(-1.0, 40.25, -3.5, 1.02)])
+def test_k2_f32_one_frame_zero_and_direct(cuda, a23):
+    """K2's float32 source at one frame (the compositing feed): the
+    wrapper passes the src->dst affine and the entry inverts it; the
+    window is larger than the frame, so tiles straddle its edges and some
+    are zero, the rest direct. All bit-equal to plain; the host dst->src
+    coefficients give the same warp and the same routes."""
+    img = _float_frames(cuda, h=300, w=420)
+    oh, ow = 331, 517
+    n0 = WK.warp_frame.f32_launches
+    wk, mk = WK.warp_frame(img, a23, oh, ow)
+    assert WK.warp_frame.f32_launches == n0 + 1
+    wp, mp = WK.warp_frame_plain(img, WK.inverse_coeffs(a23), oh, ow)
+    assert torch.equal(wk, wp) and torch.equal(mk, mp)
+    r = _routes(img, a23[None], oh, ow, model=True)
+    assert r["zero"] > 0 and r["direct"] > 0
+    assert sum(r.values()) == _n_tiles(1, oh, ow)
+    assert _routes(img, a23[None], oh, ow) == r
+
+
+@pytest.mark.gpu
+def test_k2_f32_compositing_shape(cuda):
+    """The compositing feed's shape, 1061x1886 into 1088x2048 by a
+    near-identity affine: the tiles past the frame's edges are zero, the
+    rest direct, bit-equal to plain."""
+    img = _float_frames(cuda, h=1061, w=1886, seed=12)
+    a23 = _rot(0.01, 3.62, 9.41)
+    r = _routes(img, a23[None], 1088, 2048, model=True)
+    assert r["direct"] > r["zero"] > 0
+    assert sum(r.values()) == _n_tiles(1, 1088, 2048)
+
+
+@pytest.mark.gpu
+def test_k2_f32_singular_model_raises(cuda):
+    """The wrapper's host test is inverse_coeffs' own: a singular affine
+    raises and launches nothing (the tile counter of a bare launch of the
+    model stays 0)."""
+    img = _float_frames(cuda, h=20, w=30)
+    n0 = WK.warp_frame.launches
+    tiles = torch.zeros(len(WK.ROUTES), dtype=torch.int32, device=cuda)
+    for a23 in ([[1, 2, 0], [2, 4, 0]], [[0, 0, 1], [0, 0, 2]]):
+        a23 = np.asarray(a23, np.float32)
+        for src in (img, img.to(torch.uint8)):
+            with pytest.raises(ValueError):
+                WK.warp_frame(src, a23, 17, 23)
+            with pytest.raises(ValueError):
+                WK._launch(src, 1, WK._model_sets(a23), 17, 23, invert=True,
+                           tiles=tiles)
+    assert WK.warp_frame.launches == n0
+    assert tiles.tolist() == [0] * len(WK.ROUTES)
+
+
+def _seam_batch_affines(nf, scale, step_x=1152.0, step_y=0.0):
+    """A flight line's seam-scale warps, ``nf`` frames step_x apart."""
+    return np.stack([_rot(0.0, scale * step_x * k, scale * step_y * k,
+                          scale) for k in range(nf)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale", [0.1203, 0.1449])
+def test_k2_i420_flagship_seam_batch_zero_tiles_and_shared_chroma(cuda,
+                                                                  scale):
+    """The flagship's seam batch: 20 packed 2160x3840 frames into one
+    320-row window at the strips' seam scale (0.1203) and the global
+    stage's (0.1449): the plan takes the gather kernel, most tiles are
+    zero, the rest gather each quad's shared chroma; the wrapper and the
+    counted launch bit-equal to plain."""
+    frames = _i420_frames(cuda, n=20, h=2160, w=3840, seed=13)
+    a23s = _seam_batch_affines(20, scale)
+    oh, ow = 320, 64 * -(-int(round((19 * 1152 + 3840) * scale)) // 64)
+    invs = [WK.inverse_coeffs(a) for a in a23s]
+    assert WK.i420_plan(invs, 2160, 3840, oh, ow) is None
+    n0 = WK.warp_frame.i420_staged_launches
+    wk, mk = WK.warp_frames(frames, a23s, oh, ow)
+    assert WK.warp_frame.i420_staged_launches == n0
+    wp, mp = WK.warp_frames_plain(frames, invs, oh, ow)
+    assert torch.equal(wk, wp) and torch.equal(mk, mp)
+    del wk, mk, wp, mp
+    r = _routes(frames, a23s, oh, ow)
+    assert r["zero"] > r["direct"] > 0
+    assert sum(r.values()) == _n_tiles(20, oh, ow)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_k2_bgr_seam_batch_zero_and_direct(cuda, dtype):
+    """The uint8 seam batch (12 frames of 2160x3840 at 0.1203 into
+    320x2048) and the float32 one of the compositing knob (frames area-
+    resized to 1061x1886): zero and direct tiles, all bit-equal to
+    plain."""
+    g = torch.Generator().manual_seed(14)
+    if dtype == torch.uint8:
+        frames = torch.randint(0, 256, (12, 2160, 3840, 3), generator=g,
+                               dtype=torch.uint8).to(cuda)
+        a23s, oh, ow = _seam_batch_affines(12, 0.1203), 320, 2048
+    else:
+        frames = _float_frames(cuda, n=12, h=1061, w=1886, seed=14)
+        a23s = _seam_batch_affines(12, 0.2449, step_x=566.0)
+        oh, ow = 320, 2048
+    invs = [WK.inverse_coeffs(a) for a in a23s]
+    r = _routes(frames, a23s, oh, ow)
+    assert r["zero"] > 0 and r["direct"] > 0
+    wk, mk = WK.warp_frames(frames, a23s, oh, ow)
+    wp, mp = WK.warp_frames_plain(frames, invs, oh, ow)
+    assert torch.equal(wk, wp) and torch.equal(mk, mp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("deg", [30.0, 90.0, -135.0])
+def test_k2_rotated_frame_every_source(cuda, deg):
+    """A frame rotated by 30, 90 and -135 degrees about a canvas point:
+    uint8 (both content modes), float32 and packed I420 (per tap), each
+    bit-equal to plain, with its routes counted."""
+    g = torch.Generator().manual_seed(15)
+    u8 = torch.randint(0, 256, (150, 230, 3), generator=g,
+                       dtype=torch.uint8).to(cuda)
+    a23 = _rot(deg, 12000.5 - 11900.0, 130.25)
+    oh, ow = 300, 400
+    for content in WK.CONTENT_MODES:
+        r = _routes(u8, a23[None], oh, ow, content, model=True)
+        assert r["direct"] > 0
+    r = _routes(u8.float(), a23[None], oh, ow, model=True)
+    assert r["direct"] > 0
+    r = _routes(_i420_frames(cuda, h=148, w=230), a23[None], oh, ow,
+                i420_staged=False)
+    assert r["direct"] > 0
+
+
+@pytest.mark.gpu
+def test_k2_window_outside_the_frame_is_all_zero_tiles(cuda):
+    """A window wholly outside the frame: every tile zero, for each
+    source, and zeros as plain gives them; coordinates that are not finite
+    are never zero tiles (plain gives NaN there)."""
+    u8 = torch.randint(0, 256, (40, 60, 3), dtype=torch.uint8,
+                       device=cuda)
+    a23 = np.asarray([[1.0, 0.0, 500.25], [0.0, 1.0, -300.5]], np.float32)
+    oh, ow = 61, 300
+    for src, kw in ((u8, {"model": True}), (u8.float(), {"model": True}),
+                    (_i420_frames(cuda, h=40, w=60), {"i420_staged": False})):
+        r = _routes(src, a23[None], oh, ow, **kw)
+        assert r == {"zero": _n_tiles(1, oh, ow), "direct": 0}
+    # 1 / 1e-39 overflows: row 0's coordinates are NaN (inf * 0), the
+    # rest infinite, so plain gives NaN, and no tile is zero; the affine is
+    # not singular, so the model's launch falls to the host coefficients
+    huge = np.asarray([[1.0, 0.0, 0.0], [0.0, 1e-39, 0.0]], np.float32)
+    for src in (u8, u8.float()):
+        r = _routes(src, huge[None], 20, 30, model=True)
+        assert r == {"zero": 0, "direct": _n_tiles(1, 20, 30)}
+
+
 _PLANE_AFFINES = (
     [[0.99987453, -4.4592799e-04, -59.63], [4.4592799e-04, 0.99987453,
                                            -14.9]],

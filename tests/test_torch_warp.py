@@ -1,8 +1,12 @@
-"""K2 (bilinear affine warp of a uint8 frame + its content mask): the
-port's plain version against the JAX package's exact gather
-``ops/warp.warp_affine`` on the CPU, for near-identity affines and for 15
-degree rotations, at atol 1e-3 on the 0..255 scale (float32 coordinates
-computed in the same order; the affine inverse may differ by an ulp).
+"""K2 (bilinear affine warp of a frame + its content mask): the port's
+plain version against the JAX package's exact gather ``ops/warp.
+warp_affine`` on the CPU, for near-identity affines and for 15 degree
+rotations of a uint8 frame, a near-scale-1 warp of a float32 frame (the
+compositing source) and the seam scale's 0.145 downscale of a uint8 and
+of a packed I420 frame (converted by each package's
+``ops/color.yuv420_to_bgr``), at atol 1e-3 on the 0..255 scale (float32
+coordinates computed in the same order; the affine inverse may differ by
+an ulp).
 The batched entry ``warp_frames`` against the per-frame one and against
 the JAX package's seam-scale batch ``pipeline/strip._seam_warp_batch``.
 """
@@ -14,6 +18,7 @@ import torch
 
 from torch_port_helpers import n, t
 
+from drone_image_stitch_cpp_tpu.ops.color import yuv420_to_bgr as bgr_jax
 from drone_image_stitch_cpp_tpu.ops.transform import invert_affine as inv_jax
 from drone_image_stitch_cpp_tpu.ops.warp import warp_affine as warp_jax
 from drone_image_stitch_cpp_tpu.pipeline.strip import _seam_warp_batch
@@ -36,15 +41,35 @@ _AFFINES = [
 ]
 
 
-@pytest.mark.parametrize("a23", _AFFINES)
-def test_k2_plain_matches_jax_gather(a23):
+# (affine, source, window): the five uint8 cases, then the gather
+# kernel's new shapes: a near-scale-1 float32 warp (values outside
+# 0..255, as area-resized frames have), and the 0.145 downscale of the
+# seam batch (a sub-pixel offset) of a uint8 and of a packed I420 frame
+_DOWN = np.asarray([[0.145, 0.0, 1.37], [0.0, 0.145, 0.61]], np.float32)
+_CASES = [pytest.param(a, "uint8", (120, 150), id=f"a23{i}")
+          for i, a in enumerate(_AFFINES)] + [
+    pytest.param(_rot(0.4, -3.21, 5.87, 1.003), "float32", (120, 150),
+                 id="float32-near-scale-1"),
+    pytest.param(_DOWN, "uint8", (18, 24), id="uint8-downscale-0.145"),
+    pytest.param(_DOWN, "i420", (18, 24), id="i420-downscale-0.145")]
+
+
+@pytest.mark.parametrize("a23,source,win", _CASES)
+def test_k2_plain_matches_jax_gather(a23, source, win):
     rng = np.random.default_rng(0)
-    img = rng.integers(0, 256, (97, 131, 3), dtype=np.uint8)
-    oh, ow = 120, 150
+    if source == "i420":       # (H*3/2, W) packed, H % 4 == 0, W even
+        img = rng.integers(0, 256, (96 * 3 // 2, 130), dtype=np.uint8)
+        ref_src = bgr_jax(jnp.asarray(img))
+    elif source == "float32":
+        img = rng.uniform(-20.0, 280.0, (97, 131, 3)).astype(np.float32)
+        ref_src = jnp.asarray(img)
+    else:
+        img = rng.integers(0, 256, (97, 131, 3), dtype=np.uint8)
+        ref_src = jnp.asarray(img.astype(np.float32))
+    oh, ow = win
     wimg, mask = WK.warp_frame(t(img), a23, oh, ow)
-    ref = np.asarray(warp_jax(jnp.asarray(img.astype(np.float32)),
-                              jnp.asarray(a23), oh, ow))
-    ref_m = np.asarray(warp_jax(jnp.ones((97, 131), jnp.float32),
+    ref = np.asarray(warp_jax(ref_src, jnp.asarray(a23), oh, ow))
+    ref_m = np.asarray(warp_jax(jnp.ones(ref_src.shape[:2], jnp.float32),
                                 jnp.asarray(a23), oh, ow))
     assert wimg.shape == (oh, ow, 3) and wimg.dtype == torch.float32
     np.testing.assert_allclose(n(wimg), ref, atol=1e-3)
