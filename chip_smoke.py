@@ -1188,6 +1188,18 @@ def phase_k2_batch(torch, dev, imgs, pos, tuning):
             "tiles": routes}
 
 
+def _stage_seconds(recs, stages=None):
+    """{"stage/what": seconds} of the program's span records ``recs`` (of
+    ``stages`` only, when given), each step's records summed: a step
+    inside a stage (a tile's feed, a seam's solve) repeats."""
+    out = {}
+    for r in recs:
+        if "seconds" in r and (stages is None or r["stage"] in stages):
+            k = f"{r['stage']}/{r['msg'].removesuffix(' done')}"
+            out[k] = out.get(k, 0.0) + r["seconds"]
+    return {k: round(v, 3) for k, v in out.items()}
+
+
 def phase_slice(torch, dev, ortho, imgs, ids, pos, tuning):
     from drone_image_stitch_cpp_tpu_torch.app import stitch_frames
     from drone_image_stitch_cpp_tpu_torch.runtime.logging import get_logger
@@ -1211,7 +1223,7 @@ def phase_slice(torch, dev, ortho, imgs, ids, pos, tuning):
     k2_split = (launches["warp_affine"] - launches["warp_affine_batched"],
                 launches["warp_affine_batched"])
     peak = torch.cuda.max_memory_allocated(dev)
-    tm = log.timings()
+    tm = {r["msg"]: r["seconds"] for r in log._records if "seconds" in r}
     stages = {k: tm.get(v) for k, v in (
         ("store", "frame store done"), ("grouping", "grouping done"),
         ("register", "register done"), ("seam_warps", "seam warps done"),
@@ -1319,8 +1331,8 @@ def _knob_run(torch, dev, label, fn):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _counts()
-    stages = ", ".join(f"{r['stage']}/{r['msg'][:-5]}={r['seconds']}"
-                       for r in log._records[mark:] if "seconds" in r)
+    stages = ", ".join(f"{k}={v}" for k, v in
+                       _stage_seconds(log._records[mark:]).items())
     print(f"[smoke] knobs {label}: wall {wall:.2f} s, launches {counts}; "
           f"stages (s): {stages or 'none logged'}", flush=True)
     return out, wall, counts
@@ -1870,9 +1882,8 @@ def phase_i420(torch, dev, ortho, imgs, ids, pos, tuning, bgr, regs):
     counts = _counts()
     feeds, batches = WK.warp_frame.launches, WK.warp_frames.launches
     peak = torch.cuda.max_memory_allocated(dev)
-    stages = ", ".join(f"{r['msg'][:-5]}={r['seconds']}"
-                       for r in log._records[mark:] if "seconds" in r
-                       and r["stage"] in ("Main", "Single"))
+    stages = ", ".join(f"{k}={v}" for k, v in _stage_seconds(
+        log._records[mark:], ("Main", "Single")).items())
     # the same pass with every I420 launch per tap
     plan = WK.i420_plan
     WK.i420_plan = lambda *a: None
@@ -2220,10 +2231,7 @@ def phase_multiline(torch, dev, ortho, imgs, ids, pos, tuning, first):
     finally:
         A.stitch_inter_strips_custom = real_global
     peak = torch.cuda.max_memory_allocated(dev)
-    stages = {}
-    for r in log._records[mark:]:
-        if "seconds" in r:
-            stages[f"{r['stage']}/{r['msg'][:-5]}"] = r["seconds"]
+    stages = _stage_seconds(log._records[mark:])
 
     sizes = [g.indices for g in res.groups]
     want = [list(range(k * ML_COLS, (k + 1) * ML_COLS))
@@ -2320,8 +2328,7 @@ def phase_multiline_switches(torch, dev, ortho, imgs, ids, pos, tuning, ref,
     finally:
         TG._to_seam_fullres = real
     recs = log._records[mark:]
-    stages = {f"{r['stage']}/{r['msg'][:-5]}": r["seconds"] for r in recs
-              if "seconds" in r}
+    stages = _stage_seconds(recs)
     scale = next(r for r in recs if r["msg"] == "seam scale")
     switch = [(r["warp"], r["method"]) for r in recs if r["msg"] == "seam"]
     dref = ref["res"]
@@ -2976,11 +2983,12 @@ def phase_flagship(torch, dev, card, tuning, regs):
         f"{k}={v}" for k, v in run["stages"].items()), flush=True)
     seams_s = rec("seams done").get("seconds")
     solver = rec("seam solver")
-    print(f"[smoke] flagship graph-cut seams {seams_s} s, of which the "
+    print(f"[smoke] flagship graph-cut seams {seams_s:.3f} s, of which the "
           f"min-cut solver {solver.get('solver_seconds')} s in "
-          f"{solver.get('calls')} calls (the rest host set-up)", flush=True)
+          f"{solver.get('calls')} calls on {solver.get('nodes')} nodes (the "
+          f"rest host set-up)", flush=True)
     print("[smoke] flagship strip stitches (s): " + ", ".join(
-        f"{r['stage']}={r['seconds']}" for r in recs
+        f"{r['stage']}={r['seconds']:.3f}" for r in recs
         if r["msg"] == "stitch done"), flush=True)
     print(f"[smoke] flagship peak device memory {run['peak_device_gib']} GiB "
           f"(max_memory_allocated); ru_maxrss {run['ru_maxrss_gib']} GiB "

@@ -22,6 +22,7 @@ from ..config.tuning import StitchTuning
 from ..ops.match import adaptive_ratio
 from ..pipeline.pairgraph import gap_pairs, register_pairs
 from ..pipeline.registration import detect_features
+from ..runtime.device import device_sync
 from ..runtime.logging import get_logger
 
 _MAX_NEIGHBOR_GAP = 3      # reference :43
@@ -80,7 +81,10 @@ def estimate_relations(images: Optional[List[np.ndarray]],
                        device: Optional[torch.device] = None, store=None,
                        indices: Optional[List[int]] = None
                        ) -> List[VisualRelation]:
-    """Batched short-range motion graph (gaps 1..3) on the device."""
+    """Batched short-range motion graph (gaps 1..3) on the device: the
+    ``[VisualGroup] detect`` stage (``frames``; the card synchronised at
+    its end, so ``register+fetch`` starts clean), ``register+fetch``, and
+    the host decomposition as a ``segment`` span."""
     if store is not None:
         indices = list(indices if indices is not None
                        else range(len(store)))
@@ -93,9 +97,13 @@ def estimate_relations(images: Optional[List[np.ndarray]],
     mdim = max(h, w)
     mpx = (h * w) * min(1.0, (_MAX_DIM / mdim) ** 2) / 1e6
     log = get_logger()
-    with log.timer("VisualGroup", "detect"):
+    dev = store.device if store is not None else device
+    end_sync = None if dev is None else device_sync(torch.device(dev))
+    with log.timer("VisualGroup", "detect", frames=n):
         feats, scale = detect_features(images, n_feats, mpx, device=device,
                                        store=store, indices=indices)
+        if end_sync is not None:
+            end_sync()
     pairs = gap_pairs(n, min(_MAX_NEIGHBOR_GAP, n - 1))
     ratio = adaptive_ratio(tuning.match_conf)
     with log.timer("VisualGroup", "register+fetch"):
@@ -105,30 +113,31 @@ def estimate_relations(images: Optional[List[np.ndarray]],
         ok_h, ngood_h, ninl_h, models = (
             t.cpu().numpy() for t in (graph.ok, graph.n_good,
                                       graph.n_inliers, graph.model))
-    # decompose on host (visual_flight_grouper.cpp:190-199)
-    m = models[:, :2, :]
-    a_, b_ = m[:, 0, 0], m[:, 1, 0]
-    c_, d_ = m[:, 0, 1], m[:, 1, 1]
-    txs, tys = m[:, 0, 2], m[:, 1, 2]
-    scs = 0.5 * (np.hypot(a_, b_) + np.hypot(c_, d_))
-    rots = np.degrees(np.arctan2(b_, a_))
-    rels = []
-    for k, (i, j) in enumerate(graph.pairs):
-        okk = bool(ok_h[k])
-        tx, ty, sc, rot = (float(txs[k]), float(tys[k]), float(scs[k]),
-                           float(rots[k]))
-        n_good = int(ngood_h[k])
-        n_inl = int(ninl_h[k])
-        r = n_inl / max(1, n_good)
-        sane = (r >= _MIN_RATIO
-                and _SCALE_RANGE[0] <= sc <= _SCALE_RANGE[1]
-                and abs(rot) <= _MAX_ROT_DEG
-                and n_good >= tuning.min_good_matches // 2
-                and n_inl >= tuning.min_inliers // 2)
-        rels.append(VisualRelation(
-            i=int(i), j=int(j), ok=okk and sane, tx=tx, ty=ty, scale=sc,
-            rot=rot, ratio=r, matches=n_good, inliers=n_inl))
-    return rels
+    with log.span("segment", stage="VisualGroup"):
+        # decompose on host (visual_flight_grouper.cpp:190-199)
+        m = models[:, :2, :]
+        a_, b_ = m[:, 0, 0], m[:, 1, 0]
+        c_, d_ = m[:, 0, 1], m[:, 1, 1]
+        txs, tys = m[:, 0, 2], m[:, 1, 2]
+        scs = 0.5 * (np.hypot(a_, b_) + np.hypot(c_, d_))
+        rots = np.degrees(np.arctan2(b_, a_))
+        rels = []
+        for k, (i, j) in enumerate(graph.pairs):
+            okk = bool(ok_h[k])
+            tx, ty, sc, rot = (float(txs[k]), float(tys[k]), float(scs[k]),
+                               float(rots[k]))
+            n_good = int(ngood_h[k])
+            n_inl = int(ninl_h[k])
+            r = n_inl / max(1, n_good)
+            sane = (r >= _MIN_RATIO
+                    and _SCALE_RANGE[0] <= sc <= _SCALE_RANGE[1]
+                    and abs(rot) <= _MAX_ROT_DEG
+                    and n_good >= tuning.min_good_matches // 2
+                    and n_inl >= tuning.min_inliers // 2)
+            rels.append(VisualRelation(
+                i=int(i), j=int(j), ok=okk and sane, tx=tx, ty=ty, scale=sc,
+                rot=rot, ratio=r, matches=n_good, inliers=n_inl))
+        return rels
 
 
 def summarize_motion(rels: List[VisualRelation]) -> MotionStats:
@@ -245,7 +254,10 @@ def group_boustrophedon(images: Optional[List[np.ndarray]], ids: List[str],
 
     ``store``: optional runtime.feed.FrameStore of the same frames; the
     motion-graph detects then read its device-resident copies (``images``
-    may be None). Otherwise ``images`` are detected on ``device``."""
+    may be None). Otherwise ``images`` are detected on ``device``. The
+    host steps after each motion graph (the motion summary, the near-
+    duplicate filter, the segment table and the strip DP) are
+    ``[VisualGroup] segment`` spans."""
     log = get_logger()
     n = len(images) if images is not None else len(store)
     if n == 0:
@@ -258,18 +270,20 @@ def group_boustrophedon(images: Optional[List[np.ndarray]], ids: List[str],
         imgs = None if images is None else [images[k] for k in active]
         rels = estimate_relations(imgs, tuning, seed, device=device,
                                   store=store, indices=active)
-        for r in rels:
-            log.log("VisualGroup", "edge", i=active[r.i], j=active[r.j],
-                    ok=r.ok, tx=round(r.tx, 1), ty=round(r.ty, 1),
-                    scale=round(r.scale, 3), rot=round(r.rot, 2),
-                    inliers=r.inliers, matches=r.matches,
-                    score=round(r.score, 1))
-        stats = summarize_motion(rels)
-        if not stats.valid:
-            log.log("VisualGroup", "invalid motion stats -> single strip")
-            return [VisualStripGroup(indices=active,
-                                     ids=[ids[k] for k in active])]
-        dups = find_duplicates(rels, stats, len(active))
+        with log.span("segment", stage="VisualGroup"):
+            for r in rels:
+                log.log("VisualGroup", "edge", i=active[r.i],
+                        j=active[r.j], ok=r.ok, tx=round(r.tx, 1),
+                        ty=round(r.ty, 1), scale=round(r.scale, 3),
+                        rot=round(r.rot, 2), inliers=r.inliers,
+                        matches=r.matches, score=round(r.score, 1))
+            stats = summarize_motion(rels)
+            if not stats.valid:
+                log.log("VisualGroup",
+                        "invalid motion stats -> single strip")
+                return [VisualStripGroup(indices=active,
+                                         ids=[ids[k] for k in active])]
+            dups = find_duplicates(rels, stats, len(active))
         if not dups or len(active) - len(dups) < 2:
             break
         log.log("VisualGroup", "removing near-duplicates",
@@ -280,13 +294,15 @@ def group_boustrophedon(images: Optional[List[np.ndarray]], ids: List[str],
         imgs = None if images is None else [images[k] for k in active]
         rels = estimate_relations(imgs, tuning, seed, device=device,
                                   store=store, indices=active)
-        stats = summarize_motion(rels)
+        with log.span("segment", stage="VisualGroup"):
+            stats = summarize_motion(rels)
 
     m = len(active)
     if m == 1:
         return [VisualStripGroup(indices=active, ids=[ids[active[0]]])]
-    score = _segment_score_table(rels, stats, m)
-    segs = _solve_best_segmentation(score, m)
+    with log.span("segment", stage="VisualGroup"):
+        score = _segment_score_table(rels, stats, m)
+        segs = _solve_best_segmentation(score, m)
     if segs is None:
         log.log("VisualGroup", "segmentation failed -> single strip")
         return [VisualStripGroup(indices=active,

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..runtime.device import placement
+from ..runtime.logging import get_logger
 from .color import bgr_to_yuv420
 from .gaussian import collapse_laplacian, gaussian_pyramid, pyr_up
 
@@ -304,6 +305,11 @@ def mb_compose_tiled(canvas_h: int, canvas_w: int, bands: int,
     its core (half the bytes of BGR) and is unpacked on the host with
     ``cv2.COLOR_YUV2BGR_I420``; the 4:2:0 chroma costs up to ~3 gray
     levels. A window whose dims break the I420 contract is fetched as BGR.
+
+    Spans of the calling stage: each tile's enqueue (``mb_prepare``, the
+    feeds and the blend) is a ``tile feed`` (``frames`` fed), each host
+    fetch of a core with its unpack a ``tile fetch`` (``bytes``), each
+    ``on_rows`` call a ``rows out``.
     """
     if assemble not in ("host", "device"):
         raise ValueError(f"assemble must be 'host' or 'device', got "
@@ -313,6 +319,7 @@ def mb_compose_tiled(canvas_h: int, canvas_w: int, bands: int,
                                  or fetch_packed):
         raise ValueError("assemble='device' supports neither on_rows, "
                          "fetch_packed nor a device list")
+    log = get_logger()
     bands = tiled_bands(canvas_h, canvas_w, bands, tile)
     tiles, _ = mb_tile_grid(canvas_h, canvas_w, bands, tile)
     g = 1 << bands
@@ -339,22 +346,25 @@ def mb_compose_tiled(canvas_h: int, canvas_w: int, bands: int,
         if win is not None:
             if assemble == "device":
                 out[cy0:cy1, cx0:cx1] = win
-            elif origin is not None:
-                import cv2
-                oy, ox = origin
-                bgr = cv2.cvtColor(win.cpu().numpy(),
-                                   cv2.COLOR_YUV2BGR_I420)
-                out[cy0:cy1, cx0:cx1] = bgr[cy0 - oy:cy1 - oy,
-                                            cx0 - ox:cx1 - ox]
             else:
-                out[cy0:cy1, cx0:cx1] = win.cpu().numpy()
+                with log.span("tile fetch", bytes=win.numel()):
+                    if origin is not None:
+                        import cv2
+                        oy, ox = origin
+                        bgr = cv2.cvtColor(win.cpu().numpy(),
+                                           cv2.COLOR_YUV2BGR_I420)
+                        out[cy0:cy1, cx0:cx1] = bgr[cy0 - oy:cy1 - oy,
+                                                    cx0 - ox:cx1 - ox]
+                    else:
+                        out[cy0:cy1, cx0:cx1] = win.cpu().numpy()
             flags.append((cy0, cx0, rows.to(devices[0]),
                           cols.to(devices[0])))
         left[(cy0, cy1)] -= 1
         while (on_rows is not None and next_band < len(bands_y)
                and left[bands_y[next_band]] == 0):
             y0, y1 = bands_y[next_band]
-            on_rows(y0, y1, out[y0:y1])
+            with log.span("rows out"):
+                on_rows(y0, y1, out[y0:y1])
             next_band += 1
 
     for t_idx, (cy0, cy1, cx0, cx1, ey0, ey1, ex0, ex1) in \
@@ -366,16 +376,18 @@ def mb_compose_tiled(canvas_h: int, canvas_w: int, bands: int,
             land(cy0, cy1, cx0, cx1)
             continue
         eh, ew = ey1 - ey0, ex1 - ex0
-        canvas_t = mb_prepare(eh, ew, bands,
-                              devices[t_idx % len(devices)])
-        for i in sel:
-            canvas_t = feed_tile(canvas_t, i, ey0, ex0, eh, ew)
-        core = (cy0 - ey0, cy1 - ey0, cx0 - ex0, cx1 - ex0)
-        pack = _packed_window(core, eh, ew) if fetch_packed else None
-        origin = None if pack is None else (ey0 + pack[0], ex0 + pack[1])
-        pending.append((cy0, cy1, cx0, cx1, origin) + _blend_core(
-            canvas_t, eh, ew, core, pack))
-        del canvas_t
+        with log.span("tile feed", frames=len(sel)):
+            canvas_t = mb_prepare(eh, ew, bands,
+                                  devices[t_idx % len(devices)])
+            for i in sel:
+                canvas_t = feed_tile(canvas_t, i, ey0, ex0, eh, ew)
+            core = (cy0 - ey0, cy1 - ey0, cx0 - ex0, cx1 - ex0)
+            pack = _packed_window(core, eh, ew) if fetch_packed else None
+            origin = None if pack is None else (ey0 + pack[0],
+                                                ex0 + pack[1])
+            pending.append((cy0, cy1, cx0, cx1, origin) + _blend_core(
+                canvas_t, eh, ew, core, pack))
+            del canvas_t
         while len(pending) >= len(devices):
             land(*pending.pop(0))
     for entry in pending:

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..runtime.logging import get_logger
 from .blend import align_up
 from .resize import resize_area
 
@@ -51,22 +52,25 @@ def _color_grad_cost(img_a: torch.Tensor, img_b: torch.Tensor,
 
 def _vertical_seam_path(cost: torch.Tensor) -> torch.Tensor:
     """Min-cost top-to-bottom path; per-row x index (H,) long. Ties go to
-    the lower offset (-1, 0, +1), as jnp.argmin does."""
+    the lower offset (-1, 0, +1), as jnp.argmin does. The row loop, the
+    move table's fetch and the backtrack are one ``dp scan`` span."""
     h, w = cost.shape
-    offs = torch.zeros((h, w), dtype=torch.int8, device=cost.device)
-    inf = torch.full((1,), _INF, dtype=torch.float32, device=cost.device)
-    prev = cost[0]
-    for r in range(1, h):
-        stacked = torch.stack([torch.cat([inf, prev[:-1]]), prev,
-                               torch.cat([prev[1:], inf])])
-        best, arg = torch.min(stacked, dim=0)
-        offs[r] = (arg - 1).to(torch.int8)
-        prev = cost[r] + best
-    offs_h = offs.cpu().numpy()
-    xs = np.empty(h, np.int64)
-    xs[h - 1] = int(torch.argmin(prev))
-    for r in range(h - 1, 0, -1):
-        xs[r - 1] = min(max(xs[r] + int(offs_h[r, xs[r]]), 0), w - 1)
+    with get_logger().span("dp scan", rows=h, cols=w):
+        offs = torch.zeros((h, w), dtype=torch.int8, device=cost.device)
+        inf = torch.full((1,), _INF, dtype=torch.float32,
+                         device=cost.device)
+        prev = cost[0]
+        for r in range(1, h):
+            stacked = torch.stack([torch.cat([inf, prev[:-1]]), prev,
+                                   torch.cat([prev[1:], inf])])
+            best, arg = torch.min(stacked, dim=0)
+            offs[r] = (arg - 1).to(torch.int8)
+            prev = cost[r] + best
+        offs_h = offs.cpu().numpy()
+        xs = np.empty(h, np.int64)
+        xs[h - 1] = int(torch.argmin(prev))
+        for r in range(h - 1, 0, -1):
+            xs[r - 1] = min(max(xs[r] + int(offs_h[r, xs[r]]), 0), w - 1)
     return torch.from_numpy(xs).to(cost.device)
 
 
@@ -222,46 +226,45 @@ def graphcut_pairwise_seam(img_a, img_b, mask_a, mask_b, device):
     """
     from ..utils.native import graphcut_native
 
-    a = np.asarray(img_a, np.float32)
-    b = np.asarray(img_b, np.float32)
-    ma = np.asarray(mask_a, bool)
-    mb = np.asarray(mask_b, bool)
-    overlap = ma & mb
-    if not overlap.any():
+    span = get_logger().span
+    with span("seam problem"):
+        a = np.asarray(img_a, np.float32)
+        b = np.asarray(img_b, np.float32)
+        ma = np.asarray(mask_a, bool)
+        mb = np.asarray(mask_b, bool)
+        if not (ma & mb).any():
+            return None
+        ys, xs = np.where(ma | mb)
+        y0, y1 = int(ys.min()), int(ys.max()) + 1
+        x0, x1 = int(xs.min()), int(xs.max()) + 1
+        a_, b_ = a[y0:y1, x0:x1], b[y0:y1, x0:x1]
+        ma_, mb_ = ma[y0:y1, x0:x1], mb[y0:y1, x0:x1]
+        fh, fw = a_.shape[:2]
+        both = ma_ & mb_
+        coarse = fh * fw > GC_COARSE_NODES
+        if coarse:
+            sc = (GC_COARSE_NODES / float(fh * fw)) ** 0.5
+            nh = max(2, int(fh * sc))
+            nw = max(2, int(fw * sc))
+            ac = _resize_area_np(a_, nh, nw)
+            bc = _resize_area_np(b_, nh, nw)
+            mac = _resize_nearest(ma_, nh, nw)
+            mbc = _resize_nearest(mb_, nh, nw)
+            if not (mac & mbc).any():
+                return None
+            prob = _gc_problem(ac, bc, mac, mbc)
+        else:
+            prob = _gc_problem(a_, b_, ma_, mb_)
+    if prob is None:
         return None
-    ys, xs = np.where(ma | mb)
-    y0, y1 = int(ys.min()), int(ys.max()) + 1
-    x0, x1 = int(xs.min()), int(xs.max()) + 1
-    a_, b_ = a[y0:y1, x0:x1], b[y0:y1, x0:x1]
-    ma_, mb_ = ma[y0:y1, x0:x1], mb[y0:y1, x0:x1]
-    fh, fw = a_.shape[:2]
-    both = ma_ & mb_
-    if fh * fw <= GC_COARSE_NODES:
-        prob = _gc_problem(a_, b_, ma_, mb_)
-        if prob is None:
-            return None
-        labels = graphcut_native(*prob)
-        if labels is None:
-            return None
-        lab = labels.astype(bool)
-    else:
-        sc = (GC_COARSE_NODES / float(fh * fw)) ** 0.5
-        nh = max(2, int(fh * sc))
-        nw = max(2, int(fw * sc))
-        ac = _resize_area_np(a_, nh, nw)
-        bc = _resize_area_np(b_, nh, nw)
-        mac = _resize_nearest(ma_, nh, nw)
-        mbc = _resize_nearest(mb_, nh, nw)
-        if not (mac & mbc).any():
-            return None
-        prob_c = _gc_problem(ac, bc, mac, mbc)
-        if prob_c is None:
-            return None
-        lab_c = graphcut_native(*prob_c)
-        if lab_c is None:
-            return None
-        lab_up = _resize_nearest(lab_c.astype(bool), fh, fw)
-        prob_f = _gc_problem(a_, b_, ma_, mb_)
+    labels = graphcut_native(*prob)
+    if labels is None:
+        return None
+    lab = labels.astype(bool)
+    if coarse:
+        with span("seam problem"):
+            lab_up = _resize_nearest(lab, fh, fw)
+            prob_f = _gc_problem(a_, b_, ma_, mb_)
         if prob_f is None:
             return None
         cap_src, cap_snk, cap_h, cap_v = prob_f
@@ -269,25 +272,30 @@ def graphcut_pairwise_seam(img_a, img_b, mask_a, mask_b, device):
         # wide enough to cover >= 3 coarse pixels of nearest quantisation
         band = max(32, int(round(3.0 / sc)))
         for attempt in range(2):
-            in_band = _seam_band(lab_up, band, device)
-            pin_a = both & ~in_band & lab_up
-            pin_b = both & ~in_band & ~lab_up
-            cs2 = cap_src.copy()
-            ck2 = cap_snk.copy()
-            cs2[pin_a] = big
-            ck2[pin_b] = big
+            with span("seam band"):
+                in_band = _seam_band(lab_up, band, device)
+                pin_a = both & ~in_band & lab_up
+                pin_b = both & ~in_band & ~lab_up
+                cs2 = cap_src.copy()
+                ck2 = cap_snk.copy()
+                cs2[pin_a] = big
+                ck2[pin_b] = big
             labels = graphcut_native(cs2, ck2, cap_h, cap_v)
             if labels is None:
                 return None
             lab = labels.astype(bool)
-            if attempt == 0 and _cut_touches(lab, pin_a | pin_b):
-                band *= 2
-                continue
+            if attempt == 0:
+                with span("seam band"):
+                    widen = _cut_touches(lab, pin_a | pin_b)
+                if widen:
+                    band *= 2
+                    continue
             break
-    new_a = ma.copy()
-    new_b = mb.copy()
-    new_a[y0:y1, x0:x1] = (ma_ & ~mb_) | (both & lab)
-    new_b[y0:y1, x0:x1] = (mb_ & ~ma_) | (both & ~lab)
+    with span("seam fetch"):
+        new_a = ma.copy()
+        new_b = mb.copy()
+        new_a[y0:y1, x0:x1] = (ma_ & ~mb_) | (both & lab)
+        new_b[y0:y1, x0:x1] = (mb_ & ~ma_) | (both & ~lab)
     return new_a, new_b
 
 
@@ -312,6 +320,7 @@ def find_seams_sequential(images, masks, axes=None, method: str = "dp",
     that receives the method that cut each pair. Returns the new mask
     list; the input mask tensors are updated in place.
     """
+    log = get_logger()
     n = len(images)
     masks = list(masks)
     h, w = images[0].shape[:2]
@@ -330,14 +339,16 @@ def find_seams_sequential(images, masks, axes=None, method: str = "dp",
                 uy1 = min(h, uy0 + align_up(max(bi[1], bj[1]) - uy0, 256))
                 ux1 = min(w, ux0 + align_up(max(bi[3], bj[3]) - ux0, 256))
                 usl = (slice(uy0, uy1), slice(ux0, ux1))
-                got = graphcut_pairwise_seam(
-                    _to_u8(images[i][usl]), _to_u8(images[j][usl]),
-                    masks[i][usl].cpu().numpy(),
-                    masks[j][usl].cpu().numpy(), masks[i].device)
+                with log.span("seam fetch"):
+                    host = (_to_u8(images[i][usl]), _to_u8(images[j][usl]),
+                            masks[i][usl].cpu().numpy(),
+                            masks[j][usl].cpu().numpy())
+                got = graphcut_pairwise_seam(*host, masks[i].device)
                 if got is not None:
                     dev = masks[i].device
-                    masks[i][usl] = torch.from_numpy(got[0]).to(dev)
-                    masks[j][usl] = torch.from_numpy(got[1]).to(dev)
+                    with log.span("seam fetch"):
+                        masks[i][usl] = torch.from_numpy(got[0]).to(dev)
+                        masks[j][usl] = torch.from_numpy(got[1]).to(dev)
                     if methods is not None:
                         methods[(i, j)] = "graphcut"
                     continue

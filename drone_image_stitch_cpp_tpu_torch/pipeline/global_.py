@@ -54,7 +54,6 @@ from ..ops.warp_kernel import warp_frame
 from ..runtime.device import device_sync, placement, resolve_device
 from ..runtime.handoff import DeviceStrip
 from ..runtime.logging import get_logger
-from ..utils.native import graphcut_native
 from . import compose_feed as CF
 from .roi_align import align_pair_banked
 
@@ -445,16 +444,20 @@ def stitch_inter_strips_custom(strips: List, tuning: Optional[StitchTuning]
     if row_sink is not None:
         # before the seams, which carve the masks in place
         union = torch.stack(seam_masks).any(dim=0).cpu().numpy()
-    gc0 = (graphcut_native.calls, graphcut_native.seconds)
+    n0 = len(log._records)
     with log.timer(_STAGE, "seams", sync=sync):
         seam_out = S.find_seams_sequential(comp_imgs, seam_masks, axes,
                                            method=seam_method,
                                            methods=methods)
     log.log(_STAGE, "seam methods",
             **{f"{i}-{j}": m for (i, j), m in methods.items()})
-    # the min-cut solver's share of the seams; the rest is host set-up
-    log.log(_STAGE, "seam solver", calls=graphcut_native.calls - gc0[0],
-            solver_seconds=round(graphcut_native.seconds - gc0[1], 3))
+    # the min-cut solver's share of the seams (its spans); the rest is
+    # host set-up
+    solves = [r for r in log._records[n0:] if r["stage"] == _STAGE
+              and r["msg"] == "seam solve done"]
+    log.log(_STAGE, "seam solver", calls=len(solves),
+            solver_seconds=round(sum(r["seconds"] for r in solves), 3),
+            nodes=sum(r["nodes"] for r in solves))
     crop_box = None
     if row_sink is not None:
         # the content bbox at seam scale, upscaled with an outward margin of

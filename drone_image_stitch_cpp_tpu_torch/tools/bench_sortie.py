@@ -50,7 +50,8 @@ GT_MAX_DIM = 6000
 def stage_split(records):
     """Aggregate the run's ``... done seconds=`` records into a per-stage
     wall-clock map (strips summed; the per-strip spread is in the raw
-    log)."""
+    log), rounded to 0.1 s once summed: a step inside a stage (a seam's
+    solve, a tile's feed) is many short records."""
     out = {}
     for r in records:
         if "seconds" not in r:
@@ -61,8 +62,8 @@ def stage_split(records):
             key = f"strips:{msg}"
         else:
             key = f"{stage}:{msg}"
-        out[key] = round(out.get(key, 0.0) + r["seconds"], 1)
-    return out
+        out[key] = out.get(key, 0.0) + r["seconds"]
+    return {k: round(v, 1) for k, v in out.items()}
 
 
 def launch_counts():

@@ -42,10 +42,11 @@ import shutil
 import subprocess
 import tempfile
 import threading
-import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from ..runtime.logging import get_logger
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -133,24 +134,18 @@ def graphcut_native(cap_src: np.ndarray, cap_snk: np.ndarray,
     """Min-cut labels (1 = source side) on a 4-connected (h, w) grid with
     terminal capacities ``cap_src``/``cap_snk`` (h, w), horizontal edges
     ``cap_h`` (h, w-1) and vertical edges ``cap_v`` (h-1, w); None if no
-    solver library is available (:func:`graphcut_library`). The solver's
-    calls and wall seconds add up in ``graphcut_native.calls`` /
-    ``.seconds``."""
+    solver library is available (:func:`graphcut_library`). Each call is
+    one ``seam solve`` span of the calling stage, with ``nodes`` = h x w.
+    """
     if graphcut_library() is None:
         return None
     h, w = cap_src.shape
     labels = np.zeros((h, w), np.uint8)
     args = [np.ascontiguousarray(c, np.float32)
             for c in (cap_src, cap_snk, cap_h, cap_v)]
-    t0 = time.perf_counter()
-    _GC["fn"](h, w, *args, labels)
-    graphcut_native.seconds += time.perf_counter() - t0
-    graphcut_native.calls += 1
+    with get_logger().span("seam solve", nodes=h * w):
+        _GC["fn"](h, w, *args, labels)
     return labels
-
-
-graphcut_native.calls = 0
-graphcut_native.seconds = 0.0
 
 
 def affine_inverse_host():
