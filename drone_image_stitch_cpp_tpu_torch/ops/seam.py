@@ -7,12 +7,13 @@ Port of ``drone_image_stitch_cpp_tpu/ops/seam.py``:
     row; the backtrack reads the (H, W) int8 move table once on the host.
   * detail::GraphCutSeamFinder(COST_COLOR_GRAD) analog of the global stage
     (stitch_global.cpp:585-619): a min-cut over the pair's union box on
-    the host with the native Boykov-Kolmogorov solver
-    (utils/native.graphcut_native), at full seam resolution through a
-    coarse solve and a banded full-resolution re-solve. The JAX package
-    resizes and dilates with cv2 there; the port uses its own area resize
-    (ops/resize.resize_area), index-based nearest sampling and a
-    separable max-pool dilation. The DP seam is the fallback where the
+    the host with the port's Boykov-Kolmogorov solver, csrc/graphcut.cpp
+    (utils/native.graphcut_native; the same cut as the JAX package's
+    native/graphcut.cpp, the tests' reference solver), at full seam
+    resolution through a coarse solve and a banded full-resolution
+    re-solve. The JAX package resizes and dilates with cv2 there; the
+    port uses its own area resize (ops/resize.resize_area), index-based
+    nearest sampling and a separable max-pool dilation. The DP seam is the fallback where the
     reference falls back: no overlap, nested masks, or no solver.
 """
 

@@ -68,7 +68,8 @@ class StageLogger:
 
     def span(self, what: str, stage: Optional[str] = None, **counters):
         """A step inside a stage: one ``"<what> done"`` record, no line,
-        no synchronisation, no profiler range."""
+        no synchronisation, no profiler range. ``with`` yields the
+        counters dict, so the block can add counts it learns."""
         return _Span(self, stage, what, counters, None, False)
 
 
@@ -92,6 +93,7 @@ class _Span:
             self.sync()
         stack.append((self.stage, self.msg))
         self.t0 = time.perf_counter()
+        return self.counters
 
     def __exit__(self, exc_type, exc, tb):
         if exc_type is None and self.sync is not None:

@@ -4,7 +4,7 @@ A copy of ``drone_image_stitch_cpp_tpu/utils/native.py`` trimmed to the
 JPEG decode (BGR, BGR at 1/denom by libjpeg's DCT scaling, and the raw
 4:2:0 planes as packed I420), the incremental JPEG encode and the
 graph-cut min-cut solver (``tm_graphcut``, a Boykov-Kolmogorov
-max-flow). Both libraries are built from the repo's sources with the host
+max-flow). The libraries are built from the repo's sources with the host
 C++ compiler into ``build/native/`` at first use, keyed by the sources,
 flags and (for the codec) the headers and library it was built against,
 so every machine runs the same code (no ``-march=native``; the committed
@@ -24,7 +24,13 @@ so every machine runs the same code (no ``-march=native``; the committed
   failures and every codec read or write raises with it, but the raw
   4:2:0 decodes, which return None there (the frame store's probe then
   stores BGR);
-* the solver from ``native/graphcut.cpp`` (no libjpeg needed);
+* the solver from the port's own ``csrc/graphcut.cpp`` (no libjpeg
+  needed): the same cut and C ABI as the JAX package's
+  ``native/graphcut.cpp``, which the port does not load and the tests
+  keep as the reference solver, with the search trees' bookkeeping
+  redone (orphans first-in first-out, one packed record per node,
+  frontier-only root activation, growth that shortens a node's distance
+  to its terminal) and an out-array of the engine's counts;
 * the host build of K2's in-kernel affine inverse
   (:func:`affine_inverse_host`, from ``csrc/``), which holds that
   inverse to the bits of ``ops/warp_kernel.inverse_coeffs`` on a machine
@@ -111,18 +117,21 @@ def _build(name: str, sources: Sequence[str], libs: Sequence[str] = (),
 
 
 def graphcut_library() -> Optional[str]:
-    """Path of the solver library built from ``native/graphcut.cpp`` that
-    serves :func:`graphcut_native`, or None without a C++ compiler."""
+    """Path of the solver library that serves :func:`graphcut_native`,
+    built from the port's ``csrc/graphcut.cpp`` (not the JAX package's
+    ``native/graphcut.cpp``, the reference solver of the tests), or None
+    without a C++ compiler."""
     with _LOCK:
         if "path" not in _GC:
-            path, _ = _build("tmgraphcut", ["graphcut.cpp"])
+            path, _ = _build("tmgraphcut", ["graphcut.cpp"], src_dir=_CSRC)
             if path is not None:
                 fptr = np.ctypeslib.ndpointer(dtype=np.float32, flags="C")
                 uptr = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C")
+                iptr = np.ctypeslib.ndpointer(dtype=np.int64, flags="C")
                 fn = ctypes.CDLL(path).tm_graphcut
                 fn.restype = ctypes.c_double
                 fn.argtypes = [ctypes.c_int, ctypes.c_int, fptr, fptr, fptr,
-                               fptr, uptr]
+                               fptr, uptr, iptr]
                 _GC["fn"] = fn
             _GC["path"] = path
         return _GC["path"]
@@ -135,16 +144,21 @@ def graphcut_native(cap_src: np.ndarray, cap_snk: np.ndarray,
     terminal capacities ``cap_src``/``cap_snk`` (h, w), horizontal edges
     ``cap_h`` (h, w-1) and vertical edges ``cap_v`` (h-1, w); None if no
     solver library is available (:func:`graphcut_library`). Each call is
-    one ``seam solve`` span of the calling stage, with ``nodes`` = h x w.
+    one ``seam solve`` span of the calling stage, with ``nodes`` = h x w
+    and the engine's counts: ``augments`` (augmenting paths), ``orphans``
+    (orphans processed) and ``active_roots`` (roots active at the start).
     """
     if graphcut_library() is None:
         return None
     h, w = cap_src.shape
     labels = np.zeros((h, w), np.uint8)
+    counts = np.zeros(3, np.int64)
     args = [np.ascontiguousarray(c, np.float32)
             for c in (cap_src, cap_snk, cap_h, cap_v)]
-    with get_logger().span("seam solve", nodes=h * w):
-        _GC["fn"](h, w, *args, labels)
+    with get_logger().span("seam solve", nodes=h * w) as counters:
+        _GC["fn"](h, w, *args, labels, counts)
+        counters.update(zip(("augments", "orphans", "active_roots"),
+                            counts.tolist()))
     return labels
 
 

@@ -1,0 +1,318 @@
+"""The graph-cut engine's host A/B: the port's solver (``csrc/graphcut.cpp``)
+against the JAX package's reference solver (``native/graphcut.cpp``) on the
+same seam problems, timed in turns in one process.
+
+    python studies/gc_engine_ab.py [--seed 1] [--height 1600] \\
+        [--width 3500] [--rounds 3] [--out FILE]
+    python studies/gc_engine_ab.py --workload area-3x20-4k --seed N \\
+        [--rounds 3] [--out FILE]
+
+Without ``--workload`` the problems are synthetic: a union box of
+``--height`` x ``--width`` over smooth random terrain, the second image
+misregistered by a smooth 1-3 px shift, the two masks overlapping on the
+middle ~30% of the rows along a ragged edge, so the seam runs along the
+width as between two flight lines. They are built with ``ops/seam``'s own
+steps, as ``graphcut_pairwise_seam`` builds them: ``_gc_problem`` on the
+coarse grid and its solve, then on the full grid the band of
+``max(32, round(3 / sc))`` px around the upsampled coarse seam with every
+overlap pixel outside it pinned (``fine``), and the same with the band
+doubled (``widened``), which is built whether or not the fine cut presses on
+its band (``fine_cut_touches`` says whether it does).
+
+With ``--workload`` the problems are the real ones of one sortie of that
+benchmark cell, on ``cuda:0`` (the CPU with ``--cpu-tiny``, at the cut
+size of ``studies/span_census.py``): the cell runs through the benchmark's
+harness without its warm-up and with a one-sortie window, every call of
+``utils/native.graphcut_native`` is recorded, and each recorded problem is
+solved again here by both engines.
+
+Each problem is solved by both engines in turns, ``ref, new, new, ref`` a
+round: the whole ``tm_graphcut`` call (graph build, solve and labels). The
+reference's counts (augmentations and orphans processed; every root is
+active at its start) come from an untimed copy of its source with two
+counters added (built into ``build/native/``). Prints one JSON line per
+problem and writes them all to ``--out``: nodes, free nodes (no terminal
+capacity), each engine's seconds (every run and the median), flow and
+counts, the nodes whose labels differ and, if any do, both labellings' cut
+values.
+"""
+
+import argparse
+import contextlib
+import ctypes
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from drone_image_stitch_cpp_tpu_torch.ops import seam as S  # noqa: E402
+from drone_image_stitch_cpp_tpu_torch.utils import native as N  # noqa: E402
+
+FPTR = np.ctypeslib.ndpointer(dtype=np.float32, flags="C")
+UPTR = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C")
+# the counters added to the reference's copy: (anchor, line added after it)
+COUNTED = (("  int time_ = 0;\n", "  long long n_augments_ = 0, n_orphans_ = 0;\n"),
+           ("      ++time_;\n", "      ++n_augments_;\n"),
+           ("      if (t == kFree) continue;\n", "      ++n_orphans_;\n"),
+           ("  bool source_side(int i) const { return tree_[i] == kTreeS; }\n",
+            "  void counts(long long* c) const { c[0] = n_augments_;"
+            " c[1] = n_orphans_; }\n"),
+           ("  for (int i = 0; i < n; ++i) labels_out[i] = "
+            "g.source_side(i) ? 1 : 0;\n",
+            "  g.counts(tm_counts);\n"),
+           ('extern "C" {\n', "long long tm_counts[2];\n"))
+
+
+def engines():
+    """(the port's tm_graphcut, the reference's, the reference's counting
+    copy and its counts array)."""
+    if N.graphcut_library() is None:
+        raise SystemExit("no C++ compiler: the solvers do not build")
+    new = N._GC["fn"]
+    path, err = N._build("tmgraphcutref", ["graphcut.cpp"])
+    if path is None:
+        raise SystemExit(f"the reference solver does not build: {err}")
+    ref = ctypes.CDLL(path).tm_graphcut
+    with open(os.path.join(ROOT, "native", "graphcut.cpp")) as f:
+        src = f.read()
+    for anchor, line in COUNTED:
+        if src.count(anchor) != 1:
+            raise SystemExit(f"the reference source has changed: {anchor!r}")
+        src = src.replace(anchor, anchor + line)
+    out_dir = os.path.join(ROOT, "build", "native", "counted")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "graphcut.cpp"), "w") as f:
+        f.write(src)
+    path, err = N._build("tmgraphcutcounted", ["graphcut.cpp"],
+                         src_dir=out_dir)
+    if path is None:
+        raise SystemExit(f"the counting copy does not build: {err}")
+    lib = ctypes.CDLL(path)
+    counted = lib.tm_graphcut
+    for fn in (ref, counted):
+        fn.restype = ctypes.c_double
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, FPTR, FPTR, FPTR, FPTR,
+                       UPTR]
+    counts = np.ctypeslib.as_array((ctypes.c_longlong * 2).in_dll(
+        lib, "tm_counts"))
+    return new, ref, counted, counts
+
+
+def cut_value(lab, cs, ck, ch, cv):
+    labf = lab.astype(bool)
+    cut = float(np.where(~labf, cs, 0).astype(np.float64).sum())
+    cut += float(np.where(labf, ck, 0).astype(np.float64).sum())
+    cut += float((ch.astype(np.float64) * (labf[:, :-1] != labf[:, 1:])).sum())
+    cut += float((cv.astype(np.float64) * (labf[:-1, :] != labf[1:, :])).sum())
+    return cut
+
+
+def smooth_field(rng, h, w, cell, ch=1):
+    """Random values on a grid of ``cell`` px, bicubically upsampled to
+    (h, w, ch)."""
+    g = rng.uniform(0.0, 1.0, (1, ch, h // cell + 4, w // cell + 4))
+    up = F.interpolate(torch.from_numpy(g.astype(np.float32)),
+                       scale_factor=cell, mode="bicubic",
+                       align_corners=False)
+    return up[0, :, cell:cell + h, cell:cell + w].permute(1, 2, 0).numpy()
+
+
+def synthetic_pair(seed, h, w):
+    """(a, b, mask_a, mask_b): terrain, the same terrain sampled 1-3 px off
+    by a smooth shift, with sensor noise; A holds the top 65% of the rows,
+    B the bottom 65%, each edge ragged by up to 24 px."""
+    rng = np.random.default_rng(seed)
+    terrain = (150.0 * smooth_field(rng, h + 8, w + 8, 64, 3)
+               + 60.0 * smooth_field(rng, h + 8, w + 8, 8, 3)
+               + 30.0 * smooth_field(rng, h + 8, w + 8, 2, 3))
+    t = torch.from_numpy(np.ascontiguousarray(
+        terrain.transpose(2, 0, 1)))[None]
+    shift = 1.0 + 2.0 * smooth_field(rng, h, w, 256, 2)
+    sign = np.where(rng.random(2) < 0.5, -1.0, 1.0).astype(np.float32)
+    yy, xx = np.meshgrid(np.arange(h, dtype=np.float32) + 4,
+                         np.arange(w, dtype=np.float32) + 4, indexing="ij")
+
+    def sample(dy, dx):
+        gx = (xx + dx) / (w + 7) * 2 - 1
+        gy = (yy + dy) / (h + 7) * 2 - 1
+        grid = torch.from_numpy(np.stack([gx, gy], -1)[None])
+        return F.grid_sample(t, grid, mode="bilinear",
+                             align_corners=True)[0].permute(1, 2, 0).numpy()
+
+    a = sample(0.0, 0.0)
+    b = sample(sign[0] * shift[..., 0], sign[1] * shift[..., 1])
+    a = a + rng.normal(0, 2.0, a.shape).astype(np.float32)
+    b = b + rng.normal(0, 2.0, b.shape).astype(np.float32)
+    rag = 24.0 * smooth_field(rng, 1, w, 128, 2)[0]
+    rows = np.arange(h)[:, None]
+    ma = rows < (0.65 * h - rag[:, 0])[None, :]
+    mb = rows >= (0.35 * h + rag[:, 1])[None, :]
+    a = np.clip(a, 0, 255) * ma[..., None]
+    b = np.clip(b, 0, 255) * mb[..., None]
+    return a.astype(np.float32), b.astype(np.float32), ma, mb
+
+
+def synthetic_problems(seed, h, w):
+    """[(name, (cap_src, cap_snk, cap_h, cap_v))], and whether the fine
+    cut presses on its band: ``graphcut_pairwise_seam``'s coarse, fine and
+    widened problems of the synthetic pair (the union box is the whole
+    (h, w) grid)."""
+    a, b, ma, mb = synthetic_pair(seed, h, w)
+    both = ma & mb
+    sc = (S.GC_COARSE_NODES / float(h * w)) ** 0.5
+    nh, nw = max(2, int(h * sc)), max(2, int(w * sc))
+    coarse = S._gc_problem(S._resize_area_np(a, nh, nw),
+                           S._resize_area_np(b, nh, nw),
+                           S._resize_nearest(ma, nh, nw),
+                           S._resize_nearest(mb, nh, nw))
+    lab_up = S._resize_nearest(N.graphcut_native(*coarse).astype(bool), h, w)
+    cap_src, cap_snk, cap_h, cap_v = S._gc_problem(a, b, ma, mb)
+    out = [("coarse", coarse)]
+    band = max(32, int(round(3.0 / sc)))
+    touches = None
+    for name in ("fine", "widened"):
+        in_band = S._seam_band(lab_up, band, torch.device("cpu"))
+        pin_a = both & ~in_band & lab_up
+        pin_b = both & ~in_band & ~lab_up
+        cs2, ck2 = cap_src.copy(), cap_snk.copy()
+        cs2[pin_a] = np.float32(1e8)
+        ck2[pin_b] = np.float32(1e8)
+        out.append((f"{name} band {band}", (cs2, ck2, cap_h, cap_v)))
+        if touches is None:
+            touches = S._cut_touches(
+                N.graphcut_native(cs2, ck2, cap_h, cap_v).astype(bool),
+                pin_a | pin_b)
+        band *= 2
+    return out, touches
+
+
+def cell_problems(workload, seed, cpu_tiny):
+    """[(name, problem)] of every ``graphcut_native`` call in one sortie
+    of ``workload``, through the benchmark's harness."""
+    sys.path.insert(0, os.path.join(ROOT, "benchmark"))
+    from mosaicbench import harness as H
+    sys.path.insert(0, os.path.join(ROOT, "studies"))
+    from span_census import TINY, TINY_AREA
+    real = N.graphcut_native
+    seen = []
+
+    def recording(*prob):
+        seen.append([np.array(c, np.float32) for c in prob])
+        return real(*prob)
+
+    ov = {**TINY, **(TINY_AREA if workload.startswith("area") else {})} \
+        if cpu_tiny else {}
+    ov["traffic"] = {**ov.get("traffic", {}), "warmup": False}
+    dev = torch.device("cpu" if cpu_tiny else "cuda:0")
+    N.graphcut_native = recording
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            result, _ = H.run_cell(workload, seed, 0.0, 0, dev, ov)
+    finally:
+        N.graphcut_native = real
+    if not result["correct"]:
+        raise SystemExit(f"the sortie was not correct: {result['checks']}")
+    return [(f"{workload} call {i} ({p[0].shape[0]}x{p[0].shape[1]})", p)
+            for i, p in enumerate(seen)]
+
+
+def ab(name, prob, new, ref, counted, ref_counts, rounds):
+    """One problem solved by both engines in turns; its JSON record."""
+    cs, ck, ch, cv = [np.ascontiguousarray(c, np.float32) for c in prob]
+    h, w = cs.shape
+    lab = {"ref": np.zeros((h, w), np.uint8), "new": np.zeros((h, w),
+                                                               np.uint8)}
+    counts = np.zeros(3, np.int64)
+    secs = {"ref": [], "new": []}
+    flow = {}
+
+    def run(which):
+        t0 = time.perf_counter()
+        if which == "new":
+            flow[which] = new(h, w, cs, ck, ch, cv, lab[which], counts)
+        else:
+            flow[which] = ref(h, w, cs, ck, ch, cv, lab[which])
+        secs[which].append(time.perf_counter() - t0)
+
+    for _ in range(rounds):
+        for which in ("ref", "new", "new", "ref"):
+            run(which)
+    counted(h, w, cs, ck, ch, cv, np.zeros((h, w), np.uint8))
+    tr = cs - ck
+    roots = int(((tr > 1e-12) | (tr < -1e-12)).sum())
+    differ = int((lab["ref"] != lab["new"]).sum())
+    rec = {"problem": name, "nodes": h * w,
+           "free_nodes": h * w - roots,
+           "seconds": {k: v for k, v in secs.items()},
+           "median_s": {k: statistics.median(v) for k, v in secs.items()},
+           "flow": flow,
+           "ref_counts": {"augments": int(ref_counts[0]),
+                          "orphans": int(ref_counts[1]),
+                          "active_roots": roots},
+           "new_counts": dict(zip(("augments", "orphans", "active_roots"),
+                                  counts.tolist())),
+           "labels_differ": differ}
+    rec["speedup"] = rec["median_s"]["ref"] / rec["median_s"]["new"]
+    if differ:
+        rec["cut_value"] = {k: cut_value(v, cs, ck, ch, cv)
+                            for k, v in lab.items()}
+    return rec
+
+
+def card():
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip() or None
+    except (OSError, subprocess.SubprocessError):
+        return None
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--height", type=int, default=1600)
+    ap.add_argument("--width", type=int, default=3500)
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--workload")
+    ap.add_argument("--cpu-tiny", action="store_true")
+    ap.add_argument("--out")
+    args = ap.parse_args()
+    if args.rounds < 1:
+        raise SystemExit("--rounds must be at least 1")
+    new, ref, counted, ref_counts = engines()
+    head = {"card": card(), "cpu": os.cpu_count(), "seed": args.seed}
+    if args.workload:
+        probs = cell_problems(args.workload, args.seed, args.cpu_tiny)
+        head["workload"] = args.workload
+    else:
+        probs, touches = synthetic_problems(args.seed, args.height,
+                                            args.width)
+        head.update(union_box=[args.height, args.width],
+                    fine_cut_touches=touches)
+    print(json.dumps(head), flush=True)
+    recs = [head]
+    for name, prob in probs:
+        rec = ab(name, prob, new, ref, counted, ref_counts, args.rounds)
+        print(json.dumps(rec), flush=True)
+        recs.append(rec)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            for r in recs:
+                f.write(json.dumps(r) + "\n")
+
+
+if __name__ == "__main__":
+    main()
