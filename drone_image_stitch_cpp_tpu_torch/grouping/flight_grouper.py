@@ -181,39 +181,53 @@ def _segment_score_table(rels: List[VisualRelation], stats: MotionStats,
     votes (a boustrophedon turn inside one segment flips the sign); edges
     whose off-axis (cross-track) motion dominates are turn/cross-line
     evidence and penalize any window that contains them.
+
+    Every window sums its edges (i, j) in the reference's order, i then j
+    ascending; the loops run over an edge's place in its window (i - l,
+    j - i) and add it to all windows at once, so each window still takes
+    its terms in that order and its float64 sum is the reference's to the
+    bit (absent edges add 0.0).
     """
-    score = np.full((n, n), -np.inf, np.float64)
+    gap = _MAX_NEIGHBOR_GAP
     by_edge = {(r.i, r.j): r for r in rels}
     # cross-track tolerance ~= 9% of the median along-track step (the
     # reference's logged stable_max_cross is 35 px at median_main 384)
     off_lim = max(8.0, 0.09 * stats.step)
-    for l in range(n):
-        for r_ in range(l + _MIN_SEGMENT_IMAGES - 1, n):
-            s = 0.0
-            pos = neg = 0
-            for i in range(l, r_ + 1):
-                for j in range(i + 1, min(i + _MAX_NEIGHBOR_GAP, r_) + 1):
-                    rel = by_edge.get((i, j))
-                    if rel is None:
-                        continue
-                    if not rel.ok:
-                        s -= 2.0
-                        continue
-                    dom = rel.tx if stats.axis == 0 else rel.ty
-                    off = rel.ty if stats.axis == 0 else rel.tx
-                    if abs(off) > off_lim:
-                        # cross-track motion inside one strip: turn evidence
-                        s -= 4.0
-                        continue
-                    s += 1.0 + min(rel.score / 100.0, 1.0)
-                    if j - i == 1 and abs(dom) > stats.dup_thresh:
-                        if dom > 0:
-                            pos += 1
-                        else:
-                            neg += 1
-            s -= 4.0 * min(pos, neg)  # direction-conflict penalty
-            score[l, r_] = s
-    return score
+    # term[i, k - 1]: what edge (i, i + k) adds to a window that holds it;
+    # vote[i]: the direction vote of edge (i, i + 1)
+    term = np.zeros((n, gap), np.float64)
+    vote = np.zeros(n, np.int64)
+    for (i, j), rel in by_edge.items():
+        k = j - i
+        if not (0 <= i and j < n and 1 <= k <= gap):
+            continue
+        if not rel.ok:
+            term[i, k - 1] = -2.0
+            continue
+        dom = rel.tx if stats.axis == 0 else rel.ty
+        off = rel.ty if stats.axis == 0 else rel.tx
+        if abs(off) > off_lim:
+            # cross-track motion inside one strip: turn evidence
+            term[i, k - 1] = -4.0
+            continue
+        term[i, k - 1] = 1.0 + min(rel.score / 100.0, 1.0)
+        if k == 1 and abs(dom) > stats.dup_thresh:
+            vote[i] = 1 if dom > 0 else -1
+    span = np.arange(n)[None, :] - np.arange(n)[:, None]    # [l, r]: r - l
+    s = np.zeros((n, n), np.float64)
+    pos = np.zeros((n, n), np.int64)
+    neg = np.zeros((n, n), np.int64)
+    for a in range(n):                     # the edge's i - l
+        m = n - a                          # windows with l + a < n
+        for k in range(1, min(gap, n - 1 - a) + 1):
+            # the windows [l, r] that hold edge (l + a, l + a + k)
+            inside = span[:m] >= a + k
+            s[:m] += np.where(inside, term[a:, k - 1][:, None], 0.0)
+            if k == 1:
+                pos[:m] += inside & (vote[a:] > 0)[:, None]
+                neg[:m] += inside & (vote[a:] < 0)[:, None]
+    s -= 4.0 * np.minimum(pos, neg)        # direction-conflict penalty
+    return np.where(span >= _MIN_SEGMENT_IMAGES - 1, s, -np.inf)
 
 
 def _solve_best_segmentation(score: np.ndarray, n: int

@@ -3,8 +3,9 @@
 Port of ``drone_image_stitch_cpp_tpu/ops/seam.py``:
   * detail::DpSeamFinder(COLOR_GRAD) analog (stitch_robust.cpp:207): per
     overlapping pair, a min-cost path through color + gradient differences
-    splits the overlap. The forward recurrence runs on the device row by
-    row; the backtrack reads the (H, W) int8 move table once on the host.
+    splits the overlap. On the card the recurrence and the backtrack are
+    one launch of csrc/dp_seam.cu (ops/seam_kernel); CPU tensors run its
+    plain version, a row loop and a host backtrack.
   * detail::GraphCutSeamFinder(COST_COLOR_GRAD) analog of the global stage
     (stitch_global.cpp:585-619): a min-cut over the pair's union box on
     the host with the port's Boykov-Kolmogorov solver, csrc/graphcut.cpp
@@ -28,9 +29,9 @@ import torch.nn.functional as F
 from ..runtime.logging import get_logger
 from .blend import align_up
 from .resize import resize_area
+from .seam_kernel import seam_path
 
 _BIGCOST = 1e7
-_INF = 3e38
 
 
 def _color_grad_cost(img_a: torch.Tensor, img_b: torch.Tensor,
@@ -53,26 +54,16 @@ def _color_grad_cost(img_a: torch.Tensor, img_b: torch.Tensor,
 
 def _vertical_seam_path(cost: torch.Tensor) -> torch.Tensor:
     """Min-cost top-to-bottom path; per-row x index (H,) long. Ties go to
-    the lower offset (-1, 0, +1), as jnp.argmin does. The row loop, the
-    move table's fetch and the backtrack are one ``dp scan`` span."""
+    the lower offset (-1, 0, +1), as jnp.argmin does. CUDA costs take one
+    launch of ``csrc/dp_seam.cu`` (``seam_kernel.seam_path``). The scan is
+    one ``dp scan`` span, which ends when the path is ready: on the card
+    with one synchronisation, as the host loop's move-table fetch did."""
     h, w = cost.shape
     with get_logger().span("dp scan", rows=h, cols=w):
-        offs = torch.zeros((h, w), dtype=torch.int8, device=cost.device)
-        inf = torch.full((1,), _INF, dtype=torch.float32,
-                         device=cost.device)
-        prev = cost[0]
-        for r in range(1, h):
-            stacked = torch.stack([torch.cat([inf, prev[:-1]]), prev,
-                                   torch.cat([prev[1:], inf])])
-            best, arg = torch.min(stacked, dim=0)
-            offs[r] = (arg - 1).to(torch.int8)
-            prev = cost[r] + best
-        offs_h = offs.cpu().numpy()
-        xs = np.empty(h, np.int64)
-        xs[h - 1] = int(torch.argmin(prev))
-        for r in range(h - 1, 0, -1):
-            xs[r - 1] = min(max(xs[r] + int(offs_h[r, xs[r]]), 0), w - 1)
-    return torch.from_numpy(xs).to(cost.device)
+        xs = seam_path(cost)
+        if xs.is_cuda:
+            torch.cuda.current_stream(xs.device).synchronize()
+    return xs
 
 
 def pairwise_seam(img_a: torch.Tensor, img_b: torch.Tensor,

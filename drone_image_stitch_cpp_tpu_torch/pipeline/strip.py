@@ -150,16 +150,21 @@ def estimate_strip_transforms(images: Optional[List[np.ndarray]],
     (``runtime/device.placement``; default the store's): the pair
     registration's chunks spread over the list
     (:func:`pairgraph.register_pairs`); detect and the bundle adjust run
-    on its first device, where the frames are.
+    on its first device, where the frames are. Three spans of ``stage``
+    time its steps: ``detect`` (``frames``), ``pairs`` (match and RANSAC
+    over the schedule up to the fetch of the pair graph; ``pairs``,
+    ``kept``) and ``bundle adjust`` (up to the fetch of its transforms;
+    ``frames``, ``pairs``); none adds a synchronisation.
     """
     log = get_logger()
     devices = placement(device, None if store is None else store.device)
     n = len(images) if images is not None else len(indices)
     rw = range_width if range_width is not None else tuning.range_width
-    feats, scale = detect_features(images, tuning.sift_features,
-                                   tuning.registration_resol_mpx,
-                                   device=devices[0], store=store,
-                                   indices=indices)
+    with log.span("detect", stage=stage, frames=n):
+        feats, scale = detect_features(images, tuning.sift_features,
+                                       tuning.registration_resol_mpx,
+                                       device=devices[0], store=store,
+                                       indices=indices)
     if matching_mask is not None:
         pairs = [(i, j) for i in range(n) for j in range(i + 1, n)
                  if matching_mask[i, j] or matching_mask[j, i]]
@@ -169,12 +174,15 @@ def estimate_strip_transforms(images: Optional[List[np.ndarray]],
         pairs = all_pairs(n)
     if not pairs:
         raise StripStitchError(f"{stage}: empty pair schedule")
-    graph = register_pairs(feats, pairs, _LOWE_RATIO, thresh=4.0 / scale,
-                           seed=seed, devices=devices)
-    conf = graph.conf.cpu().numpy()
-    ok = graph.ok.cpu().numpy()
-    keep = ok & (conf >= tuning.pano_conf_thresh)
-    log.log(stage, "pair graph", pairs=len(pairs), kept=int(keep.sum()),
+    with log.span("pairs", stage=stage, pairs=len(pairs)) as counters:
+        graph = register_pairs(feats, pairs, _LOWE_RATIO,
+                               thresh=4.0 / scale, seed=seed,
+                               devices=devices)
+        conf = graph.conf.cpu().numpy()
+        ok = graph.ok.cpu().numpy()
+        keep = ok & (conf >= tuning.pano_conf_thresh)
+        counters["kept"] = int(keep.sum())
+    log.log(stage, "pair graph", pairs=len(pairs), kept=counters["kept"],
             mean_conf=float(conf[ok].mean()) if ok.any() else 0.0)
 
     if n == 2:
@@ -215,10 +223,13 @@ def estimate_strip_transforms(images: Optional[List[np.ndarray]],
         pk_t = torch.as_tensor(pk, dtype=torch.long, device=dev)
         init_params = params_from_affine(
             torch.from_numpy(init_t[:, :2, :]).to(dev))
-        refined = bundle_adjust_similarity(
-            torch.from_numpy(graph.pairs).to(dev)[pk_t], graph.pts_a[pk_t],
-            graph.pts_b[pk_t], graph.w[pk_t], init_params)
-        transforms = refined.cpu().numpy()
+        with log.span("bundle adjust", stage=stage, frames=n,
+                      pairs=len(pk)):
+            refined = bundle_adjust_similarity(
+                torch.from_numpy(graph.pairs).to(dev)[pk_t],
+                graph.pts_a[pk_t], graph.pts_b[pk_t], graph.w[pk_t],
+                init_params)
+            transforms = refined.cpu().numpy()
         if not np.isfinite(transforms).all():
             log.log(stage, "bundle adjust produced non-finite transforms; "
                            "keeping chain init")

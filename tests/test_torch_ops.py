@@ -277,6 +277,36 @@ def test_bundle_adjust_is_independent_of_summation_order():
     np.testing.assert_allclose(outs[0][:, :, 2], exp, rtol=0, atol=0.1)
 
 
+def test_bundle_adjust_keeps_a_long_line_length():
+    """A 100-frame line of 640 x 512 frames at 64 px steps, banded pairs
+    (gaps 1-4, 120 matches each, 0.3 px of noise on both sides): every
+    frame within 5 px of its planted offset and scale 1 within 1e-3. The
+    plain least-squares solve, which the points' noise pays for shrinking
+    the scales, put the last frame 24 px short here."""
+    from drone_image_stitch_cpp_tpu_torch.pipeline.pairgraph import (
+        banded_pairs)
+    r = _rng(0)
+    n_, k, step = 100, 120, 64.0
+    pairs = np.asarray(banded_pairs(n_, 4))
+    pa, pb = [], []
+    for i, j in pairs:
+        q = np.stack([r.uniform(0, 640 - step * (j - i), k),
+                      r.uniform(0, 512, k)], -1)
+        p = q + [step * (j - i), 0.0]
+        pa.append(p + r.normal(0, 0.3, p.shape))
+        pb.append(q + r.normal(0, 0.3, q.shape))
+    init = np.tile(np.eye(3)[:2], (n_, 1, 1))
+    init[:, 0, 2] = step * np.arange(n_)
+    out = n(TBA.bundle_adjust_similarity(
+        t(pairs).long(), t(np.stack(pa)), t(np.stack(pb)),
+        torch.ones((len(pairs), k), dtype=torch.float64),
+        TBA.params_from_affine(t(init))))
+    exp = np.stack([step * np.arange(n_), np.zeros(n_)], -1)
+    np.testing.assert_allclose(out[:, :, 2], exp, rtol=0, atol=5.0)
+    np.testing.assert_allclose(np.hypot(out[:, 0, 0], out[:, 1, 0]), 1.0,
+                               rtol=0, atol=1e-3)
+
+
 def _two_frame_canvas(seed=6, h=48, w=80):
     r = _rng(seed)
     base = r.uniform(20, 230, (h, w + 40, 3)).astype(np.float32)

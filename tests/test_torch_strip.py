@@ -24,6 +24,7 @@ import torch
 
 from torch_port_helpers import CPU, small_tunings
 
+from drone_image_stitch_cpp_tpu.grouping import flight_grouper as JG
 from drone_image_stitch_cpp_tpu.grouping.flight_grouper import (
     group_boustrophedon as jgroup)
 from drone_image_stitch_cpp_tpu.ops.crop import (
@@ -33,6 +34,7 @@ from drone_image_stitch_cpp_tpu.pipeline.strip import (
 from drone_image_stitch_cpp_tpu.utils.synthetic import render_sortie
 from drone_image_stitch_cpp_tpu_torch.app import (
     RunConfig, run_stitch_application, stitch_frames)
+from drone_image_stitch_cpp_tpu_torch.grouping import flight_grouper as TG
 from drone_image_stitch_cpp_tpu_torch.grouping.flight_grouper import (
     group_boustrophedon as tgroup)
 from drone_image_stitch_cpp_tpu_torch.ops.crop import (
@@ -77,6 +79,35 @@ def test_grouping_matches_jax(strip):
     gt_ = tgroup(imgs, ids, tt, device=CPU)
     assert [g.indices for g in gt_] == [g.indices for g in gj]
     assert [g.ids for g in gt_] == [g.ids for g in gj]
+
+
+@pytest.mark.parametrize("axis,n", [(0, 2), (0, 41), (1, 60)])
+def test_segment_score_table_is_jax_to_the_bit(axis, n):
+    """Every window's score, -inf below two frames, equals the JAX
+    package's loop to the bit: missing, failed, cross-track and voting
+    edges of every gap, and duplicates of one edge (the last one holds)."""
+    rng = np.random.default_rng(n)
+    rows = []
+    for i in range(n):
+        for k in (1, 2, 3, 4):
+            if i + k < n and rng.random() < 0.8:
+                rows.append((i, i + k, bool(rng.random() < 0.85),
+                             float(rng.normal(0, 40)), float(rng.normal(0, 9)),
+                             float(rng.random()), int(rng.integers(0, 300)),
+                             int(rng.integers(0, 200))))
+    rows += [(i, j, not ok, b, a, ra, m, q)
+             for i, j, ok, a, b, ra, m, q in rows[: n // 4]]
+    for pkg in (JG, TG):
+        rels = [pkg.VisualRelation(i, j, ok, tx=a if axis == 0 else b,
+                                   ty=b if axis == 0 else a, ratio=ra,
+                                   matches=m, inliers=q)
+                for i, j, ok, a, b, ra, m, q in rows]
+        stats = pkg.MotionStats(True, axis=axis, dup_thresh=12.0, step=96.0)
+        table = pkg._segment_score_table(rels, stats, n)
+        if pkg is JG:
+            want = table
+    assert table.dtype == want.dtype == np.float64
+    np.testing.assert_array_equal(table, want)
 
 
 def test_strip_matches_jax(ortho, jax_strip, port_strip):
