@@ -4,7 +4,7 @@
 
 Phases (one line each; any failure exits nonzero and prints no result):
   1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
-  2. build both CUDA kernels from csrc/ (build/kernels/, keyed by source;
+  2. build every CUDA kernel from csrc/ (build/kernels/, keyed by source;
      one nvcc per source, all started together), with ptxas's registers
      and spills;
  2a. throughput (on the empty card): the JAX repo's bench.py through its
@@ -66,7 +66,14 @@ Phases (one line each; any failure exits nonzero and prints no result):
      per-strip GT-RMSE from its checkpointed strips):
      groups, no flips, strip offsets within 2 px, mosaic size within 8 px,
      GT-RMSE (and per strip), graph-cut seams on every adjacent strip pair,
-     K1 launched by the global stage and K2's content mode launched;
+     K1 launched by the global stage and K2's content mode launched.
+     Then the pass's seam problems, each solved by csrc/maxflow.cu in the
+     pass, contracted on the card once and run by the kernel and by its
+     plain rounds on that same ribbon: equal sides, rounds and relabels,
+     the labels the pass's and the host engine's (or a tie: float64 cut
+     values within 1e-6), one launch a batch of rounds in the pass; and
+     the pass's DP seam costs, each csrc/dp_seam.cu's path bit-equal to
+     the plain version's and the pass's, one launch a scan;
  5a. switches: one more multi-line pass with both of the global stage's
      seam switches (stitch_frames(seam_warp="fullres", seam_method="dp"):
      the seam canvas warped from each full-resolution strip by one K2
@@ -211,7 +218,9 @@ headers) and prints its route, library and the libjpeg it links, or fails
 with both routes' errors.
 The line before the last is a JSON object with each kernel's numbers (K1,
 K2's BGR and I420 forms, K2's single-plane form as its own entry,
-warp_affine_plane, with its launches by path and the throughput run):
+warp_affine_plane, with its launches by path and the throughput run;
+maxflow_run and dp_seam_path with the measured multi-line pass's launches,
+their times summed over its solves and scans, maxflow_run's per solve):
 bound_ms is the larger of the bytes the call must move (each input byte
 it needs read once: for K1 the stack pixels that its keypoints' needed
 gradients tap, for K2 the source pixels its taps touch; each output
@@ -219,7 +228,11 @@ written once) over 3.35 TB/s and its float32 operations (for K1 counted
 from its plain version over the gradients, orientation-box and descriptor
 terms this run needs, transcendental functions as one) over 67 TFLOP/s;
 share = bound_ms / kernel_ms (the kernel's own duration; device_ms, the
-back-to-back events time, beside it). The last line is {"ok": true,
+back-to-back events time, beside it). maxflow_run's bound is 36 B a slot a
+round (excess, incoming excess, heights) x slots x rounds, dp_seam_path's
+its cost read and its move table written, both over 3.35 TB/s and both
+lower bounds of kernels bound by their barriers; their share is bound_ms /
+device_ms. The last line is {"ok": true,
 "device": {...}}.
 """
 
@@ -409,10 +422,12 @@ def _linked_libjpeg(path: str) -> str:
 
 
 def phase_build() -> dict:
-    """Build both kernels, one nvcc each, started together, and the JPEG
+    """Build every kernel, one nvcc each, started together, and the JPEG
     codec beside them (it must build, by one of its two routes); returns
     each source's (registers, spill bytes, {entry: registers}) as ptxas
     reports them."""
+    from drone_image_stitch_cpp_tpu_torch.ops import maxflow_kernel as MK
+    from drone_image_stitch_cpp_tpu_torch.ops import seam_kernel as DK
     from drone_image_stitch_cpp_tpu_torch.ops import sift_kernel as SK
     from drone_image_stitch_cpp_tpu_torch.ops import warp_kernel as WK
     from drone_image_stitch_cpp_tpu_torch.runtime.kernels import load_kernels
@@ -426,7 +441,7 @@ def phase_build() -> dict:
     # the host JPEG codec (g++) builds beside the nvcc builds
     codec = threading.Thread(target=jpeg_codec_error)
     codec.start()
-    mods = (SK, WK)
+    mods = (SK, WK, MK, DK)
     built = load_kernels({m.KERNEL_SOURCE: m.KERNEL_SIGNATURES
                           for m in mods})
     codec.join()
@@ -452,7 +467,8 @@ def phase_build() -> dict:
             _ptxas_entries(k.ptxas, r"(\d+) bytes smem"))
         print(f"[smoke] build {m.KERNEL_SOURCE}: nvcc {k.seconds:.2f} s; "
               f"ptxas: {' | '.join(lines)}", flush=True)
-    print(f"[smoke] build: both kernels in {time.perf_counter() - t0:.2f} s",
+    print(f"[smoke] build: {len(mods)} kernels in "
+          f"{time.perf_counter() - t0:.2f} s",
           flush=True)
     return out
 
@@ -2181,12 +2197,168 @@ def _zero_counts():
     zero_launch_counts()
 
 
+def _cut_value(lab, cs, ck, ch, cv) -> float:
+    """The float64 value of the cut ``lab`` (1 = source side)."""
+    src = lab.astype(bool)
+    f64 = np.float64
+    return float(np.where(~src, cs, 0).astype(f64).sum()
+                 + np.where(src, ck, 0).astype(f64).sum()
+                 + (ch.astype(f64) * (src[:, :-1] != src[:, 1:])).sum()
+                 + (cv.astype(f64) * (src[:-1, :] != src[1:, :])).sum())
+
+
+def _maxflow_check(torch, dev, solves, launches):
+    """csrc/maxflow.cu on the seam problems a measured multi-line pass
+    solved (``solves``: each problem's four host grids and the labels the
+    pass got): each grid uploaded and contracted on the card once, the
+    kernel's rounds beside rounds_plain's on that same ribbon (equal
+    sides, rounds and relabels), the labels the pass's, and the host
+    engine's or a tie with them (float64 cut values within 1e-6); the
+    pass's ``launches`` one a batch of rounds. Returns the kernels line's
+    entry: ms the wrapper (upload to labels on the card), device_ms the
+    rounds between CUDA events, bound_ms 36 B a slot a round x slots x
+    rounds over 3.35 TB/s (a lower bound for this algorithm, not for the
+    cut), each summed over the solves."""
+    from drone_image_stitch_cpp_tpu_torch.ops import maxflow_kernel as MK
+    from drone_image_stitch_cpp_tpu_torch.utils.native import (
+        graphcut_native)
+
+    if not solves:
+        _fail("maxflow", "the multi-line pass handed the card no seam "
+                         "problem")
+    rows, batches = [], 0
+    for prob, lab_pass in solves:
+        grids = [torch.from_numpy(np.ascontiguousarray(c, np.float32)).to(
+            dev) for c in prob]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lab, counts = MK.min_cut(*grids)
+        lab = lab.cpu().numpy()
+        ms = (time.perf_counter() - t0) * 1e3
+        rib = MK.contract(*grids)
+        slots = rib.tr.numel()
+        dev_ms = plain_ms = 0.0
+        same = True
+        if rib.n_free:
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            side_k, rounds, relabels = MK.rounds_kernel(rib)
+            b.record()
+            b.synchronize()
+            dev_ms = a.elapsed_time(b)
+            t0 = time.perf_counter()
+            side_p, rounds_p, relabels_p = MK.rounds_plain(rib)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            same = torch.equal(side_k, side_p)
+            if not same or (rounds, relabels) != (rounds_p, relabels_p):
+                _fail("maxflow", f"{rib.h}x{rib.w}: the kernel's side, "
+                                 f"rounds {rounds}, relabels {relabels} "
+                                 f"against rounds_plain's (same side: "
+                                 f"{same}, rounds {rounds_p}, relabels "
+                                 f"{relabels_p})")
+            batches += -(-rounds // MK.BATCH_ROUNDS)
+        else:
+            rounds = relabels = 0
+        if (counts["rounds"], counts["relabels"]) != (rounds, relabels) \
+                or not np.array_equal(lab, lab_pass):
+            _fail("maxflow", f"{rib.h}x{rib.w}: a second solve differs from "
+                             f"the pass's ({counts} against rounds {rounds}, "
+                             f"relabels {relabels})")
+        host = graphcut_native(*prob)
+        differ = int((host != lab).sum())
+        cuts = None
+        if differ:
+            cuts = [_cut_value(x, *prob) for x in (lab, host)]
+            if abs(cuts[0] - cuts[1]) > 1e-6 * max(abs(cuts[1]), 1.0):
+                _fail("maxflow", f"{rib.h}x{rib.w}: {differ} labels differ "
+                                 f"from the host engine's, cut values "
+                                 f"{cuts} (card, host)")
+        rows.append({"shape": [rib.h, rib.w], "slots": slots,
+                     "free": rib.n_free, "rounds": rounds,
+                     "relabels": relabels, "ms": ms, "device_ms": dev_ms,
+                     "plain_ms": plain_ms,
+                     "bound_ms": _bound(36.0 * slots * rounds, 0.0)[0],
+                     "host_differ": differ, "cut_values": cuts})
+    if launches != batches:
+        _fail("maxflow", f"{launches} launches in the pass, {batches} "
+                         f"batches of {MK.BATCH_ROUNDS} rounds expected")
+    tot = {k: sum(r[k] for r in rows)
+           for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
+    print(f"[smoke] maxflow: the pass's {len(rows)} seam solves on the card "
+          f"(slots {[r['slots'] for r in rows]}, rounds "
+          f"{[r['rounds'] for r in rows]}): kernel = rounds_plain on the "
+          f"same ribbons (sides, rounds, relabels), labels the pass's; "
+          f"host engine labels differ by {[r['host_differ'] for r in rows]} "
+          f"(any a tie); {launches} launches in the pass; wrapper "
+          f"{tot['ms']:.2f} ms, rounds {tot['device_ms']:.2f} ms, plain "
+          f"{tot['plain_ms']:.1f} ms, bound {tot['bound_ms']:.2f} ms, share "
+          f"{tot['bound_ms'] / max(tot['device_ms'], 1e-9):.3f}", flush=True)
+    return {"name": "maxflow_run", "route": "cuda",
+            "source": "drone_image_stitch_cpp_tpu_torch/csrc/maxflow.cu",
+            "replaces": "drone_image_stitch_cpp_tpu_torch/csrc/graphcut.cpp "
+                        "(host; no TPU kernel)",
+            "launches": launches, "max_abs_err": 0.0, **tot,
+            "bound_by": "bytes", "library_ms": None, "kernel_ms": None,
+            "share": tot["bound_ms"] / max(tot["device_ms"], 1e-9),
+            "solves": rows}
+
+
+def _dp_seam_check(torch, scans, launches):
+    """csrc/dp_seam.cu on the DP seam costs a measured multi-line pass
+    scanned (``scans``: each cost and the path the pass got): the kernel's
+    path the plain version's and the pass's, ``launches`` one a scan.
+    Returns the kernels line's entry: device_ms the launches between CUDA
+    events, plain_ms the plain version, bound_ms the cost read and the
+    move table written once (5 B a pixel) over 3.35 TB/s, summed."""
+    from drone_image_stitch_cpp_tpu_torch.ops import seam_kernel as DK
+
+    if not scans:
+        _fail("dp_seam", "the multi-line pass made no DP seam scan")
+    if launches != len(scans):
+        _fail("dp_seam", f"{launches} launches in the pass, {len(scans)} "
+                         f"scans on the card")
+    dev_ms = plain_ms = px = 0.0
+    for cost, xs_pass in scans:
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        xs = DK._launch(cost)
+        b.record()
+        b.synchronize()
+        dev_ms += a.elapsed_time(b)
+        t0 = time.perf_counter()
+        xs_p = DK.seam_path_plain(cost)
+        torch.cuda.synchronize()
+        plain_ms += (time.perf_counter() - t0) * 1e3
+        if not (torch.equal(xs, xs_p) and torch.equal(xs, xs_pass)):
+            _fail("dp_seam", f"{tuple(cost.shape)}: the kernel's path is "
+                             f"not the plain version's and the pass's")
+        px += cost.numel()
+    bound_ms, bound_by = _bound(5.0 * px, 3.0 * px)
+    print(f"[smoke] dp_seam: the pass's {len(scans)} DP scans ({px / 1e6:.1f}"
+          f" Mpx) = the plain version's paths; {launches} launches in the "
+          f"pass; kernel {dev_ms:.2f} ms, plain {plain_ms:.1f} ms, bound "
+          f"{bound_ms:.3f} ms ({bound_by}; the rows' barrier bounds it)",
+          flush=True)
+    return {"name": "dp_seam_path", "route": "cuda",
+            "source": "drone_image_stitch_cpp_tpu_torch/csrc/dp_seam.cu",
+            "replaces": "drone_image_stitch_cpp_tpu/ops/seam.py "
+                        "(lax.scan; no Pallas kernel)",
+            "launches": launches, "max_abs_err": 0.0, "ms": None,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "share": bound_ms / max(dev_ms, 1e-9),
+            "kernel_ms": None, "device_ms": dev_ms, "scans": len(scans)}
+
+
 def phase_multiline(torch, dev, ortho, imgs, ids, pos, tuning, first):
     """The multi-line main path through app.stitch_frames, measured pass
     (the production phase's run before it is the warm-up: ``first`` holds
     its wall and its strips as the global stage received them, host
     copies); hard checks as the module doc lists."""
     from drone_image_stitch_cpp_tpu_torch import app as A
+    from drone_image_stitch_cpp_tpu_torch.ops import maxflow_kernel as MK
+    from drone_image_stitch_cpp_tpu_torch.ops import seam as S
+    from drone_image_stitch_cpp_tpu_torch.ops import seam_kernel as DK
     from drone_image_stitch_cpp_tpu_torch.runtime.handoff import DeviceStrip
     from drone_image_stitch_cpp_tpu_torch.runtime.logging import get_logger
     from drone_image_stitch_cpp_tpu_torch.utils.native import (
@@ -2197,7 +2369,24 @@ def phase_multiline(torch, dev, ortho, imgs, ids, pos, tuning, first):
     log.verbose = False
     step_y, (gt_h, gt_w), (oy, ox) = _ml_geometry(pos)
     real_global = A.stitch_inter_strips_custom
+    real_solve, real_scan = MK.graphcut_device, S.seam_path
     seen = {}
+    solves, scans = [], []
+
+    def solve_probe(*args):
+        # each seam problem the global stage hands the card (its four
+        # grids, then the device), and its labels
+        lab = real_solve(*args)
+        solves.append((args[:4], lab))
+        return lab
+
+    def scan_probe(cost):
+        # each DP seam scan's cost and path
+        xs = real_scan(cost)
+        if cost.is_cuda:
+            scans.append((cost.clone(memory_format=torch.contiguous_format),
+                          xs))
+        return xs
 
     def global_probe(strips, *a, **kw):
         # how many strips reach the global stage on the device, and the
@@ -2211,6 +2400,7 @@ def phase_multiline(torch, dev, ortho, imgs, ids, pos, tuning, first):
         return out
 
     A.stitch_inter_strips_custom = global_probe
+    MK.graphcut_device, S.seam_path = solve_probe, scan_probe
     try:
         cold = first["seconds"]
         strip_rmse = []
@@ -2223,13 +2413,16 @@ def phase_multiline(torch, dev, ortho, imgs, ids, pos, tuning, first):
         torch.cuda.reset_peak_memory_stats(dev)
         mark = len(log._records)
         _zero_counts()
+        MK.min_cut.launches = DK.seam_path.launches = 0
         t0 = time.perf_counter()
         res = A.stitch_frames(imgs, ids, tuning, dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _counts()
+        mf_launches, dp_launches = MK.min_cut.launches, DK.seam_path.launches
     finally:
         A.stitch_inter_strips_custom = real_global
+        MK.graphcut_device, S.seam_path = real_solve, real_scan
     peak = torch.cuda.max_memory_allocated(dev)
     stages = _stage_seconds(log._records[mark:])
 
@@ -2286,8 +2479,13 @@ def phase_multiline(torch, dev, ortho, imgs, ids, pos, tuning, first):
     for name in ("sift_orient_desc", "warp_affine"):
         if launches[name] <= 0:
             _fail("multiline", f"kernel {name} never launched")
+    mf = _maxflow_check(torch, dev, solves, mf_launches)
+    del solves
+    dp = _dp_seam_check(torch, scans, dp_launches)
+    del scans
+    torch.cuda.empty_cache()
     return launches, {"res": res, "wall": wall, "peak": peak,
-                      "stages": stages}
+                      "stages": stages, "maxflow": mf, "dp_seam": dp}
 
 
 def phase_multiline_switches(torch, dev, ortho, imgs, ids, pos, tuning, ref,
@@ -3326,6 +3524,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         ml_launches, ml_ref = phase_multiline(torch, dev, ml_ortho, ml_imgs,
                                               ml_ids, ml_pos, tuning, first)
+        mf, dp = ml_ref.pop("maxflow"), ml_ref.pop("dp_seam")
         del first
         sw_launches, sw_scale = phase_multiline_switches(
             torch, dev, ml_ortho, ml_imgs, ml_ids, ml_pos, tuning, ml_ref,
@@ -3395,7 +3594,7 @@ def main() -> int:
                             k1["sortie_step"]["max_abs_err"],
                             k1["throughput"]["max_abs_err"],
                             k1["flagship"]["global_detect"]["max_abs_err"])
-    for d in (k1, k2, plane):
+    for d in (k1, k2, plane, mf, dp):
         (d["registers"], d["spill_bytes"], d["registers_by_entry"],
          d["static_smem_by_entry"]) = ptxas[d["source"].split("/")[-1]]
         d["card"] = card
@@ -3406,7 +3605,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {**{k: d[k] for k in order},
          **{k: v for k, v in d.items() if k not in order}}
-        for d in (k1, k2, plane)]}))
+        for d in (k1, k2, plane, mf, dp)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -457,7 +457,8 @@ def stitch_inter_strips_custom(strips: List, tuning: Optional[StitchTuning]
               and r["msg"] == "seam solve done"]
     log.log(_STAGE, "seam solver", calls=len(solves),
             solver_seconds=round(sum(r["seconds"] for r in solves), 3),
-            nodes=sum(r["nodes"] for r in solves))
+            nodes=sum(r["nodes"] for r in solves),
+            device=sum(r.get("device", 0) for r in solves))
     crop_box = None
     if row_sink is not None:
         # the content bbox at seam scale, upscaled with an outward margin of

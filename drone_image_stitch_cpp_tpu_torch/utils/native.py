@@ -144,9 +144,11 @@ def graphcut_native(cap_src: np.ndarray, cap_snk: np.ndarray,
     terminal capacities ``cap_src``/``cap_snk`` (h, w), horizontal edges
     ``cap_h`` (h, w-1) and vertical edges ``cap_v`` (h-1, w); None if no
     solver library is available (:func:`graphcut_library`). Each call is
-    one ``seam solve`` span of the calling stage, with ``nodes`` = h x w
-    and the engine's counts: ``augments`` (augmenting paths), ``orphans``
-    (orphans processed) and ``active_roots`` (roots active at the start).
+    one ``seam solve`` span of the calling stage, with ``nodes`` = h x w,
+    ``device`` = 0 (the host; ops/maxflow_kernel.graphcut_device solves on
+    the card) and the engine's counts: ``augments`` (augmenting paths),
+    ``orphans`` (orphans processed) and ``active_roots`` (roots active at
+    the start).
     """
     if graphcut_library() is None:
         return None
@@ -155,7 +157,8 @@ def graphcut_native(cap_src: np.ndarray, cap_snk: np.ndarray,
     counts = np.zeros(3, np.int64)
     args = [np.ascontiguousarray(c, np.float32)
             for c in (cap_src, cap_snk, cap_h, cap_v)]
-    with get_logger().span("seam solve", nodes=h * w) as counters:
+    with get_logger().span("seam solve", nodes=h * w,
+                           device=0) as counters:
         _GC["fn"](h, w, *args, labels, counts)
         counters.update(zip(("augments", "orphans", "active_roots"),
                             counts.tolist()))

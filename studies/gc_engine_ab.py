@@ -1,6 +1,8 @@
-"""The graph-cut engine's host A/B: the port's solver (``csrc/graphcut.cpp``)
-against the JAX package's reference solver (``native/graphcut.cpp``) on the
-same seam problems, timed in turns in one process.
+"""The graph-cut engines' A/B: the port's host solver (``csrc/graphcut.cpp``)
+against the JAX package's reference solver (``native/graphcut.cpp``) and,
+where there is a card, the card's push-relabel kernel (``csrc/maxflow.cu``
+through ``ops/maxflow_kernel``) on the same seam problems, timed in turns
+in one process.
 
     python studies/gc_engine_ab.py [--seed 1] [--height 1600] \\
         [--width 3500] [--rounds 3] [--out FILE]
@@ -22,19 +24,27 @@ its band (``fine_cut_touches`` says whether it does).
 With ``--workload`` the problems are the real ones of one sortie of that
 benchmark cell, on ``cuda:0`` (the CPU with ``--cpu-tiny``, at the cut
 size of ``studies/span_census.py``): the cell runs through the benchmark's
-harness without its warm-up and with a one-sortie window, every call of
-``utils/native.graphcut_native`` is recorded, and each recorded problem is
-solved again here by both engines.
+harness without its warm-up and with a one-sortie window, every solve
+(``utils/native.graphcut_native`` on the host, or
+``ops/maxflow_kernel.graphcut_device`` on the card) is recorded, and each
+recorded problem is solved again here by every engine.
 
-Each problem is solved by both engines in turns, ``ref, new, new, ref`` a
-round: the whole ``tm_graphcut`` call (graph build, solve and labels). The
-reference's counts (augmentations and orphans processed; every root is
-active at its start) come from an untimed copy of its source with two
-counters added (built into ``build/native/``). Prints one JSON line per
-problem and writes them all to ``--out``: nodes, free nodes (no terminal
-capacity), each engine's seconds (every run and the median), flow and
-counts, the nodes whose labels differ and, if any do, both labellings' cut
-values.
+Each problem is solved by the engines in turns, ``ref, new, dev, dev, new,
+ref`` a round: for the host engines the whole ``tm_graphcut`` call (graph
+build, solve and labels); for the card (``dev``, only where
+``torch.cuda.is_available()``) the whole ``graphcut_device`` call (the
+four grids' upload, contraction, rounds and the labels' fetch), and beside
+it the rounds alone (``rounds_kernel`` on the contracted problem, between
+two CUDA events). The reference's counts (augmentations and orphans
+processed; every root is active at its start) come from an untimed copy of
+its source with two counters added (built into ``build/native/``). Prints
+one JSON line per problem and writes them all to ``--out``: nodes, free
+nodes (no terminal capacity), the card's free nodes after contraction,
+rounds and global relabels, each engine's seconds (every run and the
+median), flow and counts, the nodes whose labels differ (the port's host
+engine against the reference, the card against the port's host engine,
+and the card's later runs against its first) and, if any do, the
+labellings' cut values in float64.
 """
 
 import argparse
@@ -54,6 +64,7 @@ import torch.nn.functional as F
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+import drone_image_stitch_cpp_tpu_torch.ops.maxflow_kernel as M  # noqa: E402
 from drone_image_stitch_cpp_tpu_torch.ops import seam as S  # noqa: E402
 from drone_image_stitch_cpp_tpu_torch.utils import native as N  # noqa: E402
 
@@ -202,49 +213,72 @@ def cell_problems(workload, seed, cpu_tiny):
     from mosaicbench import harness as H
     sys.path.insert(0, os.path.join(ROOT, "studies"))
     from span_census import TINY, TINY_AREA
-    real = N.graphcut_native
+    real, real_dev = N.graphcut_native, M.graphcut_device
     seen = []
 
     def recording(*prob):
         seen.append([np.array(c, np.float32) for c in prob])
         return real(*prob)
 
+    def recording_dev(*prob_dev):
+        seen.append([np.array(c, np.float32) for c in prob_dev[:4]])
+        return real_dev(*prob_dev)
+
     ov = {**TINY, **(TINY_AREA if workload.startswith("area") else {})} \
         if cpu_tiny else {}
     ov["traffic"] = {**ov.get("traffic", {}), "warmup": False}
     dev = torch.device("cpu" if cpu_tiny else "cuda:0")
-    N.graphcut_native = recording
+    N.graphcut_native, M.graphcut_device = recording, recording_dev
     try:
         with contextlib.redirect_stdout(sys.stderr):
             result, _ = H.run_cell(workload, seed, 0.0, 0, dev, ov)
     finally:
-        N.graphcut_native = real
+        N.graphcut_native, M.graphcut_device = real, real_dev
     if not result["correct"]:
         raise SystemExit(f"the sortie was not correct: {result['checks']}")
     return [(f"{workload} call {i} ({p[0].shape[0]}x{p[0].shape[1]})", p)
             for i, p in enumerate(seen)]
 
 
-def ab(name, prob, new, ref, counted, ref_counts, rounds):
-    """One problem solved by both engines in turns; its JSON record."""
+def card_rounds_s(prob, dev):
+    """(seconds of the card's rounds alone, between two CUDA events, on
+    the problem's contraction; its counts)."""
+    rib = M.contract(*[torch.from_numpy(np.ascontiguousarray(c)).to(dev)
+                       for c in prob])
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    _, rounds, relabels = M.rounds_kernel(rib)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3, {
+        "free": rib.n_free, "rounds": rounds, "relabels": relabels}
+
+
+def ab(name, prob, new, ref, counted, ref_counts, rounds, dev=None):
+    """One problem solved by the engines in turns (the card's only with a
+    CUDA ``dev``); its JSON record."""
     cs, ck, ch, cv = [np.ascontiguousarray(c, np.float32) for c in prob]
     h, w = cs.shape
-    lab = {"ref": np.zeros((h, w), np.uint8), "new": np.zeros((h, w),
-                                                               np.uint8)}
+    engines_ = ("ref", "new") + (("dev",) if dev is not None else ())
+    lab = {k: np.zeros((h, w), np.uint8) for k in engines_}
     counts = np.zeros(3, np.int64)
-    secs = {"ref": [], "new": []}
+    secs = {k: [] for k in engines_}
     flow = {}
+    dev_runs = []
 
     def run(which):
         t0 = time.perf_counter()
-        if which == "new":
+        if which == "dev":
+            lab[which] = M.graphcut_device(cs, ck, ch, cv, dev)
+            dev_runs.append(lab[which])
+        elif which == "new":
             flow[which] = new(h, w, cs, ck, ch, cv, lab[which], counts)
         else:
             flow[which] = ref(h, w, cs, ck, ch, cv, lab[which])
         secs[which].append(time.perf_counter() - t0)
 
     for _ in range(rounds):
-        for which in ("ref", "new", "new", "ref"):
+        for which in engines_ + engines_[::-1]:
             run(which)
     counted(h, w, cs, ck, ch, cv, np.zeros((h, w), np.uint8))
     tr = cs - ck
@@ -262,6 +296,15 @@ def ab(name, prob, new, ref, counted, ref_counts, rounds):
                                   counts.tolist())),
            "labels_differ": differ}
     rec["speedup"] = rec["median_s"]["ref"] / rec["median_s"]["new"]
+    if dev is not None:
+        kernel = [card_rounds_s(prob, dev) for _ in range(rounds)]
+        rec["dev_rounds_s"] = [k[0] for k in kernel]
+        rec["dev_counts"] = kernel[0][1]
+        rec["dev_labels_differ"] = int((lab["dev"] != lab["new"]).sum())
+        rec["dev_repeats_differ"] = sum(int((r != dev_runs[0]).sum())
+                                        for r in dev_runs[1:])
+        rec["dev_speedup"] = rec["median_s"]["new"] / rec["median_s"]["dev"]
+        differ += rec["dev_labels_differ"]
     if differ:
         rec["cut_value"] = {k: cut_value(v, cs, ck, ch, cv)
                             for k, v in lab.items()}
@@ -291,6 +334,7 @@ def main():
     if args.rounds < 1:
         raise SystemExit("--rounds must be at least 1")
     new, ref, counted, ref_counts = engines()
+    dev = torch.device("cuda", 0) if torch.cuda.is_available() else None
     head = {"card": card(), "cpu": os.cpu_count(), "seed": args.seed}
     if args.workload:
         probs = cell_problems(args.workload, args.seed, args.cpu_tiny)
@@ -303,7 +347,8 @@ def main():
     print(json.dumps(head), flush=True)
     recs = [head]
     for name, prob in probs:
-        rec = ab(name, prob, new, ref, counted, ref_counts, args.rounds)
+        rec = ab(name, prob, new, ref, counted, ref_counts, args.rounds,
+                 dev)
         print(json.dumps(rec), flush=True)
         recs.append(rec)
     if args.out:
