@@ -51,9 +51,9 @@ Phases (one line each; any failure exits nonzero and prints no result):
      yardstick the port never calls). K2's gather kernel counts its tiles
      by route (zero, direct) on every uint8, float32 and per-tap I420 row,
      and the row fails when the counts contradict the launch's plan; the
-     float32 row holds the wrapper's launch (the src->dst affine, inverted
-     by the entry) and one from the host's coefficients bit-equal with
-     the same tiles, and times the wrapper and F.grid_sample in turns;
+     float32 row holds the wrapper's launch (the coefficients of the
+     kernel library's host inverse) bit-equal to plain with its tiles as
+     planned, and times the wrapper and F.grid_sample in turns;
   4. the single-flight-line main path (app.stitch_frames) on a rendered
      12-frame 2160x3840 corridor sortie, once to warm up and once measured:
      one group, frame offsets within 1 px, panorama size, GT-RMSE, and the
@@ -1553,30 +1553,21 @@ def phase_k2_f32(torch, dev, fed, imgs, pos, tuning, cs):
         _fail("k2", f"float32 source not bit-identical to plain (max |d| "
                     f"{d})")
     covered = float((mk >= 0.5).float().mean())
-    # the wrapper's launch (the src->dst affine, inverted by the entry's
-    # host code) and one from the host's coefficients, each bit-equal to
-    # plain, with their tiles by route
-    model = WK._model_sets(a23)
+    # the wrapper's launch (the host inverse's coefficients), bit-equal to
+    # plain, with its tiles by route
+    sets = WK.host_inverse_coeffs(a23)
 
     def launch(tiles=None):
-        return WK._launch(frame, 1, model, oh, ow, invert=True, tiles=tiles)
+        return WK._launch(frame, 1, sets, oh, ow, tiles=tiles)
 
-    routes = {}
-    for name, fn in (("model", launch),
-                     ("coefficients", lambda tiles=None: WK._launch(
-                         frame, 1, inv, oh, ow, tiles=tiles))):
-        routes[name] = _routes_of(torch, dev, fn)
-        wr, mr, _ = fn()
-        torch.cuda.synchronize()
-        if not (torch.equal(wr, wp) and torch.equal(mr, mp)):
-            _fail("k2", f"float32 source: the launch from the {name} is not "
-                        f"bit-identical to plain")
+    routes = _routes_of(torch, dev, launch)
+    wr, mr, _ = launch()
+    torch.cuda.synchronize()
+    if not (torch.equal(wr, wp) and torch.equal(mr, mp)):
+        _fail("k2", "float32 source: the wrapper's launch is not "
+                    "bit-identical to plain")
     del wr, mr
-    if routes["model"] != routes["coefficients"]:
-        _fail("k2", f"float32 source: tiles by route {routes} differ between "
-                    f"the model and its coefficients")
-    _check_routes("float32 source", routes["model"], (1, oh, ow),
-                  {"direct": True})
+    _check_routes("float32 source", routes, (1, oh, ow), {"direct": True})
     b2b_ms = _device_ms(lambda: WK.warp_frame(frame, a23, oh, ow), torch)
     device_ms = _device_ms(launch, torch)
     kernel_ms = _kernel_ms(torch, launch, "warp_affine_tile_kernel")
@@ -1609,9 +1600,8 @@ def phase_k2_f32(torch, dev, fed, imgs, pos, tuning, cs):
     bound_ms, bound_by = _bound(n_bytes, 30.0 * oh * ow)
     print(f"[smoke] k2 warp_affine float32 source: {h}x{w} f32 (compositing "
           f"scale {cs:.4f}) -> {oh}x{ow}x3 + mask by {a23.tolist()}, window "
-          f"coverage {covered:.3f}; wrapper (affine inverted by the entry) "
-          f"and the host's coefficients bit-identical to plain; tiles "
-          f"{routes['model']}; wrapper {ms:.4f} ms (runs "
+          f"coverage {covered:.3f}; wrapper and its launch bit-identical to "
+          f"plain; tiles {routes}; wrapper {ms:.4f} ms (runs "
           f"{', '.join(f'{t:.4f}' for t in turns['wrapper'])}; {b2b_ms:.4f} "
           f"ms back to back), device {device_ms:.4f} ms, kernel "
           f"{kernel_ms:.4f} ms; plain {plain_ms:.3f} ms, grid_sample "
@@ -1627,7 +1617,7 @@ def phase_k2_f32(torch, dev, fed, imgs, pos, tuning, cs):
            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "share": bound_ms / kernel_ms,
-           "max_abs_err": 0.0, "tiles": routes["model"]}
+           "max_abs_err": 0.0, "tiles": routes}
 
     # the batched seam warp of the resized frames (strip.compose_strip)
     rh_, rw_ = int(round(FRAME_H * cs)), int(round(FRAME_W * cs))

@@ -7,14 +7,15 @@
 // versions on a machine with no card.
 //
 // It is the LU solve with partial pivoting of ops/warp_kernel.
-// inverse_coeffs, in that function's operation order, which is the JAX
-// package's ops/transform.invert_affine: pivot reciprocals, the fused back
-// substitution and translation. Every step is rounded to float32 once, as
-// that function rounds it: a reciprocal, a product or a difference alone,
-// and a * b + c as one fused multiply-add. So the coefficients equal
-// inverse_coeffs, device_inverse_coeffs and invert_affine bit for bit. A
-// singular affine gives coefficients that are not finite (a reciprocal of
-// 0), as device_inverse_coeffs gives them; nothing here raises.
+// device_inverse_coeffs, in that function's operation order, which is the
+// JAX package's ops/transform.invert_affine: pivot reciprocals, the fused
+// back substitution and translation. Every step is rounded to float32
+// once, as that function rounds it: a reciprocal, a product or a
+// difference alone, and a * b + c as one fused multiply-add. So the
+// coefficients equal device_inverse_coeffs (and its rows, inverse_coeffs)
+// and invert_affine bit for bit. A singular affine gives what the same
+// arithmetic gives there, coefficients that are not finite (a reciprocal
+// of 0) as a rule; nothing here raises.
 //
 // On the card each step is an explicitly rounded intrinsic (__frcp_rn,
 // __fmul_rn, __fsub_rn, __fmaf_rn), so nvcc can neither contract nor

@@ -60,10 +60,6 @@
 // A box inside the frame drops the per-tap bounds tests. An I420 pixel's
 // four taps share the 3 x 3 chroma samples around their quad
 // (sample_i420): 22 byte loads where per-tap conversion takes 36.
-// One frame's uint8 or float32 warp may pass its src->dst affine: the
-// entry inverts it on the host (affine_inverse_f32_host's code) and
-// launches nothing when the inverse is not finite, so the wrapper runs no
-// Python inverse and applies its singular test before any launch.
 //
 // The I420 source has two kernels, and the wrapper's host plan
 // (ops/warp_kernel.i420_plan) picks one per launch from the geometry:
@@ -98,13 +94,14 @@
 // ((b*0.114f) + (g*0.587f)) + (r*0.299f) with the same rounding, the plain
 // version's ops/color.content_mask, so no pixel crosses 2.0 differently.
 //
-// A batch's coefficients reach the kernel by value, as a parameter block
-// of kByValue sets of six floats (3,840 B, inside the 4 KB of kernel
+// Every uint8, float32 and I420 launch takes dst->src coefficients, which
+// the wrapper computes with one call of the single-plane kernel's own
+// inverse on the host (affine_inverse_f32_host, below), for one frame or
+// a batch. They reach the kernel by value, as a parameter block of
+// kByValue sets of six floats (3,840 B, inside the 4 KB of kernel
 // parameters of every toolkit), so a launch needs no host-to-device copy;
 // one frame passes a block of one set (24 B); above kByValue frames they
-// come from a device table. The host computes those sets with
-// the single-plane kernel's own inverse (affine_inverse_f32_host, below),
-// one call for a whole batch.
+// come from a device table.
 //
 // One more form reads a single float32 plane and writes it with no mask
 // (warp_affine_plane_f32: the JAX package's warp_affine_traced,
@@ -1170,43 +1167,16 @@ int opt_in_staged(int smem_bytes) {
   return 0;
 }
 
-// What a launch returns, beside 0 and the CUDA errors, when a frame's
-// src->dst affine has no finite inverse: it launched nothing (the wrapper
-// then applies inverse_coeffs' singular test).
-constexpr int kNotFinite = -1;
-
-// The n src->dst affines at a23s inverted on the host (affine_inverse's
-// host path: inverse_coeffs' bits) into k (n x 6): the number of them
-// with a coefficient that is not finite.
-int host_inverse(const float* a23s, int n, float* k) {
-  int bad = 0;
-  for (int f = 0; f < n; ++f) {
-    affine_inverse::invert(a23s + 6 * f, k + 6 * f);
-    bool finite = true;
-    for (int j = 0; j < 6; ++j) finite = finite && std::isfinite(k[6 * f + j]);
-    bad += finite ? 0 : 1;
-  }
-  return bad;
-}
-
 // The gather kernel over n frames of h x w (src_stride elements apart):
 // table a device (n, 6) float32 array of dst->src coefficients, or null
-// with the n sets at host passed by value: dst->src coefficients, or with
-// invert src->dst affines, inverted here first. Returns kNotFinite, and
-// launches nothing, when such an inverse is not finite.
+// with the n sets at host passed by value.
 template <typename T>
 int launch_tiles(const T* src, long long src_stride, int h, int w,
-                 const float* table, const float* host, int invert,
-                 int content, float* out, float* mask, int out_h, int out_w,
-                 int n, int* tiles, void* stream) {
+                 const float* table, const float* host, int content,
+                 float* out, float* mask, int out_h, int out_w, int n,
+                 int* tiles, void* stream) {
   if ((size_t)out_h * out_w == 0 || n <= 0) return 0;
-  if (!coefficients_ok(table, host, n) || (invert && table != nullptr))
-    return (int)cudaErrorInvalidValue;
-  float k[6 * kByValue];
-  if (invert) {
-    if (host_inverse(host, n, k) != 0) return kNotFinite;
-    host = k;
-  }
+  if (!coefficients_ok(table, host, n)) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((out_w + kTileW - 1) / kTileW),
                   (unsigned)((out_h + kGatherTileH - 1) / kGatherTileH),
                   (unsigned)n);
@@ -1249,29 +1219,27 @@ int launch_staged(const uint8_t* src, long long src_stride, int h, int w,
 // uint8 frames (src_stride in bytes); content: 0 for the footprint mask,
 // 1 for the warped gray > 2 indicator. table: device (n, 6) float32
 // dst->src coefficients, or null with the n <= kByValue sets at the host
-// pointer `host` (read during the call, passed to the kernel by value):
-// dst->src coefficients, or with invert != 0 src->dst affines that the
-// entry inverts on the host. tiles: device int counts of zero and direct
-// tiles (added to), or null. Returns 0, a CUDA error, or kNotFinite
-// (nothing launched: an inverse is not finite).
+// pointer `host` (read during the call, passed to the kernel by value).
+// tiles: device int counts of zero and direct tiles (added to), or null.
+// Returns 0 or a CUDA error.
 extern "C" int warp_affine_u8(const uint8_t* src, long long src_stride,
                               int h, int w, const float* table,
-                              const float* host, int invert, int content,
-                              float* out, float* mask, int out_h, int out_w,
-                              int n, int* tiles, void* stream) {
-  return launch_tiles(src, src_stride, h, w, table, host, invert, content,
-                      out, mask, out_h, out_w, n, tiles, stream);
+                              const float* host, int content, float* out,
+                              float* mask, int out_h, int out_w, int n,
+                              int* tiles, void* stream) {
+  return launch_tiles(src, src_stride, h, w, table, host, content, out,
+                      mask, out_h, out_w, n, tiles, stream);
 }
 
 // float32 frames (src_stride in floats); the mask is always the footprint;
 // the rest as warp_affine_u8.
 extern "C" int warp_affine_f32(const float* src, long long src_stride,
                                int h, int w, const float* table,
-                               const float* host, int invert, float* out,
-                               float* mask, int out_h, int out_w, int n,
-                               int* tiles, void* stream) {
-  return launch_tiles(src, src_stride, h, w, table, host, invert, 0, out,
-                      mask, out_h, out_w, n, tiles, stream);
+                               const float* host, float* out, float* mask,
+                               int out_h, int out_w, int n, int* tiles,
+                               void* stream) {
+  return launch_tiles(src, src_stride, h, w, table, host, 0, out, mask,
+                      out_h, out_w, n, tiles, stream);
 }
 
 // packed I420 uint8 frames (h x w the logical size, h % 4 == 0, w % 2 ==
@@ -1290,8 +1258,8 @@ extern "C" int warp_affine_i420(const uint8_t* src, long long src_stride,
   if ((h & 3) || (w & 1)) return (int)cudaErrorInvalidValue;
   if (box_h == 0)
     return launch_tiles(reinterpret_cast<const I420*>(src), src_stride, h,
-                        w, table, host, 0, 0, out, mask, out_h, out_w, n,
-                        tiles, stream);
+                        w, table, host, 0, out, mask, out_h, out_w, n, tiles,
+                        stream);
   return launch_staged(src, src_stride, h, w, table, host, out, mask, out_h,
                        out_w, n, box_h, box_w, smem_bytes, stream);
 }
@@ -1340,8 +1308,17 @@ extern "C" int affine_inverse_f32(const float* a23s, float* out, int n,
 // nvcc's host compiler with -ffp-contract=off): n row-major (2, 3)
 // src->dst affines (host) to their n x 6 dst->src coefficients (host),
 // which the uint8, float32 and I420 launches take by value. Returns the
-// number of affines with a coefficient that is not finite.
+// number of affines with a coefficient that is not finite (the wrapper
+// applies its singular test to those alone).
 extern "C" int affine_inverse_f32_host(const float* a23s, float* out,
                                        int n) {
-  return host_inverse(a23s, n, out);
+  int bad = 0;
+  for (int f = 0; f < n; ++f) {
+    float* k = out + 6 * f;
+    affine_inverse::invert(a23s + 6 * f, k);
+    bool finite = true;
+    for (int j = 0; j < 6; ++j) finite = finite && std::isfinite(k[j]);
+    bad += finite ? 0 : 1;
+  }
+  return bad;
 }

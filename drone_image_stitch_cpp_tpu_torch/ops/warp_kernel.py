@@ -33,28 +33,25 @@ each tap where it is read (a downscale such as the seam batch, or a
 strong rotation).
 
 :func:`warp_frame` (one frame) and :func:`warp_frames` (a batch, as the
-JAX package's ``warp_affine_many``) launch the kernel for CUDA tensors and
-run the plain versions for CPU tensors; they never fall back from one to
-the other. A launch passes up to :data:`BY_VALUE_MAX` frames'
-coefficients by value, in the kernel's parameters, and a device table
-only above that, so it copies nothing to the card; the coefficients come
-from one call of the kernel library's host inverse
-(:func:`host_inverse_coeffs`), whatever the batch; one uint8 or float32
-frame passes its src->dst affine to the launch's entry, which runs the
-same inverse in its own host code and launches nothing when the inverse
-is not finite (the wrapper then raises where :func:`inverse_coeffs`
-does). :func:`warp_planes`
-warps single float32 planes with no mask (the JAX package's
-``warp_affine_traced`` and ``warp_affine_many``: the throughput
-benchmark's 4K gray warps); its kernel takes the src->dst affines (a
-tensor where it lies, read through its strides, or host affines by value)
-and inverts them itself (``csrc/affine_inverse.cuh``), so a model computed
-on the card reaches the kernel with no host round trip and a call is one
-launch; its launches count in ``warp_planes.launches`` alone. Every launch
-counts in
-its wrapper's ``launches``; content-mode launches also in
-``warp_frame.nonblack_launches``, float32-source
-launches in ``warp_frame.f32_launches``, I420-source launches in
+JAX package's ``warp_affine_many``) share one body: it launches the
+kernel for CUDA tensors and runs the plain versions for CPU tensors, and
+never falls back from one to the other. Every launch takes its frames'
+dst->src coefficients from one call of the kernel library's host inverse
+(:func:`host_inverse_coeffs`), whatever the batch, which raises on a
+singular affine before anything is launched; it passes up to
+:data:`BY_VALUE_MAX` frames' coefficients by value, in the kernel's
+parameters, and a device table only above that, so it copies nothing to
+the card. :func:`warp_planes` warps single float32 planes with no mask
+(the JAX package's ``warp_affine_traced`` and ``warp_affine_many``: the
+throughput benchmark's 4K gray warps); its kernel takes the src->dst
+affines (a tensor where it lies, read through its strides, or host
+affines by value) and inverts them itself (``csrc/affine_inverse.cuh``),
+so a model computed on the card reaches the kernel with no host round
+trip and a call is one launch; its launches count in
+``warp_planes.launches`` alone. Every launch counts in its wrapper's
+``launches``; content-mode launches also in
+``warp_frame.nonblack_launches``, float32-source launches in
+``warp_frame.f32_launches``, I420-source launches in
 ``warp_frame.i420_launches`` and those of them that took the staged
 kernel in ``warp_frame.i420_staged_launches`` (all four shared by the
 wrappers).
@@ -64,7 +61,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-import struct
 
 import numpy as np
 import torch
@@ -80,10 +76,10 @@ _HEAD = [_P, _LL, _I, _I, _P, _P]
 # out, mask, out_h, out_w, n
 _OUT = [_P, _P, _I, _I, _I]
 KERNEL_SIGNATURES = {
-    # ... invert, content, out .. n, tile counts, stream
-    "warp_affine_u8": (_I, _HEAD + [_I, _I] + _OUT + [_P, _P]),
-    # ... invert, out .. n, tile counts, stream
-    "warp_affine_f32": (_I, _HEAD + [_I] + _OUT + [_P, _P]),
+    # ... content, out .. n, tile counts, stream
+    "warp_affine_u8": (_I, _HEAD + [_I] + _OUT + [_P, _P]),
+    # ... out .. n, tile counts, stream
+    "warp_affine_f32": (_I, _HEAD + _OUT + [_P, _P]),
     # ... out .. n, box rows, box columns, shared memory, tile counts, stream
     "warp_affine_i420": (_I, _HEAD + _OUT + [_I] * 3 + [_P, _P]),
     # src, stride, h, w, device affines and their 3 strides, host affines,
@@ -102,69 +98,12 @@ I420_TILE = (24, 128)        # columns), and the staged I420 kernel's
 I420_SMEM_CAP = 96 * 1024    # larger boxes take the per-tap kernel
 ROUTES = ("zero", "direct")  # the gather kernel's tile counts
 PLANE_TILE = (32, 128)       # the single-plane kernel's output tile
-_F32 = struct.Struct("f")
 
 
-def _r32(v: float) -> float:
-    """``v`` rounded to float32, as a Python float (infinite beyond the
-    float32 range)."""
-    try:
-        return _F32.unpack(_F32.pack(v))[0]
-    except OverflowError:
-        return math.copysign(math.inf, v)
-
-
-def _singular(a23) -> ValueError:
-    return ValueError(f"affine {np.asarray(a23).tolist()} is singular")
-
-
-def inverse_coeffs(a23) -> tuple:
-    """dst->src coefficients (i00, i01, i02, i10, i11, i12) of a src->dst
-    (2, 3) affine, as Python floats holding float32 values.
-
-    A float32 LU solve with partial pivoting in the operation order of the
-    JAX package's ``ops/transform.invert_affine`` on the CPU (pivot
-    reciprocals, fused back substitution and translation), so the
-    coefficients equal JAX's bit for bit. Each step is computed in float64
-    and rounded to float32, which gives the float32 result of a basic
-    operation; ``a * b + c`` of float32 values rounded once is the fused
-    multiply-add (the product is exact in float64). The kernel and the
-    plain version both take these, so they sample the same coordinates; no
-    tensor is made, so a launch costs no host round trip."""
-    (a, b, tx), (c, d, ty) = np.asarray(a23, np.float32).reshape(
-        2, 3).tolist()
-    swap = abs(c) > abs(a)
-    p, q, r, s = (c, d, a, b) if swap else (a, b, c, d)
-    if p == 0:
-        raise _singular(a23)
-    rp = _r32(1.0 / p)
-    low = _r32(r * rp)
-    u = _r32(s - _r32(low * q))
-    if u == 0 or not math.isfinite(u):
-        raise _singular(a23)
-    ru = _r32(1.0 / u)
-    cols = []
-    for e1, e2 in ((1.0, 0.0), (0.0, 1.0)):
-        y1, y2 = (e2, e1) if swap else (e1, e2)
-        x2 = _r32(_r32(y2 - _r32(low * y1)) * ru)
-        cols.append((_r32(_r32(y1 - q * x2) * rp), x2))
-    (i00, i10), (i01, i11) = cols
-    return (i00, i01, -_r32(i01 * ty + _r32(i00 * tx)),
-            i10, i11, -_r32(i11 * ty + _r32(i10 * tx)))
-
-
-def device_inverse_coeffs(a23s: torch.Tensor) -> torch.Tensor:
-    """(N, 6) float32 table of the dst->src coefficients of (N, 2, 3)
-    src->dst affines, computed where ``a23s`` lies, with no host round
-    trip (``torch.linalg.inv`` on a card checks its result on the host):
-    the plain version of the single-plane kernel's own inverse
-    (:func:`kernel_inverse_coeffs`), which :func:`warp_planes_plain` reads.
-
-    The steps of :func:`inverse_coeffs` on tensors: each is taken in
-    float64 from float32 values and rounded to float32 where that function
-    rounds, so a row equals :func:`inverse_coeffs` of the same affine bit
-    for bit, on the CPU and on a card. It cannot raise on a singular
-    affine without a sync: that row is not finite, and so is its warp."""
+def _lu_inverse(a23s: torch.Tensor):
+    """:func:`device_inverse_coeffs`' table and each affine's second pivot
+    u (float64 holding a float32 value), which the singular test of
+    :func:`_checked_inverse` reads."""
     a = a23s.reshape(-1, 2, 3).to(torch.float32).to(torch.float64)
 
     def r32(v):
@@ -176,7 +115,8 @@ def device_inverse_coeffs(a23s: torch.Tensor) -> torch.Tensor:
     r, s = torch.where(swap, a_, c_), torch.where(swap, b_, d_)
     rp = r32(torch.reciprocal(p))
     low = r32(r * rp)
-    ru = r32(torch.reciprocal(r32(s - r32(low * q))))
+    u = r32(s - r32(low * q))
+    ru = r32(torch.reciprocal(u))
     sw = swap.to(torch.float64)
     cols = []
     for y1, y2 in ((1.0 - sw, sw), (sw, 1.0 - sw)):   # columns e1, e2
@@ -185,7 +125,52 @@ def device_inverse_coeffs(a23s: torch.Tensor) -> torch.Tensor:
     (i00, i10), (i01, i11) = cols
     return torch.stack([i00, i01, -r32(i01 * ty + r32(i00 * tx)),
                         i10, i11, -r32(i11 * ty + r32(i10 * tx))],
-                       dim=-1).to(torch.float32)
+                       dim=-1).to(torch.float32), u
+
+
+def device_inverse_coeffs(a23s: torch.Tensor) -> torch.Tensor:
+    """(N, 6) float32 table of the dst->src coefficients (i00, i01, i02,
+    i10, i11, i12) of (N, 2, 3) src->dst affines, computed where ``a23s``
+    lies, with no host round trip (``torch.linalg.inv`` on a card checks
+    its result on the host): the plain version of the kernels' own inverse
+    (``csrc/affine_inverse.cuh``, reached through
+    :func:`kernel_inverse_coeffs` and :func:`host_inverse_coeffs`), and
+    the Python definition of it that every other one is held to.
+
+    A float32 LU solve with partial pivoting in the operation order of the
+    JAX package's ``ops/transform.invert_affine`` on the CPU (pivot
+    reciprocals, fused back substitution and translation), so the
+    coefficients equal JAX's bit for bit. Each step is taken in float64
+    from float32 values and rounded to float32, which gives the float32
+    result of a basic operation; ``a * b + c`` of float32 values rounded
+    once is the fused multiply-add (the product is exact in float64). It
+    raises nothing, which on a card would take a sync: a singular affine's
+    row is what the arithmetic gives (:func:`inverse_coeffs` raises)."""
+    return _lu_inverse(a23s)[0]
+
+
+def _checked_inverse(a23s) -> torch.Tensor:
+    """:func:`device_inverse_coeffs` of host src->dst affines (N x 6
+    floats, any shape), on the CPU, raising ValueError on the first
+    singular one: a zero pivot or a second pivot u that is zero or not
+    finite (a zero pivot makes u NaN). An affine whose inverse merely
+    overflows passes with its coefficients that are not finite."""
+    a = torch.tensor(np.asarray(a23s, np.float32)).reshape(-1, 2, 3)
+    table, u = _lu_inverse(a)
+    bad = torch.nonzero(~(torch.isfinite(u) & (u != 0)))
+    if len(bad):
+        raise ValueError(f"affine {a[bad[0, 0]].tolist()} is singular")
+    return table
+
+
+def inverse_coeffs(a23) -> tuple:
+    """dst->src coefficients (i00, i01, i02, i10, i11, i12) of a src->dst
+    (2, 3) affine, as Python floats holding float32 values: its row of
+    :func:`device_inverse_coeffs`, which the kernel and the plain version
+    both take, so they sample the same coordinates. Raises ValueError on a
+    singular affine (:func:`_checked_inverse`)."""
+    return tuple(_checked_inverse(
+        np.asarray(a23, np.float32).reshape(1, 2, 3))[0].tolist())
 
 
 _FNS = {}
@@ -198,62 +183,42 @@ def _fns() -> dict:
     return _FNS
 
 
-NOT_FINITE = -1     # launched nothing: an affine's inverse is not finite
-
-
-def _call(name: str, dev: torch.device, *args) -> int:
+def _call(name: str, dev: torch.device, *args) -> None:
     """Entry ``name`` of the kernel library with ``args`` and the current
     stream of ``dev``, on ``dev`` (a ``<<<>>>`` launch binds to the current
     device; switched only when it is another). Raises when the entry
-    returns a CUDA error; returns 0 or :data:`NOT_FINITE`."""
+    returns a CUDA error."""
     fn = _fns()[name]
     if dev.index == torch._C._cuda_getDevice():
         err = fn(*args, stream_handle(dev))
     else:
         with torch.cuda.device(dev):
             err = fn(*args, stream_handle(dev))
-    if err > 0:
+    if err:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    return err
-
-
-def _host_sets(a23s) -> ctypes.Array:
-    """:func:`host_inverse_coeffs` as the flat ctypes float array that
-    :func:`_launch` passes on as it is (ctypes arrays, not numpy's
-    ``.ctypes``, keep a one-frame call to a few microseconds)."""
-    a = np.ascontiguousarray(a23s, np.float32)
-    k = a.size
-    if k == 0 or k % 6:
-        raise ValueError(f"affines must be (N, 2, 3), got shape {a.shape}")
-    out = (ctypes.c_float * k)()
-    bad = _fns()["affine_inverse_f32_host"](
-        (ctypes.c_float * k).from_buffer_copy(a), out, k // 6)
-    if bad:
-        rows = np.frombuffer(out, np.float32).reshape(-1, 6)
-        for i in np.flatnonzero(~np.isfinite(rows).all(axis=1)):
-            inverse_coeffs(a.reshape(-1, 6)[i])  # raises where singular
-    return out
-
-
-def _model_sets(a23s) -> ctypes.Array:
-    """The src->dst affines themselves as the flat ctypes float array of a
-    launch whose entry inverts them on the host (``invert``); the entry
-    launches nothing and reports an affine whose inverse is not finite
-    (:data:`NOT_FINITE`)."""
-    a = np.ascontiguousarray(a23s, np.float32)
-    if a.size == 0 or a.size % 6:
-        raise ValueError(f"affines must be (N, 2, 3), got shape {a.shape}")
-    return (ctypes.c_float * a.size).from_buffer_copy(a)
 
 
 def host_inverse_coeffs(a23s) -> np.ndarray:
     """(N, 6) float32 dst->src coefficients of N src->dst (2, 3) affines,
     row for row bit-equal to :func:`inverse_coeffs`: one call of the host
     entry of K2's kernel library (``affine_inverse_f32_host``, the host
-    path of ``csrc/affine_inverse.cuh``), whatever N. The uint8, float32
-    and I420 launches take their coefficients from it. Raises as
-    :func:`inverse_coeffs` does on a singular affine."""
-    return np.frombuffer(_host_sets(a23s), np.float32).reshape(-1, 6)
+    path of ``csrc/affine_inverse.cuh``), whatever N. Every uint8, float32
+    and I420 launch takes its coefficients from it. Raises as
+    :func:`inverse_coeffs` does on a singular affine among the rows that
+    the entry counts as not finite (a second pivot that overflows to an
+    infinity leaves its row finite, with a zero second row, and passes)."""
+    a = np.ascontiguousarray(a23s, np.float32)
+    k = a.size
+    if k == 0 or k % 6:
+        raise ValueError(f"affines must be (N, 2, 3), got shape {a.shape}")
+    # ctypes arrays, not numpy's .ctypes, keep a call to a few microseconds
+    out = (ctypes.c_float * k)()
+    bad = _fns()["affine_inverse_f32_host"](
+        (ctypes.c_float * k).from_buffer_copy(a), out, k // 6)
+    sets = np.frombuffer(out, np.float32).reshape(-1, 6)
+    if bad:
+        _checked_inverse(a.reshape(-1, 6)[~np.isfinite(sets).all(axis=1)])
+    return sets
 
 
 def kernel_inverse_coeffs(a23s: torch.Tensor) -> torch.Tensor:
@@ -370,18 +335,13 @@ def warp_frames_plain(frames: torch.Tensor, invs, out_h: int,
 
 def _launch(src: torch.Tensor, nf: int, sets, out_h: int, out_w: int,
             content: str = "ones", table=None, i420_staged=None,
-            invert: bool = False, tiles: torch.Tensor = None):
+            tiles: torch.Tensor = None):
     """One kernel launch over ``nf`` contiguous frames: (H, W, 3) uint8 or
     float32 BGR, or (H*3/2, W) packed I420 (``src``: one frame, or a batch
-    with a leading N); ``sets``: nf sets of six floats (a tuple when nf ==
-    1, a list of tuples, an (nf, 6) float32 array, or a flat ctypes array
-    of :func:`_host_sets` / :func:`_model_sets`), the dst->src
-    coefficients, or with ``invert`` (BGR frames, by value only) the
-    src->dst affines, which the entry inverts on the host (it launches
-    nothing where an inverse is not finite: this raises where
-    :func:`inverse_coeffs` does, else launches the coefficients of
-    :func:`_host_sets`, as a batch would); passed by value up to
-    :data:`BY_VALUE_MAX` of them, else read from the device (N, 6)
+    with a leading N); ``sets``: their nf dst->src coefficient sets of six
+    floats (a tuple when nf == 1, a list of tuples, or an (nf, 6) float32
+    array such as :func:`host_inverse_coeffs` gives), passed by value up
+    to :data:`BY_VALUE_MAX` of them, else read from the device (N, 6)
     float32 ``table`` (made here, by a pageable copy, when None; given, it
     is read at any N).
     ``i420_staged`` forces the staged (True) or the per-tap gather (False)
@@ -410,20 +370,15 @@ def _launch(src: torch.Tensor, nf: int, sets, out_h: int, out_w: int,
                           (3 * px, 3 * out_w, 3, 1)[-3 - len(lead):])
     mask = buf.as_strided(lead + (out_h, out_w), (px, out_w, 1)[-2 - len(
         lead):], off)
-    if not isinstance(sets, ctypes.Array):
-        sets = (ctypes.c_float * (6 * nf)).from_buffer_copy(
-            np.ascontiguousarray(sets, np.float32))
+    sets = (ctypes.c_float * (6 * nf)).from_buffer_copy(
+        np.ascontiguousarray(sets, np.float32))
     if table is None and nf > BY_VALUE_MAX:
         table = torch.frombuffer(sets, dtype=torch.float32).to(dev)
-    if invert and table is not None:
-        raise ValueError("a launch that inverts takes its affines by value")
     ptr = table.data_ptr() if table is not None else None
     host = sets if table is None else None
     counter = tiles.data_ptr() if tiles is not None else None
     out = (wimg.data_ptr(), mask.data_ptr(), out_h, out_w, nf)
     if i420:
-        if invert:
-            raise ValueError("the I420 source takes dst->src coefficients")
         frame_invs = np.frombuffer(sets, np.float32).reshape(
             -1, 6).tolist()                          # Python floats
         plan = None
@@ -438,15 +393,11 @@ def _launch(src: torch.Tensor, nf: int, sets, out_h: int, out_w: int,
               host, *out, *(plan or (0, 0, 0)), counter)
         return wimg, mask, plan is not None
     if f32:
-        code = _call("warp_affine_f32", dev, src.data_ptr(), stride, h, w,
-                     ptr, host, int(invert), *out, counter)
+        _call("warp_affine_f32", dev, src.data_ptr(), stride, h, w, ptr,
+              host, *out, counter)
     else:
-        code = _call("warp_affine_u8", dev, src.data_ptr(), stride, h, w,
-                     ptr, host, int(invert), int(content == "nonblack"),
-                     *out, counter)
-    if code == NOT_FINITE:          # raises where an affine is singular
-        return _launch(src, nf, _host_sets(np.frombuffer(sets, np.float32)),
-                       out_h, out_w, content, tiles=tiles)
+        _call("warp_affine_u8", dev, src.data_ptr(), stride, h, w, ptr,
+              host, int(content == "nonblack"), *out, counter)
     return wimg, mask, False
 
 
@@ -491,22 +442,12 @@ def warp_frame(img: torch.Tensor, a23, out_h: int, out_w: int,
     float32: the bilinear footprint of the source rectangle, or with
     ``content="nonblack"`` the warp of the source's gray > 2 indicator).
     CUDA frames launch ``csrc/warp_affine.cu`` (counted in
-    ``warp_frame.launches``; see :func:`_count_launch`); CPU frames run the
-    plain version.
+    ``warp_frame.launches``; see :func:`_warp`); CPU frames run the plain
+    version.
     """
     _check(img, 3, out_h, out_w, content)
-    if img.device.type == "cpu":
-        return warp_frame_plain(img, inverse_coeffs(a23), out_h, out_w,
-                                content)
-    src = img.contiguous()
-    if _is_i420(src):       # the host plan needs the coefficients
-        wimg, mask, staged = _launch(src, 1, _host_sets(a23), out_h, out_w,
-                                     content)
-    else:
-        wimg, mask, staged = _launch(src, 1, _model_sets(a23), out_h,
-                                     out_w, content, invert=True)
-    _count_launch(warp_frame, content, img, staged)
-    return wimg, mask
+    return _warp(warp_frame, img, np.asarray(a23, np.float32).reshape(
+        1, 2, 3), out_h, out_w, content)
 
 
 def warp_frames(frames: torch.Tensor, a23s, out_h: int, out_w: int,
@@ -517,11 +458,8 @@ def warp_frames(frames: torch.Tensor, a23s, out_h: int, out_w: int,
 
     Returns ((N, out_h, out_w, 3), (N, out_h, out_w)) float32, the mask as
     in :func:`warp_frame`. CUDA frames make ONE launch of
-    ``csrc/warp_affine.cu`` with the N inverse affines
-    (:func:`host_inverse_coeffs`) in its parameters (a device table
-    above :data:`BY_VALUE_MAX` frames; counted in
-    ``warp_frames.launches``; see :func:`_count_launch`); CPU frames run
-    :func:`warp_frames_plain`.
+    ``csrc/warp_affine.cu`` (counted in ``warp_frames.launches``; see
+    :func:`_warp`); CPU frames run :func:`warp_frames_plain`.
     """
     _check(frames, 4, out_h, out_w, content)
     a = np.asarray(a23s, np.float32).reshape(-1, 2, 3)
@@ -529,23 +467,32 @@ def warp_frames(frames: torch.Tensor, a23s, out_h: int, out_w: int,
     if a.shape[0] != nf or not 0 < nf <= _MAX_FRAMES:
         raise ValueError(f"{nf} frames with {a.shape[0]} affines "
                          f"(need 1..{_MAX_FRAMES} of each)")
-    if frames.device.type == "cpu":
-        return warp_frames_plain(frames, [inverse_coeffs(t) for t in a],
-                                 out_h, out_w, content)
-    wimg, mask, staged = _launch(frames.contiguous(), nf, _host_sets(a),
-                                 out_h, out_w, content)
-    _count_launch(warp_frames, content, frames, staged)
-    return wimg, mask
+    return _warp(warp_frames, frames, a, out_h, out_w, content)
 
 
-def _count_launch(wrapper, content: str, src: torch.Tensor,
-                  staged: bool) -> None:
-    """One kernel launch by ``wrapper`` (its ``launches``); a content-mode
-    launch of either wrapper also counts in the one shared
-    ``warp_frame.nonblack_launches``, a float32-source launch in the one
-    shared ``warp_frame.f32_launches``, an I420-source launch in the one
-    shared ``warp_frame.i420_launches`` and, when it took the staged
+def _warp(wrapper, src: torch.Tensor, a23s: np.ndarray, out_h: int,
+          out_w: int, content: str):
+    """The body of :func:`warp_frame` (``src`` one frame) and
+    :func:`warp_frames` (a batch), ``a23s`` their (N, 2, 3) float32
+    src->dst affines. Either raises on a singular affine before it warps
+    anything (on a card as :func:`host_inverse_coeffs` does). A CPU
+    ``src`` runs the plain version on one
+    :func:`device_inverse_coeffs` table. A CUDA ``src`` takes ONE launch
+    of the N sets of :func:`host_inverse_coeffs` (in the kernel's
+    parameters up to :data:`BY_VALUE_MAX` frames, else a device table),
+    counted in ``wrapper.launches``; a content-mode launch of either
+    wrapper also counts in the one shared ``warp_frame.nonblack_launches``,
+    a float32-source launch in ``warp_frame.f32_launches``, an I420-source
+    launch in ``warp_frame.i420_launches`` and, when it took the staged
     kernel, in ``warp_frame.i420_staged_launches``."""
+    if src.device.type == "cpu":
+        invs = _checked_inverse(a23s).tolist()
+        if wrapper is warp_frame:
+            return warp_frame_plain(src, invs[0], out_h, out_w, content)
+        return warp_frames_plain(src, invs, out_h, out_w, content)
+    wimg, mask, staged = _launch(src.contiguous(), len(a23s),
+                                 host_inverse_coeffs(a23s), out_h, out_w,
+                                 content)
     wrapper.launches += 1
     if content == "nonblack":
         warp_frame.nonblack_launches += 1
@@ -555,6 +502,7 @@ def _count_launch(wrapper, content: str, src: torch.Tensor,
         warp_frame.i420_launches += 1
     if staged:
         warp_frame.i420_staged_launches += 1
+    return wimg, mask
 
 
 warp_frame.launches = 0
@@ -619,8 +567,9 @@ def warp_planes(frames: torch.Tensor, a23s, out_h: int,
     where it lies, through its strides (a model computed on the card never
     comes to the host, and nothing else is launched); host affines go by
     value (through a device copy above :data:`BY_VALUE_MAX`). CPU frames
-    run :func:`warp_planes_plain` on :func:`device_inverse_coeffs` of a
-    tensor or :func:`inverse_coeffs` of a host array (the same table).
+    run :func:`warp_planes_plain` on :func:`device_inverse_coeffs` of the
+    affines (which raises on a singular one only from a host array, as
+    :func:`inverse_coeffs` does).
     """
     if frames.dtype != torch.float32 or frames.ndim != 3:
         raise ValueError(f"warp_planes takes (N, H, W) float32 planes, got "
@@ -642,11 +591,8 @@ def warp_planes(frames: torch.Tensor, a23s, out_h: int,
         raise ValueError(f"{nf} planes with {na} affines (need "
                          f"1..{_MAX_FRAMES} of each)")
     if dev.type == "cpu":
-        if isinstance(a23s, torch.Tensor):
-            table = device_inverse_coeffs(a23s.to(dev))
-        else:
-            table = torch.tensor([inverse_coeffs(t) for t in a23s],
-                                 dtype=torch.float32)
+        table = (device_inverse_coeffs(a23s.to(dev))
+                 if isinstance(a23s, torch.Tensor) else _checked_inverse(a23s))
         return warp_planes_plain(frames, table, out_h, out_w)
     if isinstance(a23s, torch.Tensor):
         a23s = a23s.to(dev, torch.float32)      # no copy when it is already

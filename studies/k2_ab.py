@@ -13,9 +13,7 @@ around 20 back-to-back launches / 20 (median of 5), which is the host's
 launch pace wherever that is slower than the kernel. The shapes: the
 uint8 compose feed, the uint8 seam batch of 12 frames and of the
 flagship's 20, content mode (the global compose feed and the
-full-resolution seam warp at 0.3366), the float32 compositing feed
-(from the host's coefficients and, in the current source, from the
-src->dst affine that the entry inverts, as the wrapper passes it) and
+full-resolution seam warp at 0.3366), the float32 compositing feed and
 its 12-frame seam batch, the I420 compose feed (staged and per tap) and
 the I420 seam batch of 12 and of the flagship's 20 (per tap), and the
 single-plane form (one frame and the 7-frame batch, staged and direct).
@@ -29,10 +27,10 @@ spec, whose gather kernel asks ptxas for U, F and I blocks an SM
 sources and takes TH-row output tiles (``kGatherTileH``); the variants
 take their turns after the current source.
 
-The other source takes either this tree's entry points or the parent
-commit's, which had no tile counter (the gather kernel was a flat
-per-pixel grid, ``warp_affine_kernel``). The first line is the card's
-name and power limit. Needs one card.
+The other source takes either this tree's entry points or those of
+the sources whose uint8 and float32 entries took an ``invert`` flag
+(passed 0 here: every launch takes dst->src coefficients). The first
+line is the card's name and power limit. Needs one card.
 """
 
 from __future__ import annotations
@@ -63,11 +61,11 @@ CONTENT_WIN = (5120, 5120)
 F32_FRAME, F32_WIN = (1061, 1886), (1088, 2048)
 N_PLANES = 7
 P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# the parent commit's entry points: no invert flag, no tile counter
-PARENT = {"warp_affine_u8": (I, [P, LL, I, I, P, P, I, P, P, I, I, I, P]),
-          "warp_affine_f32": (I, [P, LL, I, I, P, P, P, P, I, I, I, P]),
-          "warp_affine_i420": (I, [P, LL, I, I, P, P, P, P, I, I, I, I, I,
-                                   I, P])}
+# the entry points of a source with an invert flag (0: dst->src sets)
+INVERTING = {"warp_affine_u8": (I, [P, LL, I, I, P, P, I, I, P, P, I, I, I,
+                                    P, P]),
+             "warp_affine_f32": (I, [P, LL, I, I, P, P, I, P, P, I, I, I,
+                                     P, P])}
 
 
 def build(src_text: str, tag: str):
@@ -153,10 +151,9 @@ def main() -> int:
         libs[tag], ptxas = build(src, tag)
         print(f"[k2ab] build {tag}: registers, spill bytes "
               f"{entries(ptxas)}", flush=True)
-    tiled = {tag: "int* tiles" in src for tag, src in builds.items()}
-    if not all(tiled[t] for t in builds if t.startswith("blocks")) or any(
-            src == current for t, src in builds.items()
-            if t.startswith("blocks")):
+    inverting = {tag: "int invert" in src for tag, src in builds.items()}
+    if any(src == current for t, src in builds.items()
+           if t.startswith("blocks")):
         raise SystemExit("a variant's kTileBlocks did not substitute")
 
     dev = torch.device("cuda", 0)
@@ -193,38 +190,34 @@ def main() -> int:
     def call(tag, kind, src, hw, a23s, win, content=0, route="default",
              tiles=None):
         """A bare launch of entry ``kind`` (u8, f32, i420) of build
-        ``tag``; ``route``: default, direct (I420 per tap), staged (I420),
-        or model (float32 or uint8 by the src->dst affine, which the
-        entry inverts on the host)."""
-        lib, new = libs[tag], tiled[tag]
+        ``tag`` from the host inverse's dst->src coefficients; ``route``:
+        default, direct (I420 per tap) or staged (I420)."""
+        lib = libs[tag]
         n = len(a23s)
         hh, ww = hw
-        invert = route == "model"
-        sets = host(a23s if invert else [WK.inverse_coeffs(a)
-                                         for a in a23s])
+        invs = [WK.inverse_coeffs(a) for a in a23s]
+        sets = host(invs)
         stride = src[0].numel() if n > 1 else src.numel()
         o, m = planes_out(n, *win)
         head = [src.data_ptr(), stride, hh, ww, None, sets]
+        flag = [0] if inverting[tag] else []
         counter = tiles.data_ptr() if tiles is not None else None
         if kind == "u8":
             fn = lib.warp_affine_u8
-            mid = [int(invert), content] if new else [content]
-            a_ = head + mid + [o, m, *win, n] + ([counter] if new else [])
+            a_ = head + flag + [content, o, m, *win, n, counter]
         elif kind == "f32":
             fn = lib.warp_affine_f32
-            a_ = (head + [int(invert), o, m, *win, n, counter] if new
-                  else head + [o, m, *win, n])
+            a_ = head + flag + [o, m, *win, n, counter]
         else:
             fn = lib.warp_affine_i420
-            invs = [WK.inverse_coeffs(a) for a in a23s]
             box = (0, 0, 0)
             if route == "staged":
                 b = WK.i420_box(invs, hh, ww, *win)
                 box = (*b, WK.i420_smem_bytes(b, hh, ww))
-            a_ = head + [o, m, *win, n, *box] + ([counter] if new else [])
+            a_ = head + [o, m, *win, n, *box, counter]
         fn.restype = I
-        fn.argtypes = (WK.KERNEL_SIGNATURES if new else PARENT)[
-            fn.__name__][1]
+        fn.argtypes = (INVERTING if flag and kind != "i420"
+                       else WK.KERNEL_SIGNATURES)[fn.__name__][1]
         a_ = tuple(a_) + (stream,)
 
         def go():
@@ -258,7 +251,7 @@ def main() -> int:
     # (label, kind, src, (h, w), affines, window, content, routes)
     shapes = [
         ("u8 compose feed", "u8", frames[6], FRAME, [feed_a], FEED_WIN, 0,
-         ("default", "model")),
+         ("default",)),
         ("u8 seam batch 12", "u8", frames[:12], FRAME, s12, (320, 2048), 0,
          ("default",)),
         ("u8 seam batch 20 (flagship)", "u8", frames, FRAME, s20,
@@ -268,7 +261,7 @@ def main() -> int:
         ("content mode seam fullres", "u8", strip, (2560, 14336),
          [rot(0.0, 0.0, 0.0, 0.3366)], (1673, 4783), 1, ("default",)),
         ("f32 compositing feed", "f32", f32[0], F32_FRAME, [comp_a], F32_WIN,
-         0, ("default", "model")),
+         0, ("default",)),
         ("f32 seam batch 12", "f32", f32, F32_FRAME, f32_seam, (320, 2048),
          0, ("default",)),
         ("i420 compose feed", "i420", packed[6], FRAME, [feed_a], FEED_WIN,
@@ -279,20 +272,15 @@ def main() -> int:
          (320, 3136), 0, ("direct",)),
     ]
     tile = "warp_affine_tile_kernel"
-    kernel_names = {"default": tile, "model": tile, "direct": tile,
+    kernel_names = {"default": tile, "direct": tile,
                     "staged": "warp_i420_staged_kernel"}
     cases = {}      # (label, tag): (call, kernel name)
     for label, kind, src, hw, a23s, win, content, routes in shapes:
         for route in routes:
             for tag in builds:
-                if not tiled[tag] and route == "model":
-                    continue      # the parent's entries took no model
-                name = kernel_names[route]
-                if not tiled[tag] and name == "warp_affine_tile_kernel":
-                    name = "warp_affine_kernel"
-                key = f"{label} {route}"
-                cases[key, tag] = (call(tag, kind, src, hw, a23s, win,
-                                        content, route), name)
+                cases[f"{label} {route}", tag] = (
+                    call(tag, kind, src, hw, a23s, win, content, route),
+                    kernel_names[route])
             if route != "staged":
                 tiles = torch.zeros(len(WK.ROUTES), dtype=torch.int32,
                                     device=dev)

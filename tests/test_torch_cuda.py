@@ -557,22 +557,19 @@ def test_k2_batch_coefficients_by_value(cuda, nf):
         assert torch.equal(wk, wp) and torch.equal(mk, mp)
 
 
-def _routes(src, a23s, oh, ow, content="ones", model=False, **kw):
+def _routes(src, a23s, oh, ow, content="ones", entry=False, **kw):
     """One launch of K2's gather kernel on ``src`` (a frame, or a batch)
-    by the host (N, 2, 3) ``a23s`` with its tile counter: the src->dst
-    affines inverted by the entry's host code (``model``, as
-    ``warp_frame`` passes a uint8 or float32 frame's) or the host's
-    dst->src coefficients, against the plain version bit for bit. Returns
-    {route: tiles}."""
+    by the host (N, 2, 3) ``a23s`` with its tile counter: the coefficients
+    of the kernel library's host inverse (``entry``: host_inverse_coeffs,
+    as the wrappers pass them) or of inverse_coeffs, against the plain
+    version bit for bit. Returns {route: tiles}."""
     invs = [WK.inverse_coeffs(a) for a in a23s]
     one = len(a23s) == 1 and src.ndim == (2 if WK._is_i420(src) else 3)
     tiles = torch.zeros(len(WK.ROUTES), dtype=torch.int32, device=src.device)
-    if model:
-        wk, mk, _ = WK._launch(src, len(a23s), WK._model_sets(a23s), oh, ow,
-                               content, invert=True, tiles=tiles, **kw)
-    else:
-        wk, mk, _ = WK._launch(src, len(a23s), invs[0] if one else invs, oh,
-                               ow, content, tiles=tiles, **kw)
+    sets = WK.host_inverse_coeffs(a23s) if entry else (
+        invs[0] if one else invs)
+    wk, mk, _ = WK._launch(src, len(a23s), sets, oh, ow, content,
+                           tiles=tiles, **kw)
     if one:
         wp, mp = WK.warp_frame_plain(src, invs[0], oh, ow, content)
     else:
@@ -599,9 +596,9 @@ def _rot(deg, tx, ty, s=1.0):
                                  _rot(-1.0, 40.25, -3.5, 1.02)])
 def test_k2_f32_one_frame_zero_and_direct(cuda, a23):
     """K2's float32 source at one frame (the compositing feed): the
-    wrapper passes the src->dst affine and the entry inverts it; the
-    window is larger than the frame, so tiles straddle its edges and some
-    are zero, the rest direct. All bit-equal to plain; the host dst->src
+    wrapper passes the coefficients of the kernel library's host inverse;
+    the window is larger than the frame, so tiles straddle its edges and
+    some are zero, the rest direct. All bit-equal to plain; inverse_coeffs'
     coefficients give the same warp and the same routes."""
     img = _float_frames(cuda, h=300, w=420)
     oh, ow = 331, 517
@@ -610,7 +607,7 @@ def test_k2_f32_one_frame_zero_and_direct(cuda, a23):
     assert WK.warp_frame.f32_launches == n0 + 1
     wp, mp = WK.warp_frame_plain(img, WK.inverse_coeffs(a23), oh, ow)
     assert torch.equal(wk, wp) and torch.equal(mk, mp)
-    r = _routes(img, a23[None], oh, ow, model=True)
+    r = _routes(img, a23[None], oh, ow, entry=True)
     assert r["zero"] > 0 and r["direct"] > 0
     assert sum(r.values()) == _n_tiles(1, oh, ow)
     assert _routes(img, a23[None], oh, ow) == r
@@ -623,7 +620,7 @@ def test_k2_f32_compositing_shape(cuda):
     rest direct, bit-equal to plain."""
     img = _float_frames(cuda, h=1061, w=1886, seed=12)
     a23 = _rot(0.01, 3.62, 9.41)
-    r = _routes(img, a23[None], 1088, 2048, model=True)
+    r = _routes(img, a23[None], 1088, 2048, entry=True)
     assert r["direct"] > r["zero"] > 0
     assert sum(r.values()) == _n_tiles(1, 1088, 2048)
 
@@ -631,8 +628,8 @@ def test_k2_f32_compositing_shape(cuda):
 @pytest.mark.gpu
 def test_k2_f32_singular_model_raises(cuda):
     """The wrapper's host test is inverse_coeffs' own: a singular affine
-    raises and launches nothing (the tile counter of a bare launch of the
-    model stays 0)."""
+    raises in host_inverse_coeffs and launches nothing (the tile counter of
+    a bare launch of its coefficients stays 0)."""
     img = _float_frames(cuda, h=20, w=30)
     n0 = WK.warp_frame.launches
     tiles = torch.zeros(len(WK.ROUTES), dtype=torch.int32, device=cuda)
@@ -642,7 +639,7 @@ def test_k2_f32_singular_model_raises(cuda):
             with pytest.raises(ValueError):
                 WK.warp_frame(src, a23, 17, 23)
             with pytest.raises(ValueError):
-                WK._launch(src, 1, WK._model_sets(a23), 17, 23, invert=True,
+                WK._launch(src, 1, WK.host_inverse_coeffs(a23), 17, 23,
                            tiles=tiles)
     assert WK.warp_frame.launches == n0
     assert tiles.tolist() == [0] * len(WK.ROUTES)
@@ -715,9 +712,9 @@ def test_k2_rotated_frame_every_source(cuda, deg):
     a23 = _rot(deg, 12000.5 - 11900.0, 130.25)
     oh, ow = 300, 400
     for content in WK.CONTENT_MODES:
-        r = _routes(u8, a23[None], oh, ow, content, model=True)
+        r = _routes(u8, a23[None], oh, ow, content, entry=True)
         assert r["direct"] > 0
-    r = _routes(u8.float(), a23[None], oh, ow, model=True)
+    r = _routes(u8.float(), a23[None], oh, ow, entry=True)
     assert r["direct"] > 0
     r = _routes(_i420_frames(cuda, h=148, w=230), a23[None], oh, ow,
                 i420_staged=False)
@@ -733,16 +730,16 @@ def test_k2_window_outside_the_frame_is_all_zero_tiles(cuda):
                        device=cuda)
     a23 = np.asarray([[1.0, 0.0, 500.25], [0.0, 1.0, -300.5]], np.float32)
     oh, ow = 61, 300
-    for src, kw in ((u8, {"model": True}), (u8.float(), {"model": True}),
+    for src, kw in ((u8, {"entry": True}), (u8.float(), {"entry": True}),
                     (_i420_frames(cuda, h=40, w=60), {"i420_staged": False})):
         r = _routes(src, a23[None], oh, ow, **kw)
         assert r == {"zero": _n_tiles(1, oh, ow), "direct": 0}
     # 1 / 1e-39 overflows: row 0's coordinates are NaN (inf * 0), the
     # rest infinite, so plain gives NaN, and no tile is zero; the affine is
-    # not singular, so the model's launch falls to the host coefficients
+    # not singular, so the host inverse launches its coefficients
     huge = np.asarray([[1.0, 0.0, 0.0], [0.0, 1e-39, 0.0]], np.float32)
     for src in (u8, u8.float()):
-        r = _routes(src, huge[None], 20, 30, model=True)
+        r = _routes(src, huge[None], 20, 30, entry=True)
         assert r == {"zero": 0, "direct": _n_tiles(1, 20, 30)}
 
 

@@ -72,6 +72,41 @@ def test_host_inverse_of_singular_affines_is_not_finite():
             WK.inverse_coeffs(a)
 
 
+_REGULAR = np.asarray([[0.9, 0.05, -2.3], [-0.04, 1.1, 1.7]], np.float32)
+_CONTRACT = [(a, True) for a in singular_affines()] + [
+    ([[1, 3e38, 0], [1, -3e38, 0]], True),      # u overflows to -inf
+    ([[1, 0, 0], [0, np.nan, 0]], True),        # u is NaN
+    ([[1e-30, 0, 3e38], [0, 1e-30, -3e38]], False)]   # i02, i12 overflow
+
+
+@pytest.mark.parametrize("a23,singular", _CONTRACT,
+                         ids=["dependent rows", "zero pivot", "u infinite",
+                              "u NaN", "translation overflows"])
+def test_singular_contract_on_the_cpu(a23, singular):
+    """inverse_coeffs, the CPU warp_frame / warp_frames and warp_planes of
+    a host array raise on exactly the singular affines (a zero pivot, or a
+    second pivot u that is zero or not finite), before any warp; an affine
+    whose inverse merely overflows warps with coefficients that are not
+    finite."""
+    a23 = np.asarray(a23, np.float32)
+    pair = np.stack([_REGULAR, a23])
+    calls = [lambda: WK.inverse_coeffs(a23),
+             lambda: WK.warp_planes(torch.ones((2, 6, 8)), pair, 4, 5)]
+    for frame in (torch.full((6, 8, 3), 7, dtype=torch.uint8),
+                  torch.full((6, 8, 3), 7.5)):
+        calls += [lambda f=frame: WK.warp_frame(f, a23, 4, 5),
+                  lambda f=frame: WK.warp_frames(torch.stack([f, f]), pair,
+                                                 4, 5)]
+    for call in calls:
+        if singular:
+            with pytest.raises(ValueError, match="singular"):
+                call()
+        else:
+            call()
+    if not singular:
+        assert not np.isfinite(WK.inverse_coeffs(a23)).all()
+
+
 def test_kernel_inverse_on_cpu_is_its_plain_version():
     a23s = bench_affines()[:17]
     assert torch.equal(WK.kernel_inverse_coeffs(t(a23s)),
