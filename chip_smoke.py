@@ -2199,16 +2199,16 @@ def _cut_value(lab, cs, ck, ch, cv) -> float:
 
 def _maxflow_check(torch, dev, solves, launches):
     """csrc/maxflow.cu on the seam problems a measured multi-line pass
-    solved (``solves``: each problem's four host grids and the labels the
-    pass got): each grid uploaded and contracted on the card once, the
+    solved (``solves``: each problem's four grids and the labels the pass
+    got, on the card): each problem contracted on the card once, the
     kernel's rounds beside rounds_plain's on that same ribbon (equal
     sides, rounds and relabels), the labels the pass's, and the host
     engine's or a tie with them (float64 cut values within 1e-6); the
     pass's ``launches`` one a batch of rounds. Returns the kernels line's
-    entry: ms the wrapper (upload to labels on the card), device_ms the
-    rounds between CUDA events, bound_ms 36 B a slot a round x slots x
-    rounds over 3.35 TB/s (a lower bound for this algorithm, not for the
-    cut), each summed over the solves."""
+    entry: ms min_cut (the card's grids to the labels on the host),
+    device_ms the rounds between CUDA events, bound_ms 36 B a slot a
+    round x slots x rounds over 3.35 TB/s (a lower bound for this
+    algorithm, not for the cut), each summed over the solves."""
     from drone_image_stitch_cpp_tpu_torch.ops import maxflow_kernel as MK
     from drone_image_stitch_cpp_tpu_torch.utils.native import (
         graphcut_native)
@@ -2217,9 +2217,9 @@ def _maxflow_check(torch, dev, solves, launches):
         _fail("maxflow", "the multi-line pass handed the card no seam "
                          "problem")
     rows, batches = [], 0
-    for prob, lab_pass in solves:
-        grids = [torch.from_numpy(np.ascontiguousarray(c, np.float32)).to(
-            dev) for c in prob]
+    for grids, lab_pass in solves:
+        prob = [c.cpu().numpy() for c in grids]
+        lab_pass = lab_pass.cpu().numpy()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         lab, counts = MK.min_cut(*grids)
@@ -2363,11 +2363,11 @@ def phase_multiline(torch, dev, ortho, imgs, ids, pos, tuning, first):
     seen = {}
     solves, scans = [], []
 
-    def solve_probe(*args):
+    def solve_probe(*grids):
         # each seam problem the global stage hands the card (its four
-        # grids, then the device), and its labels
-        lab = real_solve(*args)
-        solves.append((args[:4], lab))
+        # grids, on the card), and its labels, kept there
+        lab = real_solve(*grids)
+        solves.append((grids, lab))
         return lab
 
     def scan_probe(cost):

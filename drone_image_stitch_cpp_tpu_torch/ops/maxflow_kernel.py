@@ -366,19 +366,16 @@ def min_cut(cap_src, cap_snk, cap_h, cap_v):
 min_cut.launches = 0
 
 
-def graphcut_device(cap_src: np.ndarray, cap_snk: np.ndarray,
-                    cap_h: np.ndarray, cap_v: np.ndarray,
-                    device: torch.device) -> np.ndarray:
-    """:func:`utils.native.graphcut_native`'s labels, solved on ``device``
-    by :func:`min_cut`: one ``seam solve`` span from the upload of the
-    four capacity grids to the labels on the host, with ``nodes`` = h x w
-    and the counts ``device`` (1 on a card), ``free``, ``rounds`` and
-    ``relabels``."""
+def graphcut_device(cap_src: torch.Tensor, cap_snk: torch.Tensor,
+                    cap_h: torch.Tensor, cap_v: torch.Tensor
+                    ) -> torch.Tensor:
+    """:func:`utils.native.graphcut_native`'s labels, (h, w) uint8 on the
+    grids' device, of the four float32 capacity grids on one card, solved
+    there by :func:`min_cut`: one ``seam solve`` span from the
+    contraction to the last round, with ``nodes`` = h x w and the counts
+    ``device`` (1 on a card), ``free``, ``rounds`` and ``relabels``."""
     h, w = cap_src.shape
     with get_logger().span("seam solve", nodes=h * w) as counters:
-        grids = [torch.from_numpy(np.ascontiguousarray(c, np.float32)).to(
-            device) for c in (cap_src, cap_snk, cap_h, cap_v)]
-        lab, counts = min_cut(*grids)
-        lab = lab.cpu().numpy()
-        counters.update(device=int(device.type == "cuda"), **counts)
+        lab, counts = min_cut(cap_src, cap_snk, cap_h, cap_v)
+        counters.update(device=int(cap_src.is_cuda), **counts)
     return lab

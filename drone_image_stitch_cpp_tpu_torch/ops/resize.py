@@ -37,7 +37,10 @@ def _linear_weights_np(n_in: int, n_out: int) -> np.ndarray:
 
 
 def _weights(n_in: int, n_out: int, device) -> torch.Tensor:
-    return torch.from_numpy(_linear_weights_np(n_in, n_out)).to(device)
+    w = torch.from_numpy(_linear_weights_np(n_in, n_out))
+    if torch.device(device).type != "cpu":
+        resize_linear.uploaded += w.nbytes
+    return w.to(device)
 
 
 def _spatial_axes(img: torch.Tensor, channels_last: bool):
@@ -65,6 +68,10 @@ def resize_linear(img: torch.Tensor, out_h: int, out_w: int,
         wm = _weights(n_in, n_out, x.device)
         x = torch.movedim(torch.movedim(x, ax, -1) @ wm, -1, ax)
     return x
+
+
+resize_linear.uploaded = 0      # bytes of weights copied from the host to
+                                # a card, summed over every call
 
 
 def resize_area(img: torch.Tensor, out_h: int, out_w: int,

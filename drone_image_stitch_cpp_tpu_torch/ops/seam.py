@@ -9,8 +9,10 @@ Port of ``drone_image_stitch_cpp_tpu/ops/seam.py``:
   * detail::GraphCutSeamFinder(COST_COLOR_GRAD) analog of the global stage
     (stitch_global.cpp:585-619): a min-cut over the pair's union box, at
     full seam resolution through a coarse solve and a banded
-    full-resolution re-solve. The problems are built on the host; on a
-    CUDA device each is solved on the card by csrc/maxflow.cu
+    full-resolution re-solve. The problems are built in tensor code on
+    the device that holds the seam images, the same code on a card and
+    on the CPU, with the numpy statement's float32 grids; on a CUDA
+    device each is solved on the card by csrc/maxflow.cu
     (ops/maxflow_kernel.graphcut_device, push-relabel on the free ribbon
     with int64 residuals), elsewhere on the host by the port's
     Boykov-Kolmogorov solver, csrc/graphcut.cpp
@@ -33,7 +35,7 @@ import torch.nn.functional as F
 
 from ..runtime.logging import get_logger
 from .blend import align_up
-from .resize import resize_area
+from .resize import resize_area, resize_linear
 from .seam_kernel import seam_path
 
 _BIGCOST = 1e7
@@ -122,192 +124,232 @@ def _mask_bboxes(masks):
 
 
 GC_COARSE_NODES = 100_000    # above this many pixels the cut is banded
+_PIN = 1e8                   # a terminal capacity no cut can afford
+
+
+def _host(*vals) -> list:
+    """The host values of a few bool or integer device scalars, stacked
+    into one copy; a copy from a card adds its bytes to ``_host.bytes``."""
+    t = torch.stack([v.to(torch.int64) for v in vals])
+    if t.device.type != "cpu":
+        _host.bytes += t.nbytes
+    return t.tolist()
+
+
+_host.bytes = 0
+
+
+def _moved() -> int:
+    """Bytes the graph cut's problem builds have moved between host and
+    card so far: scalar reads and the area resize's weight matrices."""
+    return _host.bytes + resize_linear.uploaded
+
+
+def _first(occupied: torch.Tensor) -> torch.Tensor:
+    """Index of the first True of a bool vector (0 when there is none)."""
+    return occupied.to(torch.uint8).argmax()
+
+
+def _anchored(ma: torch.Tensor, mb: torch.Tensor) -> torch.Tensor:
+    """Device bool: each mask has a pixel the other lacks, so both
+    terminals of the problem are anchored (no fully nested masks)."""
+    return (ma & ~mb).any() & (mb & ~ma).any()
 
 
 def _gc_problem(a, b, ma, mb):
-    """(cap_src, cap_snk, cap_h, cap_v) of one min-cut seam problem
-    (COST_COLOR_GRAD analog) on host arrays, or None when no exclusive
-    region anchors a terminal (fully nested masks)."""
-    diff = np.sqrt(((a - b) ** 2).sum(-1) + 1e-6)
-    gray_a = a.mean(-1)
-    gray_b = b.mean(-1)
+    """(cap_src, cap_snk, cap_h, cap_v) float32 of one min-cut seam problem
+    (COST_COLOR_GRAD analog) on the tensors' device; :func:`_anchored`
+    says whether it has both terminals. The grids are the numpy
+    statement's bit for bit: the channel sums are float32 adds in channel
+    order and the grey is that sum divided by a 3 held on the device, as
+    numpy's float32 ``sum`` and ``mean`` compute them (CUDA divides by a
+    host scalar through its reciprocal); the root is taken in float64 and
+    rounded once to float32, numpy's correctly rounded float32 root (the
+    CPU's vectorised float32 root is not correctly rounded)."""
+    d = a - b
+    d = d * d
+    diff = torch.sqrt(((d[..., 0] + d[..., 1]) + d[..., 2] + 1e-6).to(
+        torch.float64)).to(torch.float32)
+    three = torch.full((), 3.0, dtype=torch.float32, device=a.device)
 
-    def grad(g):
-        gx = np.zeros_like(g)
-        gy = np.zeros_like(g)
-        gx[:, 1:-1] = 0.5 * np.abs(g[:, 2:] - g[:, :-2])
-        gy[1:-1, :] = 0.5 * np.abs(g[2:, :] - g[:-2, :])
+    def grad(x):
+        g = ((x[..., 0] + x[..., 1]) + x[..., 2]) / three
+        gx = torch.zeros_like(g)
+        gy = torch.zeros_like(g)
+        gx[:, 1:-1] = 0.5 * (g[:, 2:] - g[:, :-2]).abs()
+        gy[1:-1, :] = 0.5 * (g[2:, :] - g[:-2, :]).abs()
         return gx + gy
 
-    gsum = grad(gray_a) + grad(gray_b)
-    big = np.float32(1e8)
-    cap_src = np.where(ma & ~mb, big, 0.0).astype(np.float32)
-    cap_snk = np.where(mb & ~ma, big, 0.0).astype(np.float32)
-    if cap_src.max() == 0.0 or cap_snk.max() == 0.0:
-        return None
+    gsum = grad(a) + grad(b)
+    cap_src = (ma & ~mb).to(torch.float32) * _PIN
+    cap_snk = (mb & ~ma).to(torch.float32) * _PIN
     # color difference damped by the local gradient, so the seam prefers
     # running along real edges
-    cost = (diff / (1.0 + 0.5 * gsum) + 1e-3).astype(np.float32)
-    inb = (ma & mb).astype(np.float32)
-    cap_h = ((cost[:, :-1] + cost[:, 1:]) * 0.5
-             * np.maximum(inb[:, :-1], inb[:, 1:])).astype(np.float32)
-    cap_v = ((cost[:-1, :] + cost[1:, :]) * 0.5
-             * np.maximum(inb[:-1, :], inb[1:, :])).astype(np.float32)
+    cost = diff / (1.0 + 0.5 * gsum) + 1e-3
+    inb = (ma & mb).to(torch.float32)
     # outside-the-union pixels carry no edges
-    union = (ma | mb).astype(np.float32)
-    cap_h *= np.minimum(union[:, :-1], union[:, 1:])
-    cap_v *= np.minimum(union[:-1, :], union[1:, :])
+    union = (ma | mb).to(torch.float32)
+    cap_h = ((cost[:, :-1] + cost[:, 1:]) * 0.5
+             * torch.maximum(inb[:, :-1], inb[:, 1:])
+             * torch.minimum(union[:, :-1], union[:, 1:]))
+    cap_v = ((cost[:-1, :] + cost[1:, :]) * 0.5
+             * torch.maximum(inb[:-1, :], inb[1:, :])
+             * torch.minimum(union[:-1, :], union[1:, :]))
     return cap_src, cap_snk, cap_h, cap_v
 
 
-def _dilate(mask: np.ndarray, band: int, device) -> np.ndarray:
+def _dilate(mask: torch.Tensor, band: int) -> torch.Tensor:
     """Bool mask dilated by a (2 band + 1)^2 square (cv2.dilate with a
-    square kernel), as two 1-D max-pools on ``device``."""
+    square kernel), as two 1-D max-pools on its device."""
     k = 2 * band + 1
-    x = torch.from_numpy(mask.astype(np.float32)).to(device)[None, None]
+    x = mask.to(torch.float32)[None, None]
     x = F.max_pool2d(x, (k, 1), stride=1, padding=(band, 0))
     x = F.max_pool2d(x, (1, k), stride=1, padding=(0, band))
-    return (x[0, 0] > 0.5).cpu().numpy()
+    return x[0, 0] > 0.5
 
 
-def _seam_band(lab: np.ndarray, band: int, device) -> np.ndarray:
+def _seam_band(lab: torch.Tensor, band: int) -> torch.Tensor:
     """Bool mask of pixels within ``band`` px (Chebyshev) of a label
     edge."""
-    bm = np.zeros(lab.shape, bool)
+    bm = torch.zeros(lab.shape, dtype=torch.bool, device=lab.device)
     dh = lab[:, :-1] != lab[:, 1:]
     bm[:, :-1] |= dh
     bm[:, 1:] |= dh
     dv = lab[:-1, :] != lab[1:, :]
     bm[:-1, :] |= dv
     bm[1:, :] |= dv
-    return _dilate(bm, band, device)
+    return _dilate(bm, band)
 
 
-def _cut_touches(lab, pinned) -> bool:
-    """True when any label discontinuity has a pinned endpoint."""
+def _cut_touches(lab: torch.Tensor, pinned: torch.Tensor) -> torch.Tensor:
+    """Device bool: a label discontinuity has a pinned endpoint."""
     dh = lab[:, :-1] != lab[:, 1:]
-    if (dh & (pinned[:, :-1] | pinned[:, 1:])).any():
-        return True
     dv = lab[:-1, :] != lab[1:, :]
-    return bool((dv & (pinned[:-1, :] | pinned[1:, :])).any())
+    return ((dh & (pinned[:, :-1] | pinned[:, 1:])).any()
+            | (dv & (pinned[:-1, :] | pinned[1:, :])).any())
 
 
-def _resize_nearest(a: np.ndarray, nh: int, nw: int) -> np.ndarray:
-    """cv2.resize INTER_NEAREST: source index floor(i * n_in / n_out)."""
-    h, w = a.shape[:2]
-    ys = np.minimum(np.floor(np.arange(nh) * (h / nh)).astype(np.int64),
-                    h - 1)
-    xs = np.minimum(np.floor(np.arange(nw) * (w / nw)).astype(np.int64),
-                    w - 1)
-    return a[ys[:, None], xs[None, :]]
+def _resize_nearest(x: torch.Tensor, nh: int, nw: int) -> torch.Tensor:
+    """cv2.resize INTER_NEAREST: source index floor(i * n_in / n_out),
+    in float64 as numpy computes it; one gather on the tensor's device."""
+    h, w = x.shape[:2]
+
+    def index(n_out, n_in):
+        i = torch.arange(n_out, dtype=torch.float64, device=x.device)
+        return (i * (n_in / n_out)).floor().to(torch.int64).clamp(
+            max=n_in - 1)
+
+    return x[index(nh, h)[:, None], index(nw, w)[None, :]]
 
 
-def _resize_area_np(a: np.ndarray, nh: int, nw: int) -> np.ndarray:
-    return resize_area(torch.from_numpy(np.ascontiguousarray(a)), nh,
-                       nw).numpy()
-
-
-def _solve(prob, device):
-    """Min-cut labels of one problem (cap_src, cap_snk, cap_h, cap_v):
-    on a CUDA ``device`` by the card's kernel, elsewhere by the host
-    engine (None without a C++ compiler)."""
-    if device.type == "cuda":
+def _solve(prob):
+    """Min-cut labels (h, w) uint8 of one problem (cap_src, cap_snk,
+    cap_h, cap_v) on its tensors' device: on a card by the card's kernel,
+    on the CPU by the host engine (None without a C++ compiler)."""
+    if prob[0].is_cuda:
         from .maxflow_kernel import graphcut_device
-        return graphcut_device(*prob, device)
+        return graphcut_device(*prob)
     from ..utils.native import graphcut_native
-    return graphcut_native(*prob)
+    lab = graphcut_native(*(c.numpy() for c in prob))
+    return None if lab is None else torch.from_numpy(lab)
 
 
-def graphcut_pairwise_seam(img_a, img_b, mask_a, mask_b, device):
-    """Min-cut seam on the overlap of two host images (GraphCutSeamFinder
+def graphcut_pairwise_seam(img_a, img_b, mask_a, mask_b):
+    """Min-cut seam on the overlap of two images (GraphCutSeamFinder
     COST_COLOR_GRAD analog, stitch_global.cpp:616-619).
+
+    img_*: (H, W, 3) with whole-number values 0..255 (uint8 or float);
+    mask_*: (H, W) bool; all on one device, where the problems are built
+    and solved and the new masks returned: only a few scalars cross to
+    the host, one read before each branch (the overlap and the union's
+    box; the coarse overlap and both terminals; the widen test).
 
     The cut is solved at full seam resolution: above GC_COARSE_NODES a
     coarse solve picks the seam corridor, then a full-resolution re-solve
     runs with every overlap pixel farther than the band from the coarse
     seam pinned to its coarse side; a cut that presses against the band
-    widens it and re-solves once. The band dilation and, on a card, the
-    solves run on ``device``. Returns (new_mask_a, new_mask_b) numpy
-    bool, or None when the host solver is unavailable, there is no
+    widens it and re-solves once. The ``seam problem`` spans carry
+    ``device`` (1: the grids were built on a card). Returns (new_mask_a,
+    new_mask_b), or None when the host solver is unavailable, there is no
     overlap, or no exclusive region anchors a terminal (callers fall back
     to the DP seam).
     """
     span = get_logger().span
-    with span("seam problem"):
-        a = np.asarray(img_a, np.float32)
-        b = np.asarray(img_b, np.float32)
-        ma = np.asarray(mask_a, bool)
-        mb = np.asarray(mask_b, bool)
-        if not (ma & mb).any():
+    card = int(mask_a.is_cuda)
+    with span("seam problem", device=card):
+        a = img_a.to(torch.float32)
+        b = img_b.to(torch.float32)
+        ma = mask_a.to(torch.bool)
+        mb = mask_b.to(torch.bool)
+        h, w = ma.shape
+        union = ma | mb
+        rows, cols = union.any(dim=1), union.any(dim=0)
+        overlap, y0, y_end, x0, x_end = _host(
+            (ma & mb).any(), _first(rows), _first(rows.flip(0)),
+            _first(cols), _first(cols.flip(0)))
+        if not overlap:
             return None
-        ys, xs = np.where(ma | mb)
-        y0, y1 = int(ys.min()), int(ys.max()) + 1
-        x0, x1 = int(xs.min()), int(xs.max()) + 1
-        a_, b_ = a[y0:y1, x0:x1], b[y0:y1, x0:x1]
-        ma_, mb_ = ma[y0:y1, x0:x1], mb[y0:y1, x0:x1]
-        fh, fw = a_.shape[:2]
+        box = (slice(y0, h - y_end), slice(x0, w - x_end))
+        a_, b_, ma_, mb_ = a[box], b[box], ma[box], mb[box]
+        fh, fw = ma_.shape
         both = ma_ & mb_
         coarse = fh * fw > GC_COARSE_NODES
         if coarse:
             sc = (GC_COARSE_NODES / float(fh * fw)) ** 0.5
             nh = max(2, int(fh * sc))
             nw = max(2, int(fw * sc))
-            ac = _resize_area_np(a_, nh, nw)
-            bc = _resize_area_np(b_, nh, nw)
             mac = _resize_nearest(ma_, nh, nw)
             mbc = _resize_nearest(mb_, nh, nw)
-            if not (mac & mbc).any():
-                return None
-            prob = _gc_problem(ac, bc, mac, mbc)
+            prob = _gc_problem(resize_area(a_.contiguous(), nh, nw),
+                               resize_area(b_.contiguous(), nh, nw),
+                               mac, mbc)
+            # the coarse masks sample the fine ones, so coarse terminals
+            # anchor the fine problem's too
+            ok = (mac & mbc).any() & _anchored(mac, mbc)
         else:
             prob = _gc_problem(a_, b_, ma_, mb_)
-    if prob is None:
-        return None
-    labels = _solve(prob, device)
+            ok = _anchored(ma_, mb_)
+        if not _host(ok)[0]:
+            return None
+    labels = _solve(prob)
     if labels is None:
         return None
-    lab = labels.astype(bool)
+    lab = labels.to(torch.bool)
     if coarse:
-        with span("seam problem"):
+        with span("seam problem", device=card):
             lab_up = _resize_nearest(lab, fh, fw)
-            prob_f = _gc_problem(a_, b_, ma_, mb_)
-        if prob_f is None:
-            return None
-        cap_src, cap_snk, cap_h, cap_v = prob_f
-        big = np.float32(1e8)
+            cap_src, cap_snk, cap_h, cap_v = _gc_problem(a_, b_, ma_, mb_)
         # wide enough to cover >= 3 coarse pixels of nearest quantisation
         band = max(32, int(round(3.0 / sc)))
         for attempt in range(2):
             with span("seam band"):
-                in_band = _seam_band(lab_up, band, device)
-                pin_a = both & ~in_band & lab_up
-                pin_b = both & ~in_band & ~lab_up
-                cs2 = cap_src.copy()
-                ck2 = cap_snk.copy()
-                cs2[pin_a] = big
-                ck2[pin_b] = big
-            labels = _solve((cs2, ck2, cap_h, cap_v), device)
+                fixed = both & ~_seam_band(lab_up, band)
+                pin_a = fixed & lab_up
+                pin_b = fixed & ~lab_up
+                cs2 = torch.where(pin_a, _PIN, cap_src)
+                ck2 = torch.where(pin_b, _PIN, cap_snk)
+            labels = _solve((cs2, ck2, cap_h, cap_v))
             if labels is None:
                 return None
-            lab = labels.astype(bool)
+            lab = labels.to(torch.bool)
             if attempt == 0:
                 with span("seam band"):
-                    widen = _cut_touches(lab, pin_a | pin_b)
+                    widen = _host(_cut_touches(lab, pin_a | pin_b))[0]
                 if widen:
                     band *= 2
                     continue
             break
     with span("seam fetch"):
-        new_a = ma.copy()
-        new_b = mb.copy()
-        new_a[y0:y1, x0:x1] = (ma_ & ~mb_) | (both & lab)
-        new_b[y0:y1, x0:x1] = (mb_ & ~ma_) | (both & ~lab)
+        new_a = ma.clone()
+        new_b = mb.clone()
+        new_a[box] = (ma_ & ~mb_) | (both & lab)
+        new_b[box] = (mb_ & ~ma_) | (both & ~lab)
     return new_a, new_b
 
 
-def _to_u8(img: torch.Tensor) -> np.ndarray:
-    """Round-and-saturate to uint8 on the device, then one host copy."""
-    return img.round().clamp(0.0, 255.0).to(torch.uint8).cpu().numpy()
+def _to_u8(img: torch.Tensor) -> torch.Tensor:
+    """Round-and-saturate to uint8 on the image's device."""
+    return img.round().clamp(0.0, 255.0).to(torch.uint8)
 
 
 def find_seams_sequential(images, masks, axes=None, method: str = "dp",
@@ -320,9 +362,11 @@ def find_seams_sequential(images, masks, axes=None, method: str = "dp",
     the intersection box padded to a 64-px grid (the JAX package's crop,
     kept so both packages cut the same windows); ``axes``: per-adjacent-
     pair seam axis from the transform geometry. ``method="graphcut"``: the
-    min-cut over the pair's union box (256-px grid), copied to the host
-    as uint8 with the masks, falling back to the DP seam where
-    :func:`graphcut_pairwise_seam` returns None. ``methods``: optional dict
+    min-cut over the pair's union box (256-px grid), quantised to uint8
+    on the images' device and cut there with the masks, falling back to
+    the DP seam where :func:`graphcut_pairwise_seam` returns None; the
+    ``seam fetch`` span that closes each pair carries ``bytes``, what its
+    problem builds moved between host and card. ``methods``: optional dict
     that receives the method that cut each pair. Returns the new mask
     list; the input mask tensors are updated in place.
     """
@@ -345,16 +389,17 @@ def find_seams_sequential(images, masks, axes=None, method: str = "dp",
                 uy1 = min(h, uy0 + align_up(max(bi[1], bj[1]) - uy0, 256))
                 ux1 = min(w, ux0 + align_up(max(bi[3], bj[3]) - ux0, 256))
                 usl = (slice(uy0, uy1), slice(ux0, ux1))
+                moved = _moved()
                 with log.span("seam fetch"):
-                    host = (_to_u8(images[i][usl]), _to_u8(images[j][usl]),
-                            masks[i][usl].cpu().numpy(),
-                            masks[j][usl].cpu().numpy())
-                got = graphcut_pairwise_seam(*host, masks[i].device)
+                    pair = (_to_u8(images[i][usl]), _to_u8(images[j][usl]),
+                            masks[i][usl], masks[j][usl])
+                got = graphcut_pairwise_seam(*pair)
+                with log.span("seam fetch") as fetch:
+                    if got is not None:
+                        masks[i][usl] = got[0]
+                        masks[j][usl] = got[1]
+                    fetch["bytes"] = _moved() - moved
                 if got is not None:
-                    dev = masks[i].device
-                    with log.span("seam fetch"):
-                        masks[i][usl] = torch.from_numpy(got[0]).to(dev)
-                        masks[j][usl] = torch.from_numpy(got[1]).to(dev)
                     if methods is not None:
                         methods[(i, j)] = "graphcut"
                     continue

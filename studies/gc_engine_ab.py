@@ -7,7 +7,7 @@ in one process.
     python studies/gc_engine_ab.py [--seed 1] [--height 1600] \\
         [--width 3500] [--rounds 3] [--out FILE]
     python studies/gc_engine_ab.py --workload area-3x20-4k --seed N \\
-        [--rounds 3] [--out FILE]
+        [--rounds 3|0] [--out FILE]
 
 Without ``--workload`` the problems are synthetic: a union box of
 ``--height`` x ``--width`` over smooth random terrain, the second image
@@ -29,11 +29,22 @@ harness without its warm-up and with a one-sortie window, every solve
 ``ops/maxflow_kernel.graphcut_device`` on the card) is recorded, and each
 recorded problem is solved again here by every engine.
 
+With ``--workload`` each problem is also held to the numpy path that
+built the seam problems on the host before they were built on the images'
+device (``tests/test_torch_seam_build.pairwise_seam_np``, run on each
+pair's union box as the sortie handed it over, its problems solved by the
+sortie's engine): grid elements and labels that differ and, where labels
+differ, both labellings' float64 cut values on the numpy path's problem;
+the head line sums it up (``numpy_path``: problems, grids and labels
+equal, tie nodes, other nodes, masks' differing pixels). ``--rounds 0``
+makes that comparison alone.
+
 Each problem is solved by the engines in turns, ``ref, new, dev, dev, new,
 ref`` a round: for the host engines the whole ``tm_graphcut`` call (graph
 build, solve and labels); for the card (``dev``, only where
-``torch.cuda.is_available()``) the whole ``graphcut_device`` call (the
-four grids' upload, contraction, rounds and the labels' fetch), and beside
+``torch.cuda.is_available()``) the whole ``graphcut_device`` call on the
+four grids already on the card (contraction, rounds, until the labels
+are ready on the card), and beside
 it the rounds alone (``rounds_kernel`` on the contracted problem, between
 two CUDA events). The reference's counts (augmentations and orphans
 processed; every root is active at its start) come from an untimed copy of
@@ -66,6 +77,8 @@ sys.path.insert(0, ROOT)
 
 import drone_image_stitch_cpp_tpu_torch.ops.maxflow_kernel as M  # noqa: E402
 from drone_image_stitch_cpp_tpu_torch.ops import seam as S  # noqa: E402
+from drone_image_stitch_cpp_tpu_torch.ops.resize import (  # noqa: E402
+    resize_area)
 from drone_image_stitch_cpp_tpu_torch.utils import native as N  # noqa: E402
 
 FPTR = np.ctypeslib.ndpointer(dtype=np.float32, flags="C")
@@ -173,71 +186,128 @@ def synthetic_pair(seed, h, w):
 
 
 def synthetic_problems(seed, h, w):
-    """[(name, (cap_src, cap_snk, cap_h, cap_v))], and whether the fine
-    cut presses on its band: ``graphcut_pairwise_seam``'s coarse, fine and
-    widened problems of the synthetic pair (the union box is the whole
-    (h, w) grid)."""
-    a, b, ma, mb = synthetic_pair(seed, h, w)
+    """[(name, (cap_src, cap_snk, cap_h, cap_v))] as host arrays, and
+    whether the fine cut presses on its band: ``graphcut_pairwise_seam``'s
+    coarse, fine and widened problems of the synthetic pair (the union box
+    is the whole (h, w) grid), built by its own helpers on CPU tensors."""
+    a, b, ma, mb = [torch.from_numpy(x)
+                    for x in synthetic_pair(seed, h, w)]
     both = ma & mb
     sc = (S.GC_COARSE_NODES / float(h * w)) ** 0.5
     nh, nw = max(2, int(h * sc)), max(2, int(w * sc))
-    coarse = S._gc_problem(S._resize_area_np(a, nh, nw),
-                           S._resize_area_np(b, nh, nw),
-                           S._resize_nearest(ma, nh, nw),
-                           S._resize_nearest(mb, nh, nw))
-    lab_up = S._resize_nearest(N.graphcut_native(*coarse).astype(bool), h, w)
+
+    def host(prob):
+        return tuple(c.numpy() for c in prob)
+
+    coarse = host(S._gc_problem(
+        resize_area(a, nh, nw), resize_area(b, nh, nw),
+        S._resize_nearest(ma, nh, nw), S._resize_nearest(mb, nh, nw)))
+    lab_up = S._resize_nearest(torch.from_numpy(
+        N.graphcut_native(*coarse)).to(torch.bool), h, w)
     cap_src, cap_snk, cap_h, cap_v = S._gc_problem(a, b, ma, mb)
     out = [("coarse", coarse)]
     band = max(32, int(round(3.0 / sc)))
     touches = None
     for name in ("fine", "widened"):
-        in_band = S._seam_band(lab_up, band, torch.device("cpu"))
-        pin_a = both & ~in_band & lab_up
-        pin_b = both & ~in_band & ~lab_up
-        cs2, ck2 = cap_src.copy(), cap_snk.copy()
-        cs2[pin_a] = np.float32(1e8)
-        ck2[pin_b] = np.float32(1e8)
-        out.append((f"{name} band {band}", (cs2, ck2, cap_h, cap_v)))
+        fixed = both & ~S._seam_band(lab_up, band)
+        pin_a, pin_b = fixed & lab_up, fixed & ~lab_up
+        prob = host((torch.where(pin_a, S._PIN, cap_src),
+                     torch.where(pin_b, S._PIN, cap_snk), cap_h, cap_v))
+        out.append((f"{name} band {band}", prob))
         if touches is None:
-            touches = S._cut_touches(
-                N.graphcut_native(cs2, ck2, cap_h, cap_v).astype(bool),
-                pin_a | pin_b)
+            touches = bool(S._cut_touches(
+                torch.from_numpy(N.graphcut_native(*prob)).to(torch.bool),
+                pin_a | pin_b))
         band *= 2
     return out, touches
 
 
 def cell_problems(workload, seed, cpu_tiny):
-    """[(name, problem)] of every ``graphcut_native`` call in one sortie
-    of ``workload``, through the benchmark's harness."""
+    """[(name, problem)] of every solve in one sortie of ``workload``,
+    through the benchmark's harness, and each problem's comparison with
+    the numpy path the problems were built by before they were built on
+    the images' device (``tests/test_torch_seam_build.pairwise_seam_np``
+    on the same union boxes, each of its problems solved by the same
+    engine): grid elements and labels that differ, the float64 cut
+    values of both labellings on the numpy path's problem where labels
+    differ, and the masks' differing pixels."""
     sys.path.insert(0, os.path.join(ROOT, "benchmark"))
     from mosaicbench import harness as H
     sys.path.insert(0, os.path.join(ROOT, "studies"))
     from span_census import TINY, TINY_AREA
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_seam_build import pairwise_seam_np
     real, real_dev = N.graphcut_native, M.graphcut_device
-    seen = []
+    real_pair = S.graphcut_pairwise_seam
+    seen, labels, pairs = [], [], []
 
     def recording(*prob):
         seen.append([np.array(c, np.float32) for c in prob])
-        return real(*prob)
+        lab = real(*prob)
+        labels.append(None if lab is None else np.array(lab))
+        return lab
 
-    def recording_dev(*prob_dev):
-        seen.append([np.array(c, np.float32) for c in prob_dev[:4]])
-        return real_dev(*prob_dev)
+    def recording_dev(*prob):
+        seen.append([c.cpu().numpy() for c in prob])
+        lab = real_dev(*prob)
+        labels.append(lab.cpu().numpy())
+        return lab
+
+    def recording_pair(*args):
+        # copies before the call: the masks are views the stage carves
+        inputs = [x.cpu().numpy().copy() for x in args]
+        first = len(seen)
+        out = real_pair(*args)
+        pairs.append((inputs, first, len(seen), None if out is None else
+                      [m.cpu().numpy().copy() for m in out]))
+        return out
 
     ov = {**TINY, **(TINY_AREA if workload.startswith("area") else {})} \
         if cpu_tiny else {}
     ov["traffic"] = {**ov.get("traffic", {}), "warmup": False}
     dev = torch.device("cpu" if cpu_tiny else "cuda:0")
     N.graphcut_native, M.graphcut_device = recording, recording_dev
+    S.graphcut_pairwise_seam = recording_pair
     try:
         with contextlib.redirect_stdout(sys.stderr):
             result, _ = H.run_cell(workload, seed, 0.0, 0, dev, ov)
     finally:
         N.graphcut_native, M.graphcut_device = real, real_dev
+        S.graphcut_pairwise_seam = real_pair
     if not result["correct"]:
         raise SystemExit(f"the sortie was not correct: {result['checks']}")
-    return [(f"{workload} call {i} ({p[0].shape[0]}x{p[0].shape[1]})", p)
-            for i, p in enumerate(seen)]
+
+    def solve_np(*prob):
+        if dev.type == "cpu":
+            return real(*prob)
+        return real_dev(*[torch.from_numpy(np.ascontiguousarray(
+            c, np.float32)).to(dev) for c in prob]).cpu().numpy()
+
+    parent = [None] * len(seen)
+    for k, (args, first, end, masks) in enumerate(pairs):
+        want, want_probs = pairwise_seam_np(*args, solve_np)
+        mask_differ = None
+        if (want is None) == (masks is None) and want is not None:
+            mask_differ = sum(int((x != y).sum())
+                              for x, y in zip(masks, want))
+        for i, prob_np in zip(range(first, end), want_probs):
+            prob_np = [np.ascontiguousarray(c, np.float32) for c in prob_np]
+            lab_np = solve_np(*prob_np)
+            rec = {"pair": k,
+                   "parent_path_problems": len(want_probs),
+                   "grids_differ": sum(
+                       int((x != y).sum()) if x.shape == y.shape else -1
+                       for x, y in zip(seen[i], prob_np)),
+                   "labels_differ": int((labels[i] != lab_np).sum()),
+                   "masks_differ": mask_differ,
+                   "masks_none": [masks is None, want is None]}
+            if rec["labels_differ"]:
+                rec["cut_values"] = [cut_value(x, *prob_np)
+                                     for x in (labels[i], lab_np)]
+            parent[i] = rec
+    names = [f"{workload} call {i} ({p[0].shape[0]}x{p[0].shape[1]})"
+             for i, p in enumerate(seen)]
+    return list(zip(names, seen)), parent
 
 
 def card_rounds_s(prob, dev):
@@ -266,16 +336,24 @@ def ab(name, prob, new, ref, counted, ref_counts, rounds, dev=None):
     flow = {}
     dev_runs = []
 
+    grids = None if dev is None else [torch.from_numpy(c).to(dev)
+                                      for c in (cs, ck, ch, cv)]
+
     def run(which):
+        if which == "dev":
+            torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         if which == "dev":
-            lab[which] = M.graphcut_device(cs, ck, ch, cv, dev)
-            dev_runs.append(lab[which])
+            out = M.graphcut_device(*grids)
+            torch.cuda.synchronize(dev)
         elif which == "new":
             flow[which] = new(h, w, cs, ck, ch, cv, lab[which], counts)
         else:
             flow[which] = ref(h, w, cs, ck, ch, cv, lab[which])
         secs[which].append(time.perf_counter() - t0)
+        if which == "dev":
+            lab[which] = out.cpu().numpy()
+            dev_runs.append(lab[which])
 
     for _ in range(rounds):
         for which in engines_ + engines_[::-1]:
@@ -311,6 +389,30 @@ def ab(name, prob, new, ref, counted, ref_counts, rounds, dev=None):
     return rec
 
 
+def numpy_path_summary(parent):
+    """A cell's comparison with the numpy path: problems, those whose
+    grids and labels are bit-equal, the tie nodes (labels that differ
+    where both labellings' float64 cut values are equal) and the nodes
+    that differ otherwise, and the masks' differing pixels."""
+    ties = other = 0
+    for r in parent:
+        if r is None or not r["labels_differ"]:
+            continue
+        cuts = r["cut_values"]
+        if abs(cuts[0] - cuts[1]) <= 1e-9 * max(abs(cuts[1]), 1.0):
+            ties += r["labels_differ"]
+        else:
+            other += r["labels_differ"]
+    known = [r for r in parent if r is not None]
+    return {"problems": len(parent), "compared": len(known),
+            "grids_equal": sum(r["grids_differ"] == 0 for r in known),
+            "labels_equal": sum(r["labels_differ"] == 0 for r in known),
+            "tie_nodes": ties, "other_nodes": other,
+            "masks_differ": sum(r["masks_differ"] or 0 for r in known),
+            "none_agree": all(r["masks_none"][0] == r["masks_none"][1]
+                              for r in known)}
+
+
 def card():
     try:
         return subprocess.run(
@@ -331,14 +433,18 @@ def main():
     ap.add_argument("--cpu-tiny", action="store_true")
     ap.add_argument("--out")
     args = ap.parse_args()
-    if args.rounds < 1:
-        raise SystemExit("--rounds must be at least 1")
+    if args.rounds < 0 or (args.rounds == 0 and not args.workload):
+        raise SystemExit("--rounds must be at least 1 (0: with --workload, "
+                         "the comparison with the numpy path alone)")
     new, ref, counted, ref_counts = engines()
     dev = torch.device("cuda", 0) if torch.cuda.is_available() else None
     head = {"card": card(), "cpu": os.cpu_count(), "seed": args.seed}
+    parent = None
     if args.workload:
-        probs = cell_problems(args.workload, args.seed, args.cpu_tiny)
+        probs, parent = cell_problems(args.workload, args.seed,
+                                      args.cpu_tiny)
         head["workload"] = args.workload
+        head["numpy_path"] = numpy_path_summary(parent)
     else:
         probs, touches = synthetic_problems(args.seed, args.height,
                                             args.width)
@@ -346,9 +452,13 @@ def main():
                     fine_cut_touches=touches)
     print(json.dumps(head), flush=True)
     recs = [head]
-    for name, prob in probs:
-        rec = ab(name, prob, new, ref, counted, ref_counts, args.rounds,
-                 dev)
+    for i, (name, prob) in enumerate(probs):
+        rec = {"problem": name, "nodes": int(prob[0].size)}
+        if args.rounds:
+            rec = ab(name, prob, new, ref, counted, ref_counts,
+                     args.rounds, dev)
+        if parent is not None:
+            rec["numpy_path"] = parent[i]
         print(json.dumps(rec), flush=True)
         recs.append(rec)
     if args.out:

@@ -275,8 +275,9 @@ def test_graphcut_labels_agree_with_jax():
     assert probs[-1][0].shape[0] * probs[-1][0].shape[1] > TS.GC_COARSE_NODES
     for a, b, ma, mb in probs:
         gj = JS.graphcut_pairwise_seam(a, b, ma, mb)
-        gt_ = TS.graphcut_pairwise_seam(a, b, ma, mb, CPU)
+        gt_ = TS.graphcut_pairwise_seam(t(a), t(b), t(ma), t(mb))
         assert gj is not None and gt_ is not None
+        gt_ = [n(m) for m in gt_]
         both = ma & mb
         agree = float((gt_[0][both] == gj[0][both]).mean())
         assert agree >= 0.995, agree
@@ -284,7 +285,8 @@ def test_graphcut_labels_agree_with_jax():
         np.testing.assert_array_equal(gt_[0] | gt_[1], ma | mb)
     img = np.zeros((16, 16, 3), np.float32)
     mask = np.ones((16, 16), bool)
-    assert TS.graphcut_pairwise_seam(img, img, mask, mask, CPU) is None
+    assert TS.graphcut_pairwise_seam(t(img), t(img), t(mask), t(mask)) \
+        is None
 
 
 def test_find_seams_graphcut_and_dp_fallback():

@@ -214,9 +214,15 @@ def _record_problems(monkeypatch, pair):
         return real(*prob)
 
     monkeypatch.setattr(N, "graphcut_native", recording)
-    masks = S.graphcut_pairwise_seam(*pair, CPU)
+    masks = S.graphcut_pairwise_seam(*_tensors(pair))
     monkeypatch.setattr(N, "graphcut_native", real)
     return seen, masks
+
+
+def _tensors(arrays, device=CPU):
+    """Host arrays as tensors on ``device``."""
+    return [torch.from_numpy(np.ascontiguousarray(x)).to(device)
+            for x in arrays]
 
 
 def test_banded_problem_widens_and_matches_reference(ref, monkeypatch):
@@ -238,17 +244,17 @@ def test_banded_problem_widens_and_matches_reference(ref, monkeypatch):
 @pytest.mark.parametrize("pair", [_small_pair, _banded_pair])
 def test_pairwise_seam_masks_equal_with_either_library(ref, monkeypatch,
                                                        pair):
-    args = pair()
-    port = S.graphcut_pairwise_seam(*args, CPU)
+    args = _tensors(pair())
+    port = S.graphcut_pairwise_seam(*args)
 
     def reference(cs, ck, ch, cv):
         return solve_ref(ref, cs, ck, ch, cv)[0]
 
     monkeypatch.setattr(N, "graphcut_native", reference)
-    with_ref = S.graphcut_pairwise_seam(*args, CPU)
+    with_ref = S.graphcut_pairwise_seam(*args)
     assert port is not None and with_ref is not None
     for m_p, m_r in zip(port, with_ref):
-        np.testing.assert_array_equal(m_p, m_r)
+        np.testing.assert_array_equal(m_p.numpy(), m_r.numpy())
 
 
 def test_seam_solve_span_carries_the_engine_counts(ref):

@@ -116,16 +116,17 @@ def test_plain_seam_masks_are_the_jax_packages(monkeypatch):
     pair = E._banded_pair()
     calls = []
 
-    def plain(prob, device):
-        calls.append(prob[0].shape)
-        return M.min_cut(*_tensors(prob))[0].numpy()
+    def plain(prob):
+        calls.append(tuple(prob[0].shape))
+        return M.min_cut(*prob)[0]
 
     monkeypatch.setattr(S, "_solve", plain)
-    got = S.graphcut_pairwise_seam(*pair, CPU)
+    got = S.graphcut_pairwise_seam(*E._tensors(pair))
     monkeypatch.undo()
     assert calls == [(200, 500), (400, 1000), (400, 1000)]
     want = JS.graphcut_pairwise_seam(*pair)
     assert got is not None and want is not None
+    got = [m.numpy() for m in got]
     ma, mb = pair[2], pair[3]
     both = ma & mb
     assert float((got[0][both] == want[0][both]).mean()) >= 0.995
@@ -200,7 +201,8 @@ def test_fixed_point_scale_holds_the_largest_seam_problem(engine):
     b = np.full((h, w, 3), 255.0, np.float32)
     rows = np.arange(h)[:, None] * np.ones((1, w), int)
     ma, mb = rows < 70, rows >= 26
-    cs, ck, ch, cv = S._gc_problem(a, b, ma, mb)
+    cs, ck, ch, cv = [c.numpy() for c in S._gc_problem(
+        *E._tensors((a, b, ma, mb)))]
     assert 441.0 < ch.max() < 443.0
     both = ma & mb
     cs[both & (rows < 40)] = 1e8
@@ -279,18 +281,79 @@ def test_kernel_repeats_bit_for_bit(cuda, monkeypatch):
 @pytest.mark.gpu
 def test_pairwise_seam_masks_equal_on_card_and_host(cuda, engine, ref,
                                                     monkeypatch):
-    """The card's masks equal the host engine's, and those of the host
-    path solved by the JAX package's solver (native/graphcut.cpp)."""
+    """The card's masks, built and cut on the card and returned there,
+    equal the host engine's on CPU tensors, and those of the CPU path
+    solved by the JAX package's solver (native/graphcut.cpp)."""
     pair = E._banded_pair()
-    host = S.graphcut_pairwise_seam(*pair, CPU)
-    card = S.graphcut_pairwise_seam(*pair, cuda)
+    host = S.graphcut_pairwise_seam(*E._tensors(pair))
+    card = S.graphcut_pairwise_seam(*E._tensors(pair, cuda))
     monkeypatch.setattr(N, "graphcut_native",
                         lambda *prob: E.solve_ref(ref, *prob)[0])
-    with_ref = S.graphcut_pairwise_seam(*pair, CPU)
+    with_ref = S.graphcut_pairwise_seam(*E._tensors(pair))
     assert host is not None and card is not None and with_ref is not None
     for m_h, m_c, m_r in zip(host, card, with_ref):
-        np.testing.assert_array_equal(m_c, m_h)
-        np.testing.assert_array_equal(m_c, m_r)
+        assert m_c.is_cuda and m_c.dtype == torch.bool
+        np.testing.assert_array_equal(m_c.cpu().numpy(), m_h.numpy())
+        np.testing.assert_array_equal(m_c.cpu().numpy(), m_r.numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair", ["small", "banded"])
+def test_card_grids_equal_the_cpu_grids(cuda, engine, monkeypatch, pair):
+    """The four capacity grids built on the card equal the CPU tensors'
+    bit for bit: the whole box's problem, and every fine problem the
+    pairwise path hands each solver (the coarse one may differ in its
+    last bits: the area resize's sums run in another order)."""
+    arrays = (E._small_pair if pair == "small" else E._banded_pair)()
+    for c, h in zip(S._gc_problem(*E._tensors(arrays, cuda)),
+                    S._gc_problem(*E._tensors(arrays))):
+        assert c.is_cuda and c.dtype == torch.float32
+        assert c.cpu().numpy().tobytes() == h.numpy().tobytes()
+    card, host = [], []
+    real_dev, real_host = M.graphcut_device, N.graphcut_native
+
+    def on_card(*prob):
+        card.append([c.cpu().numpy() for c in prob])
+        return real_dev(*prob)
+
+    def on_host(*prob):
+        host.append([np.array(c) for c in prob])
+        return real_host(*prob)
+
+    monkeypatch.setattr(M, "graphcut_device", on_card)
+    monkeypatch.setattr(N, "graphcut_native", on_host)
+    S.graphcut_pairwise_seam(*E._tensors(arrays, cuda))
+    S.graphcut_pairwise_seam(*E._tensors(arrays))
+    assert [p[0].shape for p in card] == [p[0].shape for p in host]
+    assert len(card) == (3 if pair == "banded" else 1)
+    fine = card[1:] if pair == "banded" else card
+    for p_c, p_h in zip(fine, host[len(host) - len(fine):]):
+        for c, h in zip(p_c, p_h):
+            assert c.tobytes() == h.tobytes()
+
+
+@pytest.mark.gpu
+def test_seam_spans_say_the_problem_stayed_on_the_card(cuda, engine):
+    """On a card the ``seam problem`` spans carry ``device`` 1 and the
+    pair's closing ``seam fetch`` under 1 KB of ``bytes`` (a few scalar
+    reads); on CPU tensors ``device`` 0 and ``bytes`` 0."""
+    log = get_logger()
+    a, b, ma, mb = E._banded_pair()
+    for dev, flag in ((cuda, 1), (CPU, 0)):
+        n0 = len(log._records)
+        methods = {}
+        S.find_seams_sequential(E._tensors((a, b), dev),
+                                E._tensors((ma, mb), dev),
+                                method="graphcut", methods=methods)
+        assert methods == {(0, 1): "graphcut"}
+        recs = log._records[n0:]
+        problems = [r for r in recs if r["msg"] == "seam problem done"]
+        assert len(problems) == 2
+        assert all(r["device"] == flag for r in problems)
+        moved = [r["bytes"] for r in recs
+                 if r["msg"] == "seam fetch done" and "bytes" in r]
+        assert len(moved) == 1
+        assert (0 < moved[0] < 1024) if flag else moved[0] == 0
 
 
 @pytest.mark.gpu
@@ -299,7 +362,7 @@ def test_seam_solve_span_and_launch_counter(cuda, engine):
     n0 = len(log._records)
     launches = M.min_cut.launches
     pair = E._banded_pair()
-    S.graphcut_pairwise_seam(*pair, cuda)
+    S.graphcut_pairwise_seam(*E._tensors(pair, cuda))
     recs = [r for r in log._records[n0:] if r["msg"] == "seam solve done"]
     # coarse, fine, widened: each a solve on the card
     assert [r["nodes"] for r in recs] == [200 * 500, 400 * 1000,
@@ -314,7 +377,7 @@ def test_seam_solve_span_and_launch_counter(cuda, engine):
         assert all(type(r[k]) is int
                    for k in ("device", "free", "rounds", "relabels"))
     n0 = len(log._records)
-    S.graphcut_pairwise_seam(*pair, CPU)
+    S.graphcut_pairwise_seam(*E._tensors(pair))
     recs = [r for r in log._records[n0:] if r["msg"] == "seam solve done"]
     assert [r["device"] for r in recs] == [0, 0, 0]
     assert all("augments" in r and "rounds" not in r for r in recs)
